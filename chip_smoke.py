@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases parity,twins   # a subset (its last line says so)
     python3 chip_smoke.py --phases pushsum        # the PushSum runs alone
     python3 chip_smoke.py --phases graphs         # static graph generation
+    python3 chip_smoke.py --phases sharded        # the sharded backend
 
 Phases, each printing its own line:
 
@@ -109,10 +110,26 @@ Phases, each printing its own line:
               Poisson rejection branch), each printing its transcript, wall
               seconds and peak memory; then the rows where graphs.erdos's
               table on the card parts from the CPU's at n = 1e6, lam 5, 8,
-              12 and 60, which must be none.
+              12 and 60, which must be none;
+8. sharded -- the sharded backend with SHARDS = 8 shards laid out on the
+              card (config 5's mesh): fused_recv_land bit-exact to
+              recv_land_plain at the sharded paths' shapes (sharded_10m's
+              compacted batch, 8 x 25,831 lanes; the same with the
+              duplicate filter, fanout 6 crash 0; pushsum10m's window, 8
+              x 4,375,000 lanes x 12 mass columns; an overflow case),
+              timed beside its bound; cuda-vs-cpu twins on 2 and 8
+              shards (SI, SI crash 0, SIR, erdos, erdos -pallas, PushSum)
+              that must launch fused_recv_land; then sharded_10m
+              (bench.py's row: headline_jax's flags, -backend sharded) at
+              n = 1e7 under the default gates and -phase2-kernel xla (one
+              transcript; fused_recv_land only under the first),
+              pushsum10m with -backend sharded (mass conserved, nothing
+              dropped), and config 5 at n = 1e8 with its wall seconds and
+              peak memory.
 
 With --profile, a full-size run (--profile-run: the default run, one
-of the ring engine's runs, or pushsum; n = --profile-n, 1e7 by default)
+of the ring engine's runs, pushsum, erdos or sharded, the last on 8
+shards; n = --profile-n, 1e7 by default)
 is repeated under torch.profiler (device busy share, kernels by device
 time; the profiler's bookkeeping adds minutes).  Then the `kernels` JSON
 line (launches summed over the full-size runs, each run counted from 0),
@@ -1154,9 +1171,9 @@ KOUT_N = 100_000_000  # headline_jax: 1e8 nodes, fanout 3
 ERDOS_N = 10_000_000  # sir_10m_erdos: 1e7 nodes, lam = fanout 8
 ERDOS_WIDE_N = 1_000_000  # lam = 60: cap 111, the JAX kernel's lam limit
 PLAIN_ROWS = {"kout": 10_000_000, "erdos": 1_000_000}  # plain row blocks
-# Rows of graphs.erdos's 1e6-row table where the card parts from the CPU
-# (float64 log and lgamma of two libraries): 0 at lam 5, 8, 12 and 60 in
-# every call measured (ROADMAP C5).
+# Rows of graphs.erdos's 1e6-row table where the card parts from the CPU:
+# 0, as the Poisson sampler's XLA float32 log and lgamma are IEEE torch
+# operations on both (utils/rng.py, ROADMAP C5).
 ERDOS_CARD_CPU_PARTED = 0
 
 
@@ -1273,35 +1290,46 @@ def graph_parity(dev) -> dict:
 # --- phases 4-5: the port's main path ----------------------------------------
 
 
-def run_port(argv, device, keep_friends: bool = False):
+def _mass_totals(state, cfg) -> list:
+    """PushSum's Sigma x and Sigma w over one state or a list of shards."""
+    from gossip_simulator_tpu_torch.models import pushsum
+
+    shards = state if isinstance(state, list) else [state]
+    per = [pushsum.conserved_totals(st, cfg) for st in shards]
+    return [sum(col) for col in zip(*per)]
+
+
+def run_port(argv, device, keep_friends: bool = False, shards=None):
     """One run through the user entry points; returns (transcript,
-    RunResult, stepper, wall seconds).  The stepper also records the wall
-    seconds of phase 1 (`phase1_s`; 0 for a static graph), the rounds
-    overlay's largest live spill after any round (`spill_peak`, pairs of
-    both types) and, with `keep_friends`, the friends table at the end of
-    phase 1 on the host (`friends_p1`)."""
-    from gossip_simulator_tpu_torch import TorchStepper, run_simulation
+    RunResult, stepper, wall seconds).  With `shards`, the sharded backend
+    lays that many shards out on the one device (``ShardedStepper(cfg,
+    n_devices=shards)``).  The stepper also records the wall seconds of
+    phase 1 (`phase1_s`; 0 for a static graph), the rounds overlay's
+    largest live spill after any round (`spill_peak`, pairs of both types)
+    and, with `keep_friends`, the friends table at the end of phase 1 on
+    the host (`friends_p1`)."""
+    from gossip_simulator_tpu_torch import run_simulation
+    from gossip_simulator_tpu_torch.backends import (ShardedStepper,
+                                                     TorchStepper)
     from gossip_simulator_tpu_torch.config import parse_cli
     from gossip_simulator_tpu_torch.models.state import OverlayState
     from gossip_simulator_tpu_torch.utils.metrics import ProgressPrinter
 
-    class Timed(TorchStepper):
+    class Timed(TorchStepper if shards is None else ShardedStepper):
         spill_peak = 0
 
         def seed(self):
             super().seed()
             if self.cfg.model == "pushsum":
-                from gossip_simulator_tpu_torch.models import pushsum
-
                 # Sigma x, Sigma w before the first window (ring empty).
-                self.initial_totals = pushsum.conserved_totals(self.state,
-                                                               self.cfg)
+                self.initial_totals = _mass_totals(self.state, self.cfg)
 
         def overlay_window(self):
             out = super().overlay_window()
-            if isinstance(self.ostate, OverlayState):
-                live = int((self.ostate.mk_spill[1] >= 0).sum()
-                           + (self.ostate.bk_spill[1] >= 0).sum())
+            ostate = getattr(self, "ostate", None)
+            if isinstance(ostate, OverlayState):
+                live = int((ostate.mk_spill[1] >= 0).sum()
+                           + (ostate.bk_spill[1] >= 0).sum())
                 self.spill_peak = max(self.spill_peak, live)
             if out[2] and not hasattr(self, "phase1_s"):
                 if device == "cuda":
@@ -1313,7 +1341,8 @@ def run_port(argv, device, keep_friends: bool = False):
 
     cfg, _ = parse_cli(argv)
     out = io.StringIO()
-    stepper = Timed(cfg, device=device)
+    stepper = (Timed(cfg, device=device) if shards is None
+               else Timed(cfg, n_devices=shards, device=device))
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1467,16 +1496,17 @@ def _full_line(name, n, out, res, st, wall, counts) -> str:
             f"{torch.cuda.max_memory_allocated()} B; launches {counts}")
 
 
-def full_run(name, n, argv, keep_friends=False):
-    """One full-size run through the user entry points with every launch
-    count set to 0 just before it; fails unless it converged.  Returns
-    (transcript, RunResult, stepper, launches, wall seconds)."""
+def full_run(name, n, argv, keep_friends=False, shards=None):
+    """One full-size run through the user entry points (on `shards` shards
+    of the card with the sharded backend) with every launch count set to
+    0 just before it; fails unless it converged.  Returns (transcript,
+    RunResult, stepper, launches, wall seconds)."""
     from gossip_simulator_tpu_torch.ops import _build
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    out, res, st, wall = run_port(argv, "cuda", keep_friends)
+    out, res, st, wall = run_port(argv, "cuda", keep_friends, shards)
     counts = dict(_build.LAUNCHES)
     if not res.converged:
         fail(f"full {name}: did not converge:\n{out}")
@@ -1662,8 +1692,6 @@ def phase_pushsum(n: int) -> dict:
     report() dict and the same final state leaves, drop nothing, and end
     with the initial Sigma x and Sigma w.  Returns the launches of each
     run by name."""
-    from gossip_simulator_tpu_torch.models import pushsum
-
     runs, first = {}, None
     for name, gate, launched, idle in (
             ("pushsum10m", [], (DRAIN, "fused_ring_append"),
@@ -1680,7 +1708,7 @@ def phase_pushsum(n: int) -> dict:
             fail(f"full {name}: launches {counts}, expected {launched}")
         if res.stats.mailbox_dropped != 0:
             fail(f"full {name}: mail_dropped {res.stats.mailbox_dropped}")
-        totals = pushsum.conserved_totals(st.state, st.cfg)
+        totals = _mass_totals(st.state, st.cfg)
         if totals != st.initial_totals:
             fail(f"full {name}: mass not conserved: {totals} after, "
                  f"{st.initial_totals} before")
@@ -1720,8 +1748,8 @@ def phase_graphs(n_kout: int, n_erdos: int, n_wide: int) -> dict:
     a sender, the rejection branch).  Each prints its transcript, wall
     seconds and peak memory.  Then the rows where graphs.erdos's table on
     the card parts from the CPU's, at n = 1e6 for lam = 5, 8, 12 and 60
-    (utils/rng.poisson: float64 log and lgamma in the rejection branch),
-    held to ERDOS_CARD_CPU_PARTED.  Returns the launches of each run by
+    (utils/rng.poisson: XLA's float32 log and lgamma), held to
+    ERDOS_CARD_CPU_PARTED.  Returns the launches of each run by
     name."""
     from gossip_simulator_tpu_torch.config import Config
     from gossip_simulator_tpu_torch.models import graphs
@@ -1785,6 +1813,258 @@ def phase_graphs(n_kout: int, n_erdos: int, n_wide: int) -> dict:
     return runs
 
 
+# --- phase 8: the sharded backend, S shards laid out on the one card --------
+
+SHARDS = 8  # config 5's mesh (BASELINE.json: v5e-8), on one card
+SHARDED_N = 10_000_000  # sharded_10m (bench.py's row at S = 8)
+SHARDED_BIG_N = 100_000_000  # config 5, "100M nodes sharded"
+RECV = "fused_recv_land"
+
+
+def sharded_argv(n: int) -> list:
+    """sharded_10m's flags (headline_jax's, -backend sharded) at n."""
+    return ["-backend", "sharded", "-graph", "kout", "-n", str(n),
+            "-fanout", "3", "-crashrate", "0.001", "-coverage-target",
+            "0.90", "-pallas", "-seed", "0"]
+
+
+def recv_shapes(argv, shards: int) -> dict:
+    """The sharded event engine's receive-side shapes under `argv` on
+    `shards` shards: a compacted emission batch's wire buffer is shards x
+    chernoff_cap(scap * k) lanes."""
+    from gossip_simulator_tpu_torch.config import parse_cli
+    from gossip_simulator_tpu_torch.models import event
+    from gossip_simulator_tpu_torch.parallel import exchange
+
+    cfg, _ = parse_cli(argv)
+    nl, k = cfg.n // shards, cfg.fanout  # a kout table is fanout wide
+    dw, b = event.ring_windows(cfg), event.batch_ticks(cfg)
+    cap, ccap = event.slot_cap(cfg, nl), event.drain_chunk(cfg, nl)
+    scap = event.sender_compaction_cap(cfg, ccap)
+    rcap = exchange.chernoff_cap(scap * k, shards)
+    return dict(n_local=nl, dw=dw, b=b, cap=cap, ccap=ccap, scap=scap,
+                rcap=rcap, fill=-(-scap * k // shards),
+                length=dw * cap + event.ring_tail(cfg, nl))
+
+
+def pushsum_recv_shapes(n: int, shards: int) -> dict:
+    """PushSum's receive-side shapes at n on `shards` shards: one window's
+    wire buffer of shards x epidemic_cap lanes (sized, as in the JAX
+    package, by the table's max_degree), 12 mass columns."""
+    from gossip_simulator_tpu_torch.config import parse_cli
+    from gossip_simulator_tpu_torch.models import pushsum
+    from gossip_simulator_tpu_torch.parallel import exchange
+
+    cfg, _ = parse_cli(pushsum_argv(n) + ["-backend", "sharded"])
+    nl, k = n // shards, cfg.graph_width
+    return dict(n_local=nl, dw=pushsum.ring_windows(cfg),
+                b=pushsum.batch_ticks(cfg), cap=pushsum.slot_cap(cfg, nl),
+                rcap=min(exchange.epidemic_cap(nl, k, shards), nl * k),
+                fill=nl * k // shards, length=pushsum.ring_len(cfg, nl),
+                width=pushsum.mass_cols(cfg))
+
+
+def _wire(gen, dev, shards, rcap, fill, n_local, dw, b, width=None):
+    """A received wire buffer: per source shard a bucket of rcap lanes
+    whose first `fill` hold wire words (row, slot, offset) and the rest
+    -1; with `width`, the (lanes, width) limb rows beside it (-1 in the
+    empty slots, as the exchange leaves them)."""
+    m = shards * rcap
+    ri = lambda hi: torch.randint(0, hi, (m,), generator=gen,  # noqa: E731
+                                  device=dev, dtype=torch.int32)
+    live = torch.arange(m, device=dev) % rcap < fill
+    recv = torch.where(live, ri(n_local) * (dw * b) + ri(dw) * b + ri(b),
+                       -1).to(torch.int32)
+    words = None
+    if width is not None:
+        words = torch.where(live[:, None], _limb_rows(gen, dev, m, width),
+                            -1).to(torch.int32)
+    return recv, words
+
+
+def recv_parity(dev, gen, reps: int) -> dict:
+    """fused_recv_land at the sharded paths' shapes, S = 8: a compacted
+    emission batch of sharded_10m (n_local 1.25e6, dw 3, b 10, scap
+    65,536: 8 x 25,831 lanes) without the duplicate filter, the same batch
+    of the fanout-6 crash-0 run (dup_suppress on: flags), PushSum's window
+    at n = 1e7 (8 x 4.375e6 lanes, 12 mass columns), and an overflow case
+    (a small cap: the trash cell and the drop count).  Each is bit-exact
+    to recv_land_plain; the row times the first case."""
+    from gossip_simulator_tpu_torch.ops import megakernel
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    ev = recv_shapes(sharded_argv(SHARDED_N), SHARDS)
+    dup = recv_shapes(["-backend", "sharded", "-graph", "kout", "-n",
+                       str(SHARDED_N), "-fanout", "6", "-crashrate", "0"],
+                      SHARDS)
+    ps = pushsum_recv_shapes(PUSHSUM_N, SHARDS)
+    say(f"recv shapes: sharded_10m {ev}; fanout-6 crash-0 {dup}; "
+        f"pushsum10m {ps}")
+    row = None
+    for name, sh, flags, width, small_cap in (
+            ("event", ev, False, None, None),
+            ("event_dup", dup, True, None, None),
+            ("pushsum", ps, False, ps["width"], None),
+            ("overflow", ev, False, None, 30_000)):
+        cap = small_cap or sh["cap"]
+        length = sh["dw"] * cap + 1 if small_cap else sh["length"]
+        recv, words = _wire(gen, dev, SHARDS, sh["rcap"], sh["fill"],
+                            sh["n_local"], sh["dw"], sh["b"], width)
+        cnt0 = torch.randint(cap // 4 if small_cap is None else cap - 3000,
+                             cap // 2 if small_cap is None else cap - 2000,
+                             (1, sh["dw"]), generator=gen, **i32)
+        fl = ((torch.rand(sh["n_local"] + 1, generator=gen, device=dev)
+               < 0.5).to(torch.uint8) if flags else None)
+        kw = dict(dw=sh["dw"], cap=cap, b=sh["b"], flags=fl)
+
+        def fresh():
+            st = [torch.zeros(length, **i32), cnt0.clone(),
+                  torch.zeros((), **i32)]
+            if width:
+                st.append(torch.zeros((length, width), **i32))
+            return st
+
+        def call(fn, st):
+            out = fn(st[0], st[1], st[2], recv, words=words,
+                     mail_words=st[3] if width else None, **kw)
+            return [out[3]]
+
+        out, err, t_k, t_p = check_and_time(
+            f"{RECV}[{name}]", megakernel.recv_land_plain,
+            megakernel.fused_recv_land, fresh, call,
+            lambda st: (st[1].copy_(cnt0), st[2].zero_()), reps)
+        m = recv.numel()
+        live = int((recv >= 0).sum())
+        landed = int((out[1] - cnt0).sum())
+        dropped = int(out[2])
+        if small_cap and not dropped:
+            fail(f"{RECV}[{name}]: the overflow case dropped nothing")
+        w = width or 0
+        # Each wire word in; a flag byte and a words row per live lane in;
+        # each landed entry and its words row out.
+        nbytes = (m * 4 + live * ((1 if flags else 0) + 4 * w)
+                  + landed * (4 + 4 * w))
+        bnd, by = bound_ms(nbytes, m * 30)
+        say(f"{RECV}[{name}]: bit-exact over {m} lanes ({live} live, "
+            f"{landed} landed, {dropped} dropped, sup "
+            f"{out[-1].tolist()}; cap {cap}, {w} word columns); kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd:.5f} ms ({by})")
+        if row is None:
+            row = dict(route="cuda",
+                       source="gossip_simulator_tpu_torch/csrc/"
+                              "fused_recv_land.cu",
+                       replaces="gossip_simulator_tpu/ops/"
+                                "pallas_megakernel.py:328",
+                       max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
+                       bound_by=by, library_ms=None)
+        else:
+            row[f"{name}_max_abs_err"] = err
+            row.update({f"{name}_ms": t_k, f"{name}_plain_ms": t_p,
+                        f"{name}_bound_ms": bnd, f"{name}_bound_by": by})
+        del out, recv, words, fl
+        torch.cuda.empty_cache()
+    return row
+
+
+def sharded_twins(n: int) -> None:
+    """cuda-vs-cpu twins of the sharded backend at n on 2 and 8 shards:
+    identical transcripts and final state leaves, and fused_recv_land
+    launched on the card."""
+    import numpy as np
+
+    from gossip_simulator_tpu_torch.ops import _build
+
+    kout = ["-backend", "sharded", "-graph", "kout", "-n", str(n),
+            "-fanout", "6", "-seed", "1"]
+    erdos = ["-backend", "sharded", "-graph", "erdos", "-n", str(n),
+             "-fanout", "8", "-seed", "1"]
+    cases = (("si", kout, ()), ("si_crash0", kout + ["-crashrate", "0"], ()),
+             ("sir", kout + ["-protocol", "sir", "-removal-rate", "0.3",
+                             "-droprate", "0.3"], ()),
+             ("erdos", erdos, ()),
+             # The shards' slices take the fold_in generator (no
+             # erdos_pallas), as the JAX package's traced row0 does.
+             ("erdos_pallas", erdos + ["-pallas"], ("erdos_pallas",)),
+             ("pushsum", pushsum_argv(n, seed=1) + ["-backend", "sharded"],
+              ()))
+    for shards in (2, SHARDS):
+        for name, argv, idle in cases:
+            _build.reset_launches()
+            out_g, res_g, st_g, wall_g = run_port(argv, "cuda",
+                                                  shards=shards)
+            launches = dict(_build.LAUNCHES)
+            out_c, _, st_c, wall_c = run_port(argv, "cpu", shards=shards)
+            tag = f"sharded twin {name} S={shards}"
+            if out_g != out_c:
+                fail(f"{tag}: cuda and cpu transcripts differ:\n{out_g}\n"
+                     f"---\n{out_c}")
+            tg, tc = st_g.state_pytree(), st_c.state_pytree()
+            bad = [k for k in tc if not np.array_equal(tg[k], tc[k])]
+            if bad or set(tg) != set(tc):
+                fail(f"{tag}: final state leaves differ: {bad}")
+            if launches[RECV] <= 0 or any(launches[k] for k in idle):
+                fail(f"{tag}: launches {launches}")
+            say(f"{tag}: cuda == cpu (transcript, {len(tc)} leaves); "
+                f"{res_g.stats.total_message} messages, converged="
+                f"{res_g.converged}; cuda {wall_g:.2f} s, cpu "
+                f"{wall_c:.2f} s; launches {launches}")
+
+
+def phase_sharded(dev, n: int, n_ps: int, n_big: int, reps: int) -> tuple:
+    """The seventh slice's path, the sharded backend on SHARDS shards of
+    the card: fused_recv_land's parity, the cuda-vs-cpu twins, then
+    sharded_10m under the default gates (fused_recv_land) and with
+    -phase2-kernel xla (the decode and ring-append chain: no
+    fused_recv_land), which must give one transcript; PushSum at n_ps
+    (pushsum10m's flags, -backend sharded), conserving the mass; and
+    config 5 at n_big under the default gates, with wall seconds and peak
+    memory.  Returns (the kernel's row, the launches of each run)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    row = recv_parity(dev, gen, reps)
+    sharded_twins(TWIN_N)
+    runs, outs = {}, {}
+    for name, gate, recv_on in (("sharded_10m", [], True),
+                                ("sharded_10m_p2_xla",
+                                 ["-phase2-kernel", "xla"], False)):
+        outs[name], res, st, runs[name], _ = full_run(
+            name, n, sharded_argv(n) + gate, shards=SHARDS)
+        del st
+        if (runs[name][RECV] > 0) != recv_on or runs[name]["kout_pallas"] \
+                <= 0:
+            fail(f"full {name}: launches {runs[name]}")
+        if res.stats.exchange_overflow:
+            fail(f"full {name}: exchange_overflow "
+                 f"{res.stats.exchange_overflow}")
+    if strip_notes(outs["sharded_10m"]) != strip_notes(
+            outs["sharded_10m_p2_xla"]):
+        fail("full sharded_10m: default and -phase2-kernel xla transcripts "
+             "differ")
+    _transcript("sharded_10m", outs["sharded_10m"])
+    say("full sharded_10m: default and -phase2-kernel xla transcripts "
+        "identical")
+    out, res, st, runs["pushsum10m_sharded"], _ = full_run(
+        "pushsum10m_sharded", n_ps,
+        pushsum_argv(n_ps) + ["-backend", "sharded"], shards=SHARDS)
+    totals = _mass_totals(st.state, st.cfg)
+    if (res.stats.mailbox_dropped or res.stats.exchange_overflow
+            or totals != st.initial_totals
+            or runs["pushsum10m_sharded"][RECV] <= 0):
+        fail(f"full pushsum10m_sharded: dropped "
+             f"{res.stats.mailbox_dropped}, overflow "
+             f"{res.stats.exchange_overflow}, mass {totals} vs "
+             f"{st.initial_totals}, launches {runs['pushsum10m_sharded']}")
+    say(f"full pushsum10m_sharded: report {res.report}; mass conserved")
+    del st
+    out, res, st, runs["sharded_100m"], wall = full_run(
+        "sharded_100m", n_big, sharded_argv(n_big), shards=SHARDS)
+    del st
+    _transcript("sharded_100m", out)
+    say(f"full sharded_100m: wall {wall:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated()} B")
+    return row, runs
+
+
 def _dev_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, attr, None)
@@ -1808,6 +2088,7 @@ PROFILE_KERNELS = (
     ("fused_deposit_rows", ("deposit_rows",)),
     ("fused_deposit_both", ("deposit_both",)),
     (DRAIN, ("drain_sum",)),
+    (RECV, ("recv_count", "recv_scan", "recv_write", "recv_finish")),
     ("kout_pallas", ("kout",)),
     ("erdos_pallas", ("erdos",)))
 
@@ -1824,6 +2105,7 @@ PROFILE_RUNS = {
                          "-n", str(n), "-seed", "0", "-rumors", "16",
                          "-crashrate", "0", "-coverage-target", "0.95"],
     "pushsum": pushsum_argv,
+    "sharded": sharded_argv,
     "erdos": lambda n: ["-graph", "erdos", "-n", str(n), "-fanout", "8",
                         "-protocol", "sir", "-removal-rate", "0.2",
                         "-coverage-target", "0.8", "-seed", "0"],
@@ -1844,7 +2126,8 @@ def phase_profile(n: int, out_path: str, run: str = "default") -> None:
     _build.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, res, _, wall = run_port(argv, "cuda")
+        _, res, _, wall = run_port(
+            argv, "cuda", shards=SHARDS if run == "sharded" else None)
     launches = dict(_build.LAUNCHES)
     ka = prof.key_averages()
     # Device-side events only: an aten op's row repeats its kernels' time.
@@ -1876,7 +2159,8 @@ def phase_profile(n: int, out_path: str, run: str = "default") -> None:
                 f"{calls} launches ({us / calls:.2f} us per launch)")
 
 
-PHASES = ("parity", "twins", "full", "rounds", "ring", "pushsum", "graphs")
+PHASES = ("parity", "twins", "full", "rounds", "ring", "pushsum", "graphs",
+          "sharded")
 
 
 def kernel_rows(kernels: dict, runs: dict) -> list:
@@ -1971,6 +2255,11 @@ def main() -> int:
         runs.update(phase_pushsum(PUSHSUM_N))
     if "graphs" in phases:
         runs.update(phase_graphs(KOUT_N, ERDOS_N, ERDOS_WIDE_N))
+    if "sharded" in phases:
+        row, sharded_runs = phase_sharded(dev, SHARDED_N, PUSHSUM_N,
+                                          SHARDED_BIG_N, REPS)
+        kernels[RECV] = row
+        runs.update(sharded_runs)
     say(f"full-size runs: {', '.join(runs)} ({time.perf_counter() - t0:.1f} "
         "s since the build started)")
 

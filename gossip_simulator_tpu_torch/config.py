@@ -348,6 +348,12 @@ class Config:
         return 16 if flat_addressing_fits(rows, 16) else 8
 
     @property
+    def exchange_pipeline_resolved(self) -> str:
+        """"off": one process holds every shard, so the exchange has no
+        collective to overlap (``double`` is not yet ported)."""
+        return "off"
+
+    @property
     def phase2_kernel_resolved(self) -> str:
         """"xla" (the unfused emission chain) or "pallas" (the fused_emit
         kernel on the card, its plain version on the CPU)."""
@@ -534,8 +540,15 @@ class Config:
         """Name every flag value outside the ported slices."""
         if self.backend in ("native", "cpp"):
             raise NotYetPorted(f"-backend {self.backend}", "A16")
-        if self.backend == "sharded" or self.distributed:
-            raise NotYetPorted("-backend sharded / -distributed", "A13")
+        if self.distributed:
+            raise NotYetPorted("-distributed", "A13")
+        if self.exchange_pipeline == "double":
+            raise NotYetPorted("-exchange-pipeline double", "A13")
+        if self.backend == "sharded" and (self.graph == "overlay"
+                                          or self.engine_resolved != "event"):
+            raise NotYetPorted(
+                "-backend sharded with -graph overlay, -engine ring, "
+                "-time-mode rounds or -protocol pushpull", "A13")
         if self.graph == "overlay":
             self._reject_unported_overlay()
         if self.traffic != "oneshot" or (
@@ -616,7 +629,6 @@ UNPORTED_FLAGS = {
     "resume": ("-resume", "A7"),
     "ckpt_keep": ("-ckpt-keep", "A7"),
     "run_id": ("-run-id", "A7"),
-    "exchange_pipeline": ("-exchange-pipeline", "A13"),
     "coordinator": ("-coordinator", "A13"),
     "num_processes": ("-num-processes", "A13"),
     "process_id": ("-process-id", "A13"),

@@ -5,9 +5,11 @@ reference-format transcript (simulator.go:207-255), the explicit-gate
 and estimated-clock notes, the windowed phase-1 loop (one line per poll
 window or round until the overlay quiesces; a static graph quiesces at
 once), the windowed phase-2 loop with its max-rounds liveness bound, and
-the final totals.  JSONL, traces, checkpoints, serving and supervision
-are not yet ported; a PushSum run's result payload (the JAX package's
-JSONL-only ``pushsum.report``) comes back in ``RunResult.report``.
+the final totals, on one device (``TorchStepper``) or on S shards of it
+(``ShardedStepper``, ``-backend sharded``).  JSONL, traces, checkpoints,
+serving and supervision are not yet ported; a PushSum run's result
+payload (the JAX package's JSONL-only ``pushsum.report``) comes back in
+``RunResult.report``.
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from gossip_simulator_tpu_torch.backends import (Stepper, TorchStepper,
-                                                 WINDOW_MS)
+from gossip_simulator_tpu_torch.backends import (ShardedStepper, Stepper,
+                                                 TorchStepper, WINDOW_MS)
 from gossip_simulator_tpu_torch.config import Config
 from gossip_simulator_tpu_torch.utils.metrics import ProgressPrinter, Stats
 
@@ -41,9 +43,17 @@ def run_simulation(cfg: Config, printer: Optional[ProgressPrinter] = None,
     A missing card raises; nothing falls back to the CPU."""
     cfg = cfg.validate()
     printer = printer or ProgressPrinter(enabled=cfg.progress)
-    stepper = stepper or TorchStepper(cfg, device=device)
+    if stepper is None:
+        stepper = (ShardedStepper(cfg, device=device)
+                   if cfg.backend == "sharded"
+                   else TorchStepper(cfg, device=device))
 
     printer.params(cfg.parameter_dump())
+    if cfg.backend == "sharded":
+        # What this run's exchange runs, as the JAX package's transcript
+        # says it.
+        printer.note(f"exchange-pipeline: {cfg.exchange_pipeline_resolved} "
+                     f"(requested {cfg.exchange_pipeline})")
     if cfg.phase2_kernel != "auto":
         # Explicit requests only, as in the JAX package: the default
         # transcript stays free of gate notes.

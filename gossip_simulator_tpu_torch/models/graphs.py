@@ -3,8 +3,8 @@
 All generators return ``(friends int32[n, k] -1-padded, friend_cnt
 int32[n])`` with global node ids, generated row by row from a per-row
 key, so the table is the JAX package's ``models/graphs.py`` output bit
-for bit (``erdos`` up to the Poisson sampler's float32 transcendentals:
-``utils/rng.poisson``).  kout always goes through ``kout_pallas``
+for bit (``erdos`` through ``utils/rng.poisson``, which computes XLA's
+own float32 ``log`` and ``lgamma``).  kout always goes through ``kout_pallas``
 (``ops/graph.py``), which draws the fold_in stream; under ``-pallas``
 erdos goes through ``erdos_pallas`` where the JAX package's conditions
 for its kernel hold, and falls back to the fold_in generator with its
@@ -23,16 +23,17 @@ from gossip_simulator_tpu_torch.utils import rng as _rng
 
 
 def kout(cfg: Config, key: torch.Tensor, row0: int = 0,
-         rows: int | None = None):
+         rows: int | None = None, static_row0: bool = True):
     """k-out random digraph: each node picks `fanout` uniform peers
     (duplicates allowed, like the reference's bootstrap), drawn from
     fold_in(key, global row id).  ``kout_pallas`` computes that stream at
     any fanout (its kernel on the card, the eager chain on the CPU), so
     ``-pallas`` changes nothing here but the JAX package's warning past
-    its kernel's fanout limit."""
+    its kernel's fanout limit (not given for a shard's slice,
+    ``static_row0=False``)."""
     n, k = cfg.n, cfg.fanout
     rows = n if rows is None else rows
-    if cfg.pallas and k > _graph.LANES:
+    if cfg.pallas and static_row0 and k > _graph.LANES:
         warnings.warn(
             "-pallas requested but the Pallas kout generator is unavailable "
             "here (needs a real TPU backend, fanout <= 128, block-aligned "
@@ -43,15 +44,17 @@ def kout(cfg: Config, key: torch.Tensor, row0: int = 0,
 
 
 def erdos(cfg: Config, key: torch.Tensor, row0: int = 0,
-          rows: int | None = None):
+          rows: int | None = None, static_row0: bool = True):
     """Sparse directed Erdős–Rényi approximation: out-degree ~
     Poisson(n * p), clipped to er_cap columns, peers uniform with the self
-    patch, -1 at and past the degree."""
+    patch, -1 at and past the degree.  ``static_row0=False`` marks a
+    shard's slice (the JAX package's traced row0 inside its shard_map),
+    which takes the fold_in generator under ``-pallas`` too, silently."""
     n = cfg.n
     rows = n if rows is None else rows
     lam = cfg.er_p_resolved * n
     cap = er_cap(lam)
-    if cfg.pallas:
+    if cfg.pallas and static_row0:
         if 0.0 < lam <= _graph.LAM_MAX and cap <= _graph.LANES:
             return _graph.erdos_pallas(n, float(lam), row0, rows, key)
         warnings.warn(
@@ -68,7 +71,7 @@ def erdos(cfg: Config, key: torch.Tensor, row0: int = 0,
 
 
 def ring(cfg: Config, key: torch.Tensor, row0: int = 0,
-         rows: int | None = None):
+         rows: int | None = None, static_row0: bool = True):
     """Ring lattice: node i -> (i+1..i+fanout) mod n."""
     n, k = cfg.n, cfg.fanout
     rows = n if rows is None else rows
@@ -84,7 +87,7 @@ GENERATORS = {"kout": kout, "erdos": erdos, "ring": ring}
 
 
 def generate(cfg: Config, key: torch.Tensor, row0: int = 0,
-             rows: int | None = None):
+             rows: int | None = None, static_row0: bool = True):
     if cfg.graph not in GENERATORS:
         raise ValueError(f"-graph {cfg.graph} has no static generator here")
     if cfg.protocol == "pushpull":
@@ -95,7 +98,7 @@ def generate(cfg: Config, key: torch.Tensor, row0: int = 0,
         return (torch.full((rows, 1), -1, dtype=torch.int32,
                            device=key.device),
                 torch.zeros((rows,), dtype=torch.int32, device=key.device))
-    return GENERATORS[cfg.graph](cfg, key, row0, rows)
+    return GENERATORS[cfg.graph](cfg, key, row0, rows, static_row0)
 
 
 def graph_key(cfg: Config, device=None) -> torch.Tensor:

@@ -284,8 +284,10 @@ def init_mass(cfg: Config, gid0: int, rows: int, device=None) -> torch.Tensor:
 # --- state -------------------------------------------------------------------
 
 
-def init_state(cfg: Config, friends: torch.Tensor,
-               friend_cnt: torch.Tensor) -> PushSumState:
+def init_state(cfg: Config, friends: torch.Tensor, friend_cnt: torch.Tensor,
+               gid0: int = 0) -> PushSumState:
+    """State of rows [gid0, gid0 + n) (a shard's slice under the sharded
+    backend: its masses are the global ids' hashes)."""
     n = friends.shape[0]
     dev = friends.device
     dw = ring_windows(cfg, n)
@@ -297,7 +299,7 @@ def init_state(cfg: Config, friends: torch.Tensor,
     return PushSumState(
         flags=torch.zeros(n, dtype=torch.uint8, device=dev),
         friends=friends, friend_cnt=friend_cnt,
-        mass=init_mass(cfg, 0, n, dev),
+        mass=init_mass(cfg, gid0, n, dev),
         mail_ids=torch.zeros(length, dtype=I32, device=dev),
         mail_mass=torch.zeros((length, mass_cols(cfg)), dtype=I32,
                               device=dev),
@@ -483,6 +485,8 @@ def report(stepper) -> dict:
     reached eps, the tick it first did, and the last window's max error in
     ppb (the JAX package writes it to its JSONL result record)."""
     st = stepper.state
+    if isinstance(st, list):
+        st = st[0]  # the sharded stepper's shards replicate these scalars
     rp, et = (int(v) for v in torch.stack(
         [st.relerr_ppb, st.eps_tick]).tolist())
     return {"converged_eps": et >= 0, "eps_ticks": et, "relerr_ppb": rp}

@@ -35,7 +35,7 @@ KERNELS = ("fused_emit", "fused_unique_set", "fused_ring_append",
            "fused_chunk_step", "fused_negotiate", "fused_request_round",
            "fused_hosted_chunk", "fused_deposit_add", "fused_deposit_rows",
            "fused_deposit_both", "fused_drain_sum", "kout_pallas",
-           "erdos_pallas")
+           "erdos_pallas", "fused_recv_land")
 # Counts of one form of a kernel, beside the kernel's own count.
 FORMS = ("fused_chunk_step:spill",)
 

@@ -30,6 +30,15 @@ decodes to (``entry // b``), reading the slot's live count from device
 memory; its plain version ``drain_sum_plain`` is one masked
 ``index_add_`` over the live lanes.  Integer adds commute, so both equal
 the JAX package's chunked ``deposit_sum`` loop bit for bit.
+
+``fused_recv_land`` (``csrc/fused_recv_land.cu``) lands one shard's
+routed wire words in its mail ring: the decode of ``dst * (dw*b) + slot *
+b + off``, the duplicate filter against the RECEIVED bit and the ring
+append (lane-order ranks, ok-only count increments, the ``dw*cap`` trash
+cell), with an optional row of words per lane (PushSum's mass limbs).
+Its plain version ``recv_land_plain`` is the JAX package's unfused chain
+(``parallel/event_sharded.py`` _route_and_append's receive half):
+``recv_decode`` then ``deliver.ring_append_plain``.
 """
 
 from __future__ import annotations
@@ -39,7 +48,8 @@ import ctypes
 import torch
 
 from gossip_simulator_tpu_torch.ops import _build, deliver
-from gossip_simulator_tpu_torch.ops.deliver import RING_SLOTS_MAX
+from gossip_simulator_tpu_torch.ops.deliver import (RING_SLOTS_MAX,
+                                                    ring_append_plain)
 
 NAME = "fused_emit"
 I32 = torch.int32
@@ -377,3 +387,141 @@ def fused_drain_sum(acc, mail_ids, mail_mass, mail_cnt, slot: int, *,
     if dev.type == "cuda":
         return _drain_launch(acc, mail_ids, mail_mass, mail_cnt, slot, cap, b)
     raise ValueError(f"{DRAIN}: no kernel for device {dev}")
+
+
+# --- fused_recv_land -----------------------------------------------------------
+
+RECV = "fused_recv_land"
+RECV_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p] * 4)
+
+
+def recv_decode(recv, *, dw: int, b: int, flags=None,
+                received_bit: int = 1):
+    """Decode routed wire words (``-1`` = empty slot): returns (entry
+    ``d*b + o``, window slot, surviving mask, sup[dw]).  With `flags`, a
+    word whose destination row already has `received_bit` does not
+    survive and is counted in its slot of ``sup``."""
+    live = recv >= 0
+    r = torch.clamp_min(recv, 0)
+    d = torch.div(r, dw * b, rounding_mode="floor")
+    w = torch.remainder(torch.div(r, b, rounding_mode="floor"), dw)
+    sup = torch.zeros(dw, dtype=I32, device=recv.device)
+    if flags is not None:
+        dup = live & ((flags[d.long()] & received_bit) > 0)
+        sup.index_add_(0, w.long(), dup.to(I32))
+        live = live & ~dup
+    return d * b + torch.remainder(r, b), w, live, sup
+
+
+def recv_land_plain(mail_ids, mail_cnt, dropped, recv, *, dw: int, cap: int,
+                    b: int, words=None, mail_words=None, flags=None,
+                    received_bit: int = 1):
+    """Plain version: ``recv_decode``, then the one-hot ring append (every
+    lane that does not land, empty slots included, writes 0 to the trash
+    cell and a zero words row).  In place; returns (mail_ids, mail_cnt,
+    dropped, sup[, mail_words])."""
+    entry, w, live, sup = recv_decode(recv, dw=dw, b=b, flags=flags,
+                                      received_bit=received_bit)
+    rings, pays = (mail_ids,), (entry,)
+    if words is not None:
+        rings, pays = rings + (mail_words,), pays + (words,)
+    ring_append_plain(rings, mail_cnt, dropped, pays, w, live, dw, cap)
+    if words is not None:
+        return mail_ids, mail_cnt, dropped, sup, mail_words
+    return mail_ids, mail_cnt, dropped, sup
+
+
+def _recv_check(mail_ids, mail_cnt, dropped, recv, dw, cap, b, words,
+                mail_words, flags) -> None:
+    dev = recv.device
+    if not 1 <= dw <= RING_SLOTS_MAX or b < 1:
+        raise ValueError(f"{RECV}: dw={dw} outside 1..{RING_SLOTS_MAX} or "
+                         f"b={b} < 1")
+    for t, nm, dt, dim in ((mail_ids, "mail_ids", I32, 1),
+                           (mail_cnt, "mail_cnt", I32, 2),
+                           (dropped, "dropped", I32, 0),
+                           (recv, "recv", I32, 1), (words, "words", I32, 2),
+                           (mail_words, "mail_words", I32, 2),
+                           (flags, "flags", torch.uint8, 1)):
+        if t is None:
+            continue
+        if t.dtype != dt or t.dim() != dim:
+            raise TypeError(f"{RECV}: {nm} must be {dim}-D {dt}, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{RECV}: {nm} is on {t.device}, not {dev}")
+    if mail_cnt.shape != (1, dw):
+        raise ValueError(f"{RECV}: mail_cnt must be (1, {dw}), got "
+                         f"{tuple(mail_cnt.shape)}")
+    if mail_ids.shape[0] < dw * cap + 1:
+        raise ValueError(f"{RECV}: mail_ids of {mail_ids.shape[0]} lanes "
+                         f"has no trash cell past dw*cap = {dw * cap}")
+    if (words is None) != (mail_words is None):
+        raise ValueError(f"{RECV}: words and mail_words go together")
+    if words is not None and (words.shape[0] != recv.shape[0]
+                              or mail_words.shape[1] != words.shape[1]
+                              or mail_words.shape[0] < dw * cap + 1):
+        raise ValueError(f"{RECV}: words {tuple(words.shape)} and "
+                         f"mail_words {tuple(mail_words.shape)} do not fit "
+                         f"{recv.shape[0]} lanes and the ring")
+
+
+def _recv_launch(mail_ids, mail_cnt, dropped, recv, dw, cap, b, words,
+                 mail_words, flags, received_bit):
+    for t, nm in ((mail_ids, "mail_ids"), (mail_cnt, "mail_cnt"),
+                  (mail_words, "mail_words")):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{RECV}: {nm} must be contiguous")
+    dev = recv.device
+    m = recv.shape[0]
+    nb = (m + 255) // 256
+    # Per-block per-slot sums, then the adds[dw] and lost cells.
+    scratch = torch.zeros(max(nb, 1) * dw + dw + 1, dtype=I32, device=dev)
+    sup = torch.zeros(dw, dtype=I32, device=dev)
+    w1 = 1 if words is None else words.shape[1]
+    fn = _build.function(RECV, "gossip_fused_recv_land", RECV_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.count_launch(RECV)
+    rc = fn(mail_ids.data_ptr(),
+            None if words is None else mail_words.data_ptr(),
+            recv.data_ptr(), None if words is None else words.data_ptr(),
+            None if flags is None else flags.data_ptr(),
+            mail_cnt.data_ptr(), m, dw, cap, b, w1, int(received_bit),
+            dropped.data_ptr(), sup.data_ptr(), scratch.data_ptr(), stream)
+    _build.check(rc, RECV)
+    if words is not None:
+        return mail_ids, mail_cnt, dropped, sup, mail_words
+    return mail_ids, mail_cnt, dropped, sup
+
+
+def fused_recv_land(mail_ids, mail_cnt, dropped, recv, *, dw: int, cap: int,
+                    b: int, words=None, mail_words=None, flags=None,
+                    received_bit: int = 1):
+    """Land routed wire words (``-1`` = empty slot) in the local mail ring,
+    in place: decode each word into (row d, slot w, tick offset o),
+    optionally drop the words whose row already has `received_bit` in
+    `flags` (counted per slot in sup), and append ``d*b + o`` at slot w's
+    running count while it is below `cap` (a drop otherwise), with the
+    lane's `words` row at the same position of `mail_words`.  mail_ids
+    int32[L], mail_cnt int32[1, dw], dropped int32[]; words (M, W) and
+    mail_words (L, W) int32 (the JAX package's uint32 rumor words ride as
+    their int32 view; the event engine's rumor ladder is ROADMAP A11).
+    Returns (mail_ids, mail_cnt,
+    dropped, sup[dw][, mail_words])."""
+    _recv_check(mail_ids, mail_cnt, dropped, recv, dw, cap, b, words,
+                mail_words, flags)
+    dev = recv.device
+    if dev.type == "cpu":
+        return recv_land_plain(mail_ids, mail_cnt, dropped, recv, dw=dw,
+                               cap=cap, b=b, words=words,
+                               mail_words=mail_words, flags=flags,
+                               received_bit=received_bit)
+    if dev.type == "cuda":
+        return _recv_launch(mail_ids, mail_cnt, dropped, recv.contiguous(),
+                            dw, cap, b,
+                            None if words is None else words.contiguous(),
+                            mail_words,
+                            None if flags is None else flags.contiguous(),
+                            received_bit)
+    raise ValueError(f"{RECV}: no kernel for device {dev}")

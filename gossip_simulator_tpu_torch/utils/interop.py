@@ -20,6 +20,14 @@ and ``pushsum_state_to_numpy``: the event engine's ring leaves plus the
 mass columns, the wide mass ring and the convergence scalars, with the
 ring geometry in ``mail_geom``.
 
+The sharded backend's state, a list of per-shard states, crosses as the
+JAX package's global sharded leaves (``ShardedStepper.state_pytree()``
+there) through ``sharded_state_from_numpy``/``sharded_state_to_numpy``
+and the PushSum pair: node-axis leaves and rings concatenated shard by
+shard, ``mail_cnt``/``sup_cnt`` as ``(S, dw)`` and ``exch_counts`` as
+``(S, 1)``, replicated scalars once, and ``mail_geom`` = (slot_cap,
+drain_chunk, S) of one shard.
+
 Phase 1 likewise: ``JaxStepper.overlay_state_pytree()`` returns the
 phase-1 engine's leaves (all int32): the tick-faithful overlay's
 ``OverlayTickState`` or the rounds overlay's ``OverlayState``;
@@ -246,3 +254,68 @@ def overlay_state_to_numpy(st) -> dict:
     clock = "round" if rounds else "tick"
     tree[clock] = np.asarray(getattr(st, clock), np.int32)
     return tree
+
+
+# Sharded leaves: split into S equal row blocks, or one row per shard;
+# every other leaf is replicated.
+_SHARD_BLOCKS = ("flags", "friends", "friend_cnt", "mass", "mail_ids",
+                 "mail_mass")
+_SHARD_ROWS = ("mail_cnt", "sup_cnt", "exch_counts")
+
+
+def _split_shards(tree: dict, n_shards: int) -> list[dict]:
+    geom = np.asarray(tree["mail_geom"], np.int64)
+    if geom.shape != (3,) or int(geom[2]) != n_shards:
+        raise ValueError(f"mail_geom {geom.tolist()} is not a sharded "
+                         f"state of {n_shards} shards")
+    trees = []
+    for i in range(n_shards):
+        t = {"mail_geom": geom[:2]}
+        for k, v in tree.items():
+            a = np.asarray(v)
+            if k in _SHARD_BLOCKS:
+                rows = a.shape[0] // n_shards
+                t[k] = a[i * rows:(i + 1) * rows]
+            elif k in _SHARD_ROWS:
+                t[k] = a[i:i + 1]
+            elif k != "mail_geom":
+                t[k] = a
+        trees.append(t)
+    return trees
+
+
+def _join_shards(trees: list[dict]) -> dict:
+    tree = dict(trees[0])
+    for k in _SHARD_BLOCKS + _SHARD_ROWS:
+        if k in tree:
+            tree[k] = np.concatenate([t[k] for t in trees])
+    tree["mail_geom"] = np.append(trees[0]["mail_geom"],
+                                  np.int64(len(trees)))
+    return tree
+
+
+def sharded_state_from_numpy(tree: dict, n_shards: int, device) -> list:
+    """The port's per-shard EventStates from a JAX-package sharded state
+    dict of `n_shards` shards."""
+    return [state_from_numpy(t, device) for t in _split_shards(tree,
+                                                               n_shards)]
+
+
+def sharded_state_to_numpy(states: list) -> dict:
+    """A JAX-package sharded state dict from the port's per-shard
+    EventStates."""
+    return _join_shards([state_to_numpy(st) for st in states])
+
+
+def sharded_pushsum_state_from_numpy(tree: dict, n_shards: int,
+                                     device) -> list:
+    """The port's per-shard PushSumStates from a JAX-package sharded
+    PushSum state dict of `n_shards` shards."""
+    return [pushsum_state_from_numpy(t, device)
+            for t in _split_shards(tree, n_shards)]
+
+
+def sharded_pushsum_state_to_numpy(states: list) -> dict:
+    """A JAX-package sharded PushSum state dict from the port's per-shard
+    PushSumStates."""
+    return _join_shards([pushsum_state_to_numpy(st) for st in states])

@@ -10,8 +10,9 @@ here reproduces the JAX package's trajectories bit for bit:
   the counter ``(0, data)``), ``split``;
 * bits -- ``random_bits``;
 * samplers -- ``randint``, ``uniform``, ``bernoulli`` and ``poisson``
-  follow ``jax.random``'s algorithms exactly (``poisson`` up to its
-  float32 transcendentals; see its docstring).
+  follow ``jax.random``'s algorithms exactly (``poisson`` with XLA's own
+  float32 ``log`` and ``lgamma``: ``xla_log``, ``xla_log1p``,
+  ``xla_lgamma``).
 
 jax lays out ``split`` and ``random_bits`` counters in one of two ways,
 chosen by its ``jax_threefry_partitionable`` setting (True by default
@@ -254,21 +255,117 @@ def bernoulli_masked(key: torch.Tensor, p: float, shape=()) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=4)
 def _log_uniform_table(device: str) -> torch.Tensor:
-    """float32 log of every value a float32 ``uniform`` takes (j * 2**-23,
-    j < 2**23; -inf at 0), from float64 numpy on the host, so both devices
-    gather the same bits."""
-    j = np.arange(1 << 23, dtype=np.float64) * 2.0**-23
-    with np.errstate(divide="ignore"):
-        tab = np.log(j).astype(np.float32)
-    return torch.from_numpy(tab).to(device)
+    """XLA's float32 log (``xla_log``) of every value a float32 ``uniform``
+    takes (j * 2**-23, j < 2**23; -inf at 0), built on the host, so both
+    devices gather the same bits."""
+    j = torch.arange(1 << 23, dtype=torch.float32) * 2.0**-23
+    return xla_log(j).to(device)
 
 
 def _fma32(a, b, c) -> torch.Tensor:
-    """float32 a*b + c rounded once (XLA's CPU code contracts these): the
-    float64 product of two float32s is exact, so one float64 add and the
-    cast round as an FMA does (a double rounding parts from it with
-    probability ~2**-29)."""
-    return (a.double() * b.double() + c.double()).float()
+    """float32 a*b + c rounded once, as the FMAs XLA's CPU code contracts
+    its multiply-adds into.  The float64 product of two float32s is
+    exact; the float64 sum is rounded to odd (TwoSum's error term moves
+    an inexact even result one float64 ulp towards the exact sum), so
+    its cast to float32 rounds as one FMA does."""
+    a, b, c = (x.double() if torch.is_tensor(x)
+               else torch.tensor(x, dtype=torch.float64) for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even, torch.nextafter(s, s + err), s)
+    return s.float()
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _hex64(h: int) -> float:
+    """A constant as LLVM prints it (the raw float64 bits)."""
+    return float(np.array([h], dtype=np.uint64).view(np.float64)[0])
+
+
+# Cephes' log polynomial, as XLA's CPU code emits it (Eigen's plog).
+_LOG_P = (7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1,
+          -1.2420140846E-1, 1.4249322787E-1, -1.6668057665E-1,
+          2.0000714765E-1, -2.4999993993E-1, 3.3333331174E-1)
+# XLA's log1p: x + (-x^2/2 + x^3 * B(x) / A(x)) below |x| < sqrt(2) - 1.
+_LOG1P_A = tuple(_hex64(h) for h in (
+    0x402E2035A0000000, 0x4054C30B60000000, 0x406BB865A0000000,
+    0x4073519460000000, 0x406B0DB140000000, 0x404E0F3040000000))
+_LOG1P_B = tuple(_hex64(h) for h in (
+    0x3F07BC0960000000, 0x3FDFE818A0000000, 0x401A509F40000000,
+    0x403DE97380000000, 0x404E798EC0000000, 0x404C8E75A0000000,
+    0x40340A2020000000))
+_LOG1P_SMALL = _hex64(0x3FDA8279A0000000)
+# CHLO's Lanczos expansion of lgamma (g = 7), float32 constants.
+_LGAMMA_C = (676.520386, -1259.13916, 771.323425, -176.615036, 12.5073433,
+             -0.138571098, 9.98436917e-06, 1.50563267e-07)
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``log``, bit for bit: Cephes' polynomial with
+    the multiply-adds XLA's code contracts into FMAs, and subnormal
+    inputs flushed to zero (-inf, of either sign), as XLA runs.  Equal to ``jnp.log`` on
+    every float32 (``tests/torch_xla_log_check.py`` checks all 2**32)."""
+    xb = x.view(torch.int32)
+    tiny = xb < 0x00800000  # zero, subnormal or negative
+    xc = torch.where(tiny, 0x00800000, xb)
+    e = ((xc >> 23) - 127).float() + 1.0
+    xm = ((xc & 0x807FFFFF) | 0x3F000000).view(torch.float32)
+    low = xm < _f32(0.70710677, x)
+    xx = (xm - 1.0) + torch.where(low, xm, _f32(0.0, x))
+    e = e - low.float()
+    x2 = xx * xx
+    x3 = x2 * xx
+    p = [_f32(v, x) for v in _LOG_P]
+    y = _fma32(_fma32(xx, p[0], p[1]), xx, p[2])
+    y1 = _fma32(_fma32(xx, p[3], p[4]), xx, p[5])
+    y2 = _fma32(_fma32(xx, p[6], p[7]), xx, p[8])
+    y = _fma32(_fma32(y, x3, y1), x3, y2)
+    y = _fma32(y, x3, _f32(-2.12194440e-4, x) * e)
+    r = _fma32(_f32(-0.5, x), x2, xx) + y
+    r = _fma32(_f32(0.693359375, x), e, r)
+    mag = xb & 0x7FFFFFFF
+    r = torch.where(tiny, _f32(-math.inf, x), r)  # +-0 and subnormals
+    # XLA's NaN is all ones (its mask or-ed into the result).
+    nan = torch.full((), -1, dtype=torch.int32,
+                     device=x.device).view(torch.float32)
+    r = torch.where(((xb < 0) & (mag >= 0x00800000)) | (mag > 0x7F800000),
+                    nan, r)
+    return torch.where(xb == 0x7F800000, _f32(math.inf, x), r)
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``log1p``: a rational approximation for |x| <
+    sqrt(2) - 1, ``xla_log(1 + x)`` elsewhere."""
+    pa = torch.ones_like(x)
+    for c in _LOG1P_A:
+        pa = _fma32(pa, x, _f32(c, x))
+    pb = torch.full_like(x, float(np.float32(_LOG1P_B[0])))
+    for c in _LOG1P_B[1:]:
+        pb = _fma32(pb, x, _f32(c, x))
+    x2 = x * x
+    small = x + _fma32(x2, _f32(-0.5, x), (x * x2) * (pb / pa))
+    return torch.where(x.abs() < _f32(_LOG1P_SMALL, x), small,
+                       xla_log(x + 1.0))
+
+
+def xla_lgamma(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``lgamma`` for x >= 0.5 and +inf (the Poisson
+    sampler's k + 1; its reflection branch for x < 0.5 is not ported):
+    CHLO's Lanczos expansion in its operation order."""
+    z = x - 1.0
+    s = _f32(_LGAMMA_C[0], x) / (z + 1.0) + 1.0
+    for i, c in enumerate(_LGAMMA_C[1:], start=2):
+        s = s + _f32(c, x) / (z + float(i))
+    log_t = xla_log1p(z * _f32(0.13333334, x)) + _f32(2.01490307, x)
+    a = (z + 0.5) - (z + 7.5) / log_t
+    r = _fma32(a, log_t, _f32(0.918938518, x)) + xla_log(s)
+    return torch.where(x == math.inf, _f32(math.inf, x), r)
 
 
 def _poisson_knuth(keys: torch.Tensor, lam32: torch.Tensor) -> torch.Tensor:
@@ -297,7 +394,7 @@ def _poisson_rejection(keys: torch.Tensor, lam: float) -> torch.Tensor:
                             device=keys.device)
     lam32 = float(np.float32(lam))
     lam_t = f32(lam32)
-    log_lam = f32(math.log(lam32))
+    log_lam = xla_log(lam_t)
     b = _fma32(f32(2.53), f32(math.sqrt(lam32)), f32(0.931))
     a = _fma32(f32(0.02483), b, f32(-0.059))
     inv_alpha = f32(1.1239) + f32(1.1328) / (b - f32(3.4))
@@ -313,9 +410,8 @@ def _poisson_rejection(keys: torch.Tensor, lam: float) -> torch.Tensor:
         us = f32(0.5) - u.abs()
         k = torch.floor(_fma32((f32(2.0) * a) / us + b, u, lam_t)
                         + f32(0.43))
-        s = torch.log((v * inv_alpha / (a / (us * us) + b)).double()).float()
-        t = (_fma32(k, log_lam, -lam_t)
-             - torch.lgamma((k + 1).double()).float())
+        s = xla_log(v * inv_alpha / (a / (us * us) + b))
+        t = _fma32(k, log_lam, -lam_t) - xla_lgamma(k + 1.0)
         accept = (((us >= f32(0.07)) & (v <= v_r))
                   | (~((k < 0) | ((us < f32(0.013)) & (v > us)))
                      & (s <= t)))
@@ -332,16 +428,14 @@ def poisson(keys: torch.Tensor, lam: float) -> torch.Tensor:
     ``float32(lam)``, as jax's ``_poisson``.  Each row loops until its own
     predicate ends, so a row's draw does not depend on its batch.
 
-    The float32 transcendentals are not XLA's.  Knuth's ``log(u)`` is a
-    gather from a host table of correctly rounded float32 logs (one value
-    per float32 uniform), so it is the same on every device; it matched
-    jax on every row measured.  The rejection branch takes ``log`` and
-    ``lgamma`` in float64 on the device, rounded to float32 (the same
-    bits on the CPU and the card unless the two float64 libraries part
-    across a float32 rounding boundary, ~2**-27 a call), and contracts
-    the multiply-adds XLA's CPU code contracts; XLA's own ``log`` and
-    ``lgamma`` approximations part from that on a few rows per million
-    (ROADMAP C5)."""
+    The float32 transcendentals are XLA's own (``xla_log``,
+    ``xla_lgamma``), with the multiply-adds XLA's CPU code contracts
+    rounded once, in IEEE float32/float64 torch operations that give the
+    same bits on the CPU and the card: Knuth's ``log(u)`` is a gather from
+    a host table of ``xla_log`` over every float32 uniform, and the
+    rejection branch computes ``xla_log`` and ``xla_lgamma`` on the
+    device.  No row parts from jax over 10**6 rows at lam 1 to 60 in
+    either counter layout (``tests/torch_poisson_parting.py``)."""
     lam32 = float(np.float32(lam))
     if lam32 == 0.0:
         return torch.zeros(keys.shape[0], dtype=torch.int32,

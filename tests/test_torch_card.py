@@ -106,6 +106,47 @@ def _ring_append(fn, d, kw, dev):
     return [r.cpu() for r in rings] + [cnt.cpu(), dropped.cpu()]
 
 
+def _recv_inputs(seed, *, sources=4, rcap=300, fill=200, n=500, dw=3,
+                 cap=400, b=10, base_hi=None, flags=False, width=None):
+    """Numpy inputs of one fused_recv_land call (test_torch_sharded.py
+    shares them): a received wire buffer of `sources` buckets of `rcap`
+    lanes, the first `fill` of each holding a wire word ``d*(dw*b) + w*b +
+    o`` and the rest -1 (with `width`, (lanes, width) word rows, -1 in the
+    empty slots), a random ring, base counts and, with `flags`, flags of
+    n + 1 rows (the port's trash row last)."""
+    rng = np.random.default_rng(seed)
+    m = sources * rcap
+    live = np.arange(m) % rcap < fill
+    wire = (rng.integers(0, n, m) * (dw * b) + rng.integers(0, dw, m) * b
+            + rng.integers(0, b, m))
+    length = dw * cap + 5
+    d = dict(recv=np.where(live, wire, -1).astype(np.int32),
+             ring=rng.integers(0, 1000, length).astype(np.int32),
+             cnt=rng.integers(0, base_hi or cap // 2, (1, dw)).astype(
+                 np.int32))
+    if flags:
+        d["flags"] = (rng.random(n + 1) < 0.5).astype(np.uint8)
+    if width:
+        d["words"] = np.where(live[:, None], rng.integers(
+            0, 2**16, (m, width)), -1).astype(np.int32)
+        d["mail_words"] = rng.integers(0, 1000, (length, width)).astype(
+            np.int32)
+    return d, dict(dw=dw, cap=cap, b=b)
+
+
+def _recv_land(fn, d, kw, dev):
+    ring = T(d["ring"].copy()).to(dev)
+    cnt = T(d["cnt"].copy()).to(dev)
+    dropped = torch.tensor(3, dtype=torch.int32, device=dev)
+    mw = T(d["mail_words"].copy()).to(dev) if "words" in d else None
+    out = fn(ring, cnt, dropped, T(d["recv"]).to(dev),
+             words=T(d["words"]).to(dev) if "words" in d else None,
+             mail_words=mw,
+             flags=T(d["flags"]).to(dev) if "flags" in d else None,
+             received_bit=tevent.RECEIVED, **kw)
+    return [x.cpu() for x in out]
+
+
 def _drain_inputs(seed, *, n=500, c=12, cap=1000, dw=3, b=10, slot=1,
                   m=None, oob=0.05, neg=0.0, tail=64):
     """Numpy inputs of one PushSum drain: an (n, c) int32 limb accumulator,
@@ -521,6 +562,63 @@ def test_fused_deposit_kernels_match_plain_on_card(case, kind):
     got = _deposit(kind, kernel, d, dev)
     for w, g in zip(want, got):
         assert torch.equal(w, g)
+
+
+RECV_CASES = {
+    "plain": dict(), "dup": dict(flags=True),
+    "overflow": dict(cap=60, base_hi=50), "dup_overflow": dict(
+        flags=True, cap=150, base_hi=100),
+    "all_empty": dict(fill=0), "full": dict(fill=300),
+    "pushsum_w12": dict(width=12), "w36_overflow": dict(
+        width=36, cap=80, base_hi=60),
+    "dw40": dict(dw=40, cap=50), "dw1024": dict(dw=1024, cap=3, n=40,
+                                                rcap=2000, fill=1500),
+    "wide": dict(sources=8, rcap=25_831, fill=24_576, n=1_250_000,
+                 cap=3_750_000, flags=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RECV_CASES))
+def test_fused_recv_land_kernel_matches_plain_on_card(case):
+    dev = _card()
+    d, kw = _recv_inputs(19, **RECV_CASES[case])
+    want = _recv_land(megakernel.recv_land_plain, d, kw, torch.device("cpu"))
+    got = _recv_land(megakernel.fused_recv_land, d, kw, dev)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+
+
+@pytest.mark.parametrize("shards", (2, 8))
+@pytest.mark.parametrize("extra", (
+    [], ["-crashrate", "0"],
+    ["-protocol", "sir", "-removal-rate", "0.3", "-droprate", "0.3"],
+    ["-graph", "erdos", "-fanout", "8", "-pallas"],
+    ["-phase2-kernel", "xla"],
+    ["-model", "pushsum", "-droprate", "0", "-crashrate", "0"]))
+def test_sharded_run_on_card_matches_cpu(extra, shards):
+    """The sharded backend on `shards` shards of the card against its CPU
+    twin: same transcript, same final leaves."""
+    import io
+
+    from gossip_simulator_tpu_torch import run_simulation
+    from gossip_simulator_tpu_torch.backends import ShardedStepper
+    from gossip_simulator_tpu_torch.config import parse_cli
+    from gossip_simulator_tpu_torch.utils.metrics import ProgressPrinter
+
+    _card()
+    outs, trees = [], []
+    for device in ("cpu", "cuda"):
+        cfg, _ = parse_cli(["-backend", "sharded", "-graph", "kout", "-n",
+                            "4000", "-fanout", "6", "-seed", "2", *extra])
+        buf = io.StringIO()
+        st = ShardedStepper(cfg, n_devices=shards, device=device)
+        run_simulation(cfg, printer=ProgressPrinter(out=buf), stepper=st)
+        outs.append(buf.getvalue())
+        trees.append(st.state_pytree())
+    assert outs[0] == outs[1]
+    assert set(trees[0]) == set(trees[1])
+    for key in trees[0]:
+        assert np.array_equal(trees[0][key], trees[1][key]), key
 
 
 DRAIN_CASES = {

@@ -1,11 +1,12 @@
 """Static-graph generation in the port against the JAX package's.
 
 * ``rng.split(key, 3)`` and ``rng.poisson`` against ``jax.random`` on
-  vmapped per-row keys, in both counter layouts.  Tolerance: bit-exact
-  below lam = 10 (Knuth's branch); at and above it, the rows whose
-  rejection-branch draw parts (the port's float32 log and lgamma are not
-  XLA's, ROADMAP C5) are held to the counts measured at this size and
-  seed (tests/torch_poisson_parting.py measures them at 1e6 rows).
+  vmapped per-row keys, in both counter layouts: bit-exact in both of
+  the sampler's branches (tests/torch_poisson_parting.py counts 0 parting
+  rows at 1e6 rows).
+* The port's XLA float32 ``log``, ``log1p`` and ``lgamma`` against jax's
+  on a sample (tests/torch_xla_log_check.py checks ``log`` on every
+  positive finite float32): bit-exact.
 * ``graphs.erdos`` and ``kout_pallas``'s plain version against the JAX
   package's ``graphs.erdos`` and ``graphs.kout`` at row0 = 0 and at an
   unaligned row0: bit-exact.
@@ -44,10 +45,6 @@ from test_torch_rng import match_jax_threefry
 
 LAMS = (0.0, 1.0, 5.0, 8.0, 9.99, 10.0, 12.0, 20.0, 60.0)
 POISSON_ROWS = 20_000
-# Rows of POISSON_ROWS (graph key of seed 0) whose draw parts from jax's,
-# by (partitionable, lam), as measured (tests/torch_poisson_parting.py
-# --rows 20000); every other case is bit-exact.
-PARTING = {(False, 60.0): 1}
 
 
 @pytest.fixture(params=(True, False), ids=("partitionable", "original"))
@@ -102,9 +99,39 @@ def test_poisson_matches_jax(layout, lam):
     want = _jax_poisson(jk, lam)
     got = trng.poisson(trng.split(tk)[0], lam).numpy()
     assert got.dtype == np.int32
-    assert int((want != got).sum()) == PARTING.get((layout, lam), 0)
+    assert int((want != got).sum()) == 0
     if lam > 0:
         assert abs(got.mean() - lam) < 5 * np.sqrt(lam / POISSON_ROWS)
+
+
+@pytest.mark.parametrize("fn", ("log", "log1p", "lgamma"))
+def test_xla_transcendentals_match_jax(fn):
+    """A sample of tests/torch_xla_log_check.py: random float32 bit
+    patterns (log), every float32 near the branch points, and the Poisson
+    sampler's ranges (log1p, lgamma)."""
+    rng = np.random.default_rng(7)
+    if fn == "log":
+        x = np.concatenate([
+            rng.integers(0, 0x7F800001, 1 << 20, dtype=np.uint32),
+            np.arange(0x3F3504F0 - 2048, 0x3F3504F0 + 2048, dtype=np.uint32),
+            np.array([0, 1, 0x007FFFFF, 0x00800000, 0x7F7FFFFF, 0x7F800000,
+                      0x3F800000, 0x80000000, 0x80000001, 0x80800000,
+                      0xFF800000, 0x7FC00000, 0xFFC00001],
+                     dtype=np.uint32)]).view(
+            np.float32)
+        want, got = jnp.log(x), trng.xla_log(torch.from_numpy(x))
+    elif fn == "log1p":
+        x = np.concatenate([rng.uniform(-0.99, 100.0, 1 << 18),
+                            rng.uniform(-0.42, 0.42, 1 << 18)]).astype(
+            np.float32)
+        want, got = jnp.log1p(x), trng.xla_log1p(torch.from_numpy(x))
+    else:
+        x = np.concatenate([np.arange(1, 1 << 16, dtype=np.float32),
+                            rng.uniform(0.5, 1e5, 1 << 18).astype(
+                                np.float32), np.float32([np.inf])])
+        want, got = jax.lax.lgamma(x), trng.xla_lgamma(torch.from_numpy(x))
+    want = np.asarray(want).view(np.uint32)
+    assert np.array_equal(want, got.numpy().view(np.uint32))
 
 
 @pytest.mark.parametrize("lam", (8.0, 12.0))

@@ -307,7 +307,8 @@ def _c_params(path, symbol):
     ("fused_deposit_both", megakernel.BOTH_ARGTYPES),
     ("fused_drain_sum", megakernel.DRAIN_ARGTYPES),
     ("kout_pallas", graph.KOUT_ARGTYPES),
-    ("erdos_pallas", graph.ERDOS_ARGTYPES)))
+    ("erdos_pallas", graph.ERDOS_ARGTYPES),
+    ("fused_recv_land", megakernel.RECV_ARGTYPES)))
 def test_ctypes_signatures_match_the_sources(name, argtypes):
     """A wrapper whose argtypes miss a parameter would have ctypes pass
     the rest as C ints and cut a pointer; hold each list to its C entry

@@ -4,7 +4,14 @@ bit for bit, in both of jax's counter layouts (``jax_threefry_
 partitionable`` True, the default since jax 0.5, and False).
 
 ``match_jax_threefry`` aligns the port with whatever layout this
-process's jax draws in; the other JAX-twin test files use it."""
+process's jax draws in; the other JAX-twin test files use it.
+
+Under pytest-xdist (six workers to a host of eight cores) each worker
+that imports this module keeps one torch intra-op thread: six OpenMP
+pools of eight spinning threads on eight cores ran a torch loop that
+takes 3 s alone in 655 s each (with one thread: 9 s each)."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +27,9 @@ SPANS = ((0, 2), (0, 50_000), (0, 100_000), (0, 2**31 - 1), (10, 20),
          (-5, 5))
 PROBS = (0.001, 0.1, 0.5)
 ROWS = np.arange(0, 5000, 3, dtype=np.int32)
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 
 def match_jax_threefry() -> bool:

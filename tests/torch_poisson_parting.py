@@ -7,8 +7,9 @@ JAX package's, over the per-row keys of a graph key (ROADMAP C5).
 Run it once as is (jax's default, partitionable counter layout) and once
 with JAX_THREEFRY_PARTITIONABLE=0 (the original layout).  Prints one line
 per lam: the rows whose utils/rng.poisson draw differs from
-jax.random.poisson on the same keys.  tests/test_torch_graphs.py holds
-the port to the counts this gives at 2e4 rows."""
+jax.random.poisson on the same keys (0 at every lam measured since the
+port computes XLA's float32 log and lgamma).  tests/test_torch_graphs.py
+holds the port to 0 at 2e4 rows."""
 
 import argparse
 import os
