@@ -20,8 +20,9 @@ Phases, each printing its own line:
               duplicate filter, SIR, a small-cap overflow case),
               fused_unique_set (786,432 lanes), fused_ring_append (m =
               262,144, dw = 3, cap = 1e8, and an overflow case),
-              fused_chunk_step's drop form (2,097,152 lanes, nk = 2e7, cap
-              16, both address forms) and spill form (nk = 1e8, cap 8,
+              fused_chunk_step's drop form (the ticks drain: 2,097,152
+              lanes, nk = 2e7, cap 16; the rounds band: 78,125 lanes, nk =
+              1e7; both address forms) and spill form (nk = 1e8, cap 8,
               rank-major: an 8,388,608-lane burst chunk, the scap + 1-lane
               re-delivery chunk, and a small spill that fills),
               fused_negotiate (n = 1e7 and a ragged n, both kinds),
@@ -48,6 +49,12 @@ Phases, each printing its own line:
               larger of the call's bytes over 3.35 TB/s and its
               instructions over the card's dispatch rate (128 lanes an SM;
               rotates, shifts and logic over the integer ALU pipe's 64);
+              each case's kernel is also run 3 times under torch.profiler
+              ("device" lines: device ms per call, launches per call, ms by
+              kernel, the kernels line's device_ms), and the host time to
+              enqueue one fused_unique_set and fused_chunk_step call on an
+              idle card is printed ("host" lines, with index_put_'s and
+              the parts of the unique_set wrapper);
 4. twins   -- n = 20,000 runs on cuda and on cpu must give identical
               transcripts and final state leaves, and launch their
               kernels (every kout table through kout_pallas, under every
@@ -146,6 +153,7 @@ import argparse
 import contextlib
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -248,6 +256,54 @@ def time_ms(fn, reps: int, setup=None) -> float:
     return statistics.median(times)
 
 
+# Device ms per call of each case of phase 3, from torch.profiler.
+DEVICE: dict = {}
+DEVICE_REPS = 3  # calls profiled per case
+
+
+def _kernel_name(key: str) -> str:
+    """A device event's kernel name without namespaces, template arguments
+    and parameters; PyTorch's elementwise kernels keep their functor."""
+    key = key.replace("(anonymous namespace)::", "")
+    name = key.split("(")[0].split("<")[0].split("::")[-1].split()[-1]
+    if "elementwise_kernel" in name:
+        fn = re.search(r"(\w+Functor|\w+_kernel_cuda)", key)
+        name = fn.group(1) if fn else name
+    return name
+
+
+def device_split(label: str, fn, reps: int = DEVICE_REPS) -> None:
+    """Run fn() `reps` times under torch.profiler; print its device time
+    per call, in all and by kernel (every kernel the call launches:
+    scratch fills and copies included), and its launches per call, and
+    record the device ms per call in DEVICE[label].  The profiler at
+    times returns no device event for a case (most of phase 8's after the
+    full-size runs; the same phase alone records them): such a case
+    prints "not measured" and records nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split, launches = {}, 0
+    for e in _device_events(prof.key_averages()):
+        nm = _kernel_name(e.key)
+        split[nm] = split.get(nm, 0.0) + _dev_us(e) / 1e3 / reps
+        launches += e.count
+    if not split:
+        say(f"device {label}: not measured (the profiler returned no "
+            "device events)")
+        return
+    DEVICE[label] = sum(split.values())
+    say(f"device {label}: {DEVICE[label]:.4f} ms per call, "
+        f"{launches / reps:g} launches: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(split.items(),
+                                              key=lambda kv: -kv[1])))
+
+
 def bound_ms(nbytes: float, nops: float,
              alu_ops: float = 0.0) -> tuple[float, str]:
     """The larger of the bytes' time and the operations' time: `nops`
@@ -313,6 +369,43 @@ def emit_bytes(m, k, kw_lanes, dup, sir) -> tuple[float, float]:
     return nbytes, nops
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of fn(), the mean over `calls` calls,
+    each started on an idle card (what the caller's thread spends to
+    enqueue the call)."""
+    fn()
+    spent = 0.0
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        spent += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / calls * 1e6
+
+
+def host_enqueue_split(dev, ring, flat, vals) -> None:
+    """What one fused_unique_set call spends on the host, in parts: the
+    current stream as a torch.cuda.Stream object and as a raw handle,
+    three data_ptr reads, the whole wrapper and index_put_ (enqueue only:
+    the device runs behind)."""
+    from gossip_simulator_tpu_torch.ops import deliver
+
+    flat64 = flat.long()
+    parts = {
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "data_ptr x3": lambda: (ring.data_ptr(), flat.data_ptr(),
+                                vals.data_ptr()),
+        "wrapper": lambda: deliver.fused_unique_set(ring, flat, vals),
+        "index_put_": lambda: ring.index_put_((flat64,), vals),
+    }
+    out = {k: host_us(f) for k, f in parts.items()}
+    torch.cuda.synchronize()
+    say("host fused_unique_set: " + ", ".join(
+        f"{k} {v:.2f} us" for k, v in out.items()))
+
+
 def phase_parity(dev, reps: int) -> dict:
     from gossip_simulator_tpu_torch.config import Config
     from gossip_simulator_tpu_torch.ops import deliver, megakernel
@@ -369,6 +462,8 @@ def phase_parity(dev, reps: int) -> dict:
                       reps)
         t_p = time_ms(lambda: megakernel.emit_plain(ring_p, *args, **kw),
                       reps)
+        device_split(f"fused_emit[{name}]",
+                     lambda: megakernel.fused_emit(ring_k, *args, **kw))
         bnd, by = bound_ms(*emit_bytes(m, k, k + (1 if sir else 0), dup,
                                        sir))
         say(f"fused_emit[{name}]: bit-exact ({100 * pad:.2f}% of sf -1, "
@@ -401,6 +496,11 @@ def phase_parity(dev, reps: int) -> dict:
     say(f"fused_unique_set: bit-exact over {lanes} lanes; kernel "
         f"{t_k:.4f} ms, plain {t_p:.4f} ms, index_put_ {t_l:.4f} ms, "
         f"bound {bnd:.5f} ms ({by})")
+    device_split("fused_unique_set",
+                 lambda: deliver.fused_unique_set(ring_k, flat, ivals))
+    device_split("fused_unique_set[index_put_]",
+                 lambda: ring_p.index_put_((flat64,), ivals))
+    host_enqueue_split(dev, ring_k, flat, ivals)
     del ring_p, ring_k, ring0, unique_case
     torch.cuda.empty_cache()
     t_ek, t_ep, b_e, by_e = timings["overlay"]
@@ -453,7 +553,8 @@ def check_and_time(label, plain, kernel, fresh, call, restore, reps):
     the states and the returned tensors agree; then time both on the
     kernel's state, `restore(state)` before each call outside the timed
     span (it resets every tensor a call updates, so the state ends as one
-    call leaves it).  Returns (kernel's state + results, max abs error,
+    call leaves it), and record the kernel's device time under `label`
+    (``device_split``).  Returns (kernel's state + results, max abs error,
     kernel ms, plain ms)."""
     outs, states = [], []
     for fn in (plain, kernel):
@@ -467,6 +568,9 @@ def check_and_time(label, plain, kernel, fresh, call, restore, reps):
     st = states[1]
     t_k = time_ms(lambda: call(kernel, st), reps, lambda: restore(st))
     t_p = time_ms(lambda: call(plain, st), reps, lambda: restore(st))
+    device_split(label, lambda: call(kernel, st))
+    restore(st)
+    call(kernel, st)
     return outs[1], err, t_k, t_p
 
 
@@ -517,50 +621,80 @@ def ring_parity(dev, gen, reps: int) -> dict:
 
 
 def chunk_parity(dev, gen, reps: int) -> dict:
-    """fused_chunk_step at the 10M drain's shapes: 2,097,152 lanes, keys
-    in [0, 2n] (2n the sentinel), cap 16, a carried count, a hot key past
-    cap; node-major (the main path) and rank-major addressing."""
+    """fused_chunk_step at the main paths' drop-form shapes, both address
+    forms: the 10M ticks drain (2,097,152 lanes, keys in [0, 2n], 2n the
+    sentinel, cap 16, a carried count, a hot key past cap; node-major is
+    the main path's form) and the rounds band (the column delivery of
+    -overlay-mode rounds at n = 1e7: 78,125 live lanes a chunk, nk = n,
+    cap mailbox_cap_for(n), a Poisson(fanout / 2) carried count, as the
+    middle rows of a round leave it; rank-major is its form).  Returns the
+    fused_chunk_step row, the rounds band as rounds_* columns."""
     from gossip_simulator_tpu_torch.config import Config
+    from gossip_simulator_tpu_torch.models import overlay
     from gossip_simulator_tpu_torch.models import overlay_ticks as ot
     from gossip_simulator_tpu_torch.ops import deliver
 
+    ri = lambda lo, hi, shape, g=gen: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=g, device=dev, dtype=torch.int32)
     cfg = Config(n=FULL_N).validate()
     nk = 2 * cfg.n
     cap = cfg.mailbox_cap_for(cfg.n, stacked=True)
     m = ot.ticks_delivery_chunk(cfg, cfg.n)
-    key = torch.randint(0, nk, (m,), generator=gen, device=dev,
-                        dtype=torch.int32)
+    key = ri(0, nk, (m,))
     key[torch.rand(m, generator=gen, device=dev) < 0.05] = nk
     key[torch.randperm(m, generator=gen, device=dev)[:2000]] = 12_345
-    s = torch.randint(0, 2**30, (m,), generator=gen, device=dev,
-                      dtype=torch.int32)
-    count0 = torch.randint(0, 3, (nk + 1,), generator=gen, device=dev,
-                           dtype=torch.int32)
-    distinct = int(torch.unique(key).numel())
-    row, err = None, 0
-    for rank_major in (False, True):
-        out, e, t_k, t_p = check_and_time(
-            f"fused_chunk_step[rank_major={rank_major}]",
-            deliver.chunk_step_plain, deliver.fused_chunk_step,
-            lambda: [torch.full((nk * cap + 1,), -1, dtype=torch.int32,
-                                device=dev), count0.clone(),
-                     torch.zeros((), dtype=torch.int32, device=dev)],
-            lambda fn, st: fn(*st, key, s, nk, cap, rank_major) and None,
-            lambda st: (st[1].copy_(count0), st[2].zero_()), reps)
-        err = max(err, e)
-        lost = int(out[2])
-        ok = int((key < nk).sum()) - lost
-        # Each lane's key and payload in, each touched count cell read and
-        # written once, each delivered cell written once.
-        bnd, by = bound_ms(m * 8 + distinct * 8 + ok * 4 + 4, m * 30)
-        say(f"fused_chunk_step[rank_major={rank_major}]: bit-exact over {m} "
-            f"lanes (nk {nk}, cap {cap}, {distinct} distinct keys, dropped "
-            f"{lost}); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-            f"{bnd:.5f} ms ({by})")
-        if not rank_major:
-            row = dict(ms=t_k, plain_ms=t_p, bound_ms=bnd, bound_by=by)
-        del out
-        torch.cuda.empty_cache()
+    s = ri(0, 2**30, (m,))
+    count0 = ri(0, 3, (nk + 1,))
+    # The rounds band draws from a generator of its own, so the other
+    # cases of the phase keep their inputs.
+    rgen = torch.Generator(device=dev)
+    rgen.manual_seed(1)
+    rcfg = Config(n=FULL_N, overlay_mode="rounds").validate()
+    rnk, rcap = rcfg.n, rcfg.mailbox_cap_for(rcfg.n)
+    rm = overlay.delivery_chunk(rcfg, rnk)
+    rcount = torch.poisson(torch.full((rnk + 1,), rcfg.fanout / 2,
+                                      device=dev),
+                           generator=rgen).to(torch.int32)
+    cases = (("ticks", key, s, nk, cap, count0),
+             ("rounds", ri(0, rnk, (rm,), rgen), ri(0, rnk, (rm,), rgen),
+              rnk, rcap, rcount))
+    row, err = {}, 0
+    for band, key, s, nk, cap, count0 in cases:
+        m = key.numel()
+        distinct = int(torch.unique(key[key < nk]).numel())
+        for rank_major in (False, True):
+            label = (f"fused_chunk_step[{band}, "
+                     f"{'rank' if rank_major else 'node'}-major]")
+            out, e, t_k, t_p = check_and_time(
+                label, deliver.chunk_step_plain, deliver.fused_chunk_step,
+                lambda: [torch.full((nk * cap + 1,), -1,  # noqa: B023
+                                    dtype=torch.int32, device=dev),
+                         count0.clone(),  # noqa: B023
+                         torch.zeros((), dtype=torch.int32, device=dev)],
+                lambda fn, st: fn(*st, key, s, nk, cap,  # noqa: B023
+                                  rank_major) and None,  # noqa: B023
+                lambda st: (st[1].copy_(count0),  # noqa: B023
+                            st[2].zero_()), reps)
+            err = max(err, e)
+            lost = int(out[2])
+            ok = int((key < nk).sum()) - lost
+            # Each lane's key and payload in, each touched count cell read
+            # and written once, each delivered cell written once.
+            bnd, by = bound_ms(m * 8 + distinct * 8 + ok * 4 + 4, m * 30)
+            say(f"{label}: bit-exact over {m} lanes (nk {nk}, cap {cap}, "
+                f"{distinct} distinct keys, dropped {lost}); kernel "
+                f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd:.5f} ms "
+                f"({by})")
+            enq = host_us(lambda: deliver.fused_chunk_step(  # noqa: B023
+                *out[:3], key, s, nk, cap, rank_major))  # noqa: B023
+            say(f"host {label}: {enq:.2f} us to enqueue a call")
+            cols = dict(ms=t_k, plain_ms=t_p, bound_ms=bnd, bound_by=by)
+            if band == "ticks" and not rank_major:
+                row.update(cols)
+            if band == "rounds" and rank_major:
+                row.update({f"rounds_{c}": v for c, v in cols.items()})
+            del out
+            torch.cuda.empty_cache()
     return dict(route="cuda",
                 source="gossip_simulator_tpu_torch/csrc/fused_chunk_step.cu",
                 replaces="gossip_simulator_tpu/ops/pallas_deliver.py:131",
@@ -1236,6 +1370,7 @@ def graph_parity(dev) -> dict:
     if err:
         fail(f"kout_pallas differs from its plain version (max err {err})")
     t_k = time_ms(lambda: graph.kout_pallas(n, k, 0, n, key), 5)
+    device_split("kout_pallas", lambda: graph.kout_pallas(n, k, 0, n, key))
     t_p = time_ms(lambda: [graph.kout_plain(n, k, r0, nr, key)
                            for r0, nr in _blocks(n, PLAIN_ROWS["kout"])], 2)
     bnd, by = bound_ms(n * k * 4, *kout_ops(n, k))
@@ -1266,6 +1401,8 @@ def graph_parity(dev) -> dict:
                  f"(max err {err})")
         t_k = time_ms(lambda: graph.erdos_pallas(n, lam, 0, n, key),  # noqa
                       5)
+        device_split(f"erdos_pallas[{name}]",
+                     lambda: graph.erdos_pallas(n, lam, 0, n, key))  # noqa
         t_p = time_ms(lambda: [graph.erdos_plain(n, lam, r0, nr, key)  # noqa
                                for r0, nr in _blocks(n, step)], 2)  # noqa
         bnd, by = bound_ms(n * (cap + 1) * 4, *erdos_ops(n, cap, live))
@@ -2073,14 +2210,27 @@ def _dev_us(evt) -> float:
     return 0.0
 
 
+def _device_events(ka) -> list:
+    """The device-side events of a profiler's key averages (an aten op's
+    row repeats its kernels' time)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in ka
+            if getattr(e, "device_type", None) == cuda and _dev_us(e) > 0]
+    if not kern:  # builds whose averages carry no device type
+        kern = [e for e in ka
+                if _dev_us(e) > 0 and not e.key.startswith("aten::")]
+    return kern
+
+
 PROFILE_KERNELS = (
     ("fused_emit", ("emit_count", "emit_scan", "emit_write")),
     ("fused_unique_set", ("unique_set_kernel",)),
     ("fused_ring_append", ("ring_count", "ring_scan", "ring_write",
                            "ring_finish")),
-    ("fused_chunk_step", ("chunk_hist", "scan_tiles", "scan_sums",
-                          "scan_apply", "chunk_bucket", "chunk_write",
-                          "chunk_count", "spill_write", "spill_finish")),
+    ("fused_chunk_step", ("radix_hist", "radix_scan", "radix_scatter",
+                          "chunk_write", "chunk_count", "scan_tiles",
+                          "scan_sums", "scan_apply", "spill_write",
+                          "spill_finish")),
     ("fused_negotiate", ("negotiate",)),
     ("fused_request_round", ("request_round",)),
     ("fused_hosted_chunk", ("occupancy",)),
@@ -2130,13 +2280,7 @@ def phase_profile(n: int, out_path: str, run: str = "default") -> None:
             argv, "cuda", shards=SHARDS if run == "sharded" else None)
     launches = dict(_build.LAUNCHES)
     ka = prof.key_averages()
-    # Device-side events only: an aten op's row repeats its kernels' time.
-    cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in ka
-            if getattr(e, "device_type", None) == cuda and _dev_us(e) > 0]
-    if not kern:  # builds whose averages carry no device type
-        kern = [e for e in ka
-                if _dev_us(e) > 0 and not e.key.startswith("aten::")]
+    kern = _device_events(ka)
     busy_us = sum(_dev_us(e) for e in kern)
     kern.sort(key=_dev_us, reverse=True)
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
@@ -2181,6 +2325,9 @@ def kernel_rows(kernels: dict, runs: dict) -> list:
         if "spill_ms" in row:
             out["spill_launches"] = sum(c.get(SPILL, 0)
                                         for c in runs.values())
+        # Device ms per call of each case of phase 3 (torch.profiler).
+        out["device_ms"] = {lbl: round(ms, 5) for lbl, ms in DEVICE.items()
+                            if lbl.split("[")[0] == name}
         # The other forms' and shapes' columns (spill_*, wide_*,
         # pushsum_*), as measured.
         out.update({k: v for k, v in row.items()

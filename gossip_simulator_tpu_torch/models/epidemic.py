@@ -22,8 +22,9 @@ the compacted deposit (only the senders' rows) and the dense one (all
 rows) draw the same values.  The one float in the trajectory, the crash
 probability ``1 - (1 - p)^c`` of a node that receives c messages in a
 tick, comes from a table computed once per run on the host (``crash_table``)
-so the card and the CPU give the same bits; they equal the JAX package's
-float32 ``power`` at every count below those ROADMAP §C lists.
+so the card and the CPU give the same bits: the C library's float32
+``powf``, the call XLA's CPU code makes for the JAX package's float32
+``power``, so every entry equals the reference's.
 
 Where the JAX package threads the state through donated jitted functions,
 the port updates it in place; the JAX package's ``fori_loop`` over a
@@ -38,6 +39,8 @@ device-side fast path (ROADMAP A6).
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import math
 
 import numpy as np
@@ -72,18 +75,35 @@ def ring_depth(cfg: Config) -> int:
     return cfg.delayhigh if cfg.effective_time_mode == "ticks" else 2
 
 
+def _libm_powf():
+    """The C library's float32 ``powf``, typed for ctypes."""
+    fn = ctypes.CDLL(ctypes.util.find_library("m")).powf
+    fn.argtypes = [ctypes.c_float, ctypes.c_float]
+    fn.restype = ctypes.c_float
+    return fn
+
+
 def crash_table(crash_p: float) -> np.ndarray:
     """float32 ``pc[c] = 1 - (1 - p)^c`` for c = 0, 1, ..., ending at the
-    first count where it reaches 1.0f (or at CRASH_TABLE_MAX).  The power
-    is taken in float64 of the float32 base, rounded to float32, then
-    subtracted in float32, as the JAX package's float32 ``power`` does up
-    to its rounding: torch's and XLA's float32 ``pow`` differ at some
-    counts, a table computed once gives every device the same bits."""
-    base = np.float64(np.float32(1.0 - crash_p))
-    c = np.arange(CRASH_TABLE_MAX, dtype=np.float64)
-    pc = np.float32(1.0) - np.power(base, c).astype(np.float32)
-    one = np.flatnonzero(pc == np.float32(1.0))
-    return pc[:one[0] + 1] if one.size else pc
+    first count where it reaches 1.0f (or at CRASH_TABLE_MAX).  The JAX
+    package computes ``1.0 - jnp.power(1.0 - p, c)`` in float32, and XLA's
+    CPU code lowers that ``power`` to a call of the C library's ``powf``
+    (its LLVM IR holds ``llvm.pow.f32``, its object file an undefined
+    ``powf``); torch's and numpy's float32 powers differ from it at some
+    counts.  So the table calls the same ``powf`` on the float32 base and
+    each count as float32, then subtracts in float32; computed once on the
+    host, it gives the CPU and the card the same bits."""
+    powf = _libm_powf()
+    base = float(np.float32(1.0 - crash_p))
+    parts = []
+    for lo in range(0, CRASH_TABLE_MAX, 4096):
+        pw = [powf(base, float(c)) for c in range(lo, lo + 4096)]
+        parts.append(np.float32(1.0) - np.asarray(pw, dtype=np.float32))
+        one = np.flatnonzero(parts[-1] == np.float32(1.0))
+        if one.size:
+            parts[-1] = parts[-1][:one[0] + 1]
+            break
+    return np.concatenate(parts)
 
 
 class CrashDraw:

@@ -30,6 +30,7 @@ raises.  All of them update their state tensors in place.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -50,8 +51,8 @@ UNIQUE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
 RING_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p] * 3)
 CHUNK_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                  + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                  + [ctypes.c_void_p] * 3)
+                  + [ctypes.c_void_p, ctypes.c_longlong]
+                  + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def unique_set_plain(ring: torch.Tensor, flat: torch.Tensor,
@@ -63,29 +64,37 @@ def unique_set_plain(ring: torch.Tensor, flat: torch.Tensor,
 
 
 def _check(ring, flat, vals) -> None:
-    if ring.dtype != torch.int32 or flat.dtype != torch.int32 \
-            or vals.dtype != torch.int32:
+    """Raise on what neither version takes, in attribute reads of well
+    under a microsecond each (the call is short: csrc note)."""
+    if ring.dtype is not I32 or flat.dtype is not I32 \
+            or vals.dtype is not I32:
         raise TypeError(f"{NAME}: ring, flat and vals must be int32, got "
                         f"{ring.dtype}, {flat.dtype}, {vals.dtype}")
-    if ring.dim() != 1 or flat.dim() != 1 or flat.shape != vals.shape:
+    if ring.ndim != 1 or flat.ndim != 1 or flat.shape != vals.shape:
         raise ValueError(f"{NAME}: need 1-D ring and equal 1-D flat/vals, "
                          f"got {tuple(ring.shape)}, {tuple(flat.shape)}, "
                          f"{tuple(vals.shape)}")
-    devs = {ring.device, flat.device, vals.device}
-    if len(devs) != 1:
-        raise ValueError(f"{NAME}: tensors on different devices {devs}")
+    if flat.device != ring.device or vals.device != ring.device:
+        raise ValueError(f"{NAME}: tensors on different devices "
+                         f"{ring.device}, {flat.device}, {vals.device}")
+
+
+@functools.cache
+def _unique_fn():
+    """fused_unique_set's typed C entry point, held once it is built (the
+    call is short enough that its host path is most of its time)."""
+    return _build.function(NAME, "gossip_fused_unique_set", UNIQUE_ARGTYPES)
 
 
 def _launch(ring, flat, vals) -> torch.Tensor:
-    fn = _build.function(NAME, "gossip_fused_unique_set", UNIQUE_ARGTYPES)
-    for t, nm in ((ring, "ring"), (flat, "flat"), (vals, "vals")):
-        if not t.is_contiguous():
-            raise ValueError(f"{NAME}: {nm} must be contiguous")
-    stream = torch.cuda.current_stream(ring.device).cuda_stream
+    if not ring.is_contiguous():
+        raise ValueError(f"{NAME}: ring must be contiguous")
+    fn = _unique_fn()
     _build.count_launch(NAME)
-    rc = fn(ring.data_ptr(), flat.data_ptr(), vals.data_ptr(),
-            flat.numel(), stream)
-    _build.check(rc, NAME)
+    rc = fn(ring.data_ptr(), flat.data_ptr(), vals.data_ptr(), flat.shape[0],
+            _stream(ring.get_device()))
+    if rc:
+        _build.check(rc, NAME)
     return ring
 
 
@@ -96,15 +105,18 @@ def fused_unique_set(ring: torch.Tensor, flat: torch.Tensor,
     word ring belongs to multi-rumor traffic, not yet ported (ROADMAP
     A11), so this takes the id ring alone."""
     _check(ring, flat, vals)
-    if ring.device.type == "cpu":
-        return unique_set_plain(ring, flat, vals)
-    if ring.device.type == "cuda":
+    if ring.is_cuda:
         return _launch(ring, flat.contiguous(), vals.contiguous())
+    if ring.is_cpu:
+        return unique_set_plain(ring, flat, vals)
     raise ValueError(f"{NAME}: no kernel for device {ring.device}")
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _stream(index: int) -> int:
+    """The raw handle of card `index`'s current CUDA stream (building a
+    torch.cuda.Stream object for it costs ~5 us a call on the card's
+    host)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _need(name, t, nm, dtype, dev, dim=1):
@@ -194,7 +206,7 @@ def _ring_launch(rings, cnt, dropped, payloads, wslot, valid, dw, cap):
     _build.count_launch(RING)
     rc = fn(rings[0].data_ptr(), ring1, payloads[0].data_ptr(), pay1,
             wslot.data_ptr(), valid.data_ptr(), cnt.data_ptr(), m, dw, cap,
-            w1, dropped.data_ptr(), scratch.data_ptr(), _stream(dev))
+            w1, dropped.data_ptr(), scratch.data_ptr(), _stream(dev.index))
     _build.check(rc, RING)
     return rings, cnt, dropped
 
@@ -295,6 +307,28 @@ def chunk_step_plain(mbox, count, dropped, key, s, nk: int, cap: int,
     return mbox, count, dropped, (pairs, scnt)
 
 
+# The kernel's radix tiles, digit bins and passes (TILE, RADIX_MAX and
+# PASSES_MAX of csrc/fused_chunk_step.cu).
+CHUNK_TILE = 4096
+CHUNK_RADIX_MAX = 1024
+CHUNK_PASSES_MAX = 4
+
+
+def chunk_scratch_elems(m: int, spill: bool) -> int:
+    """int32 scratch of one fused_chunk_step call of m lanes, as
+    csrc/fused_chunk_step.cu lays it out: the sorted keys and payloads
+    (and, in the spill form, lanes), double-buffered; each pass's per-tile
+    digit histograms; the digit totals; the live count; in the spill form,
+    the lanes' overflow flags and their scan's tile sums.  It grows with
+    m, never with nk."""
+    tiles = -(-m // CHUNK_TILE)
+    n = ((6 if spill else 4) * m + CHUNK_PASSES_MAX * CHUNK_RADIX_MAX * tiles
+         + CHUNK_RADIX_MAX + 1)
+    if spill:
+        n += m + -(-m // 4096)
+    return n
+
+
 def _chunk_launch(mbox, count, dropped, key, s, nk, cap, rank_major, spill):
     dev = key.device
     m = key.shape[0]
@@ -320,26 +354,16 @@ def _chunk_launch(mbox, count, dropped, key, s, nk, cap, rank_major, spill):
             raise ValueError(f"{CHUNK}: pairs must be (2, scap + 1), got "
                              f"{tuple(pairs.shape)}")
     fn = _build.function(CHUNK, "gossip_fused_chunk_step", CHUNK_ARGTYPES)
-    # Scratch: per-key offsets (nk + 2, zeroed), the bucketed lane ids,
-    # the offset scan's per-tile sums; the spill form adds the lanes'
-    # overflow flags (scanned in place) and their scan's tile sums.
-    tiles = (nk + 2 + 4095) // 4096
-    offs = torch.zeros(nk + 2, dtype=I32, device=dev)
-    mm = max(m, 1)
-    scratch = torch.empty(mm + tiles + 1, dtype=I32, device=dev)
-    ovf = ovf_tiles = None
-    if spill is not None:
-        ovf = torch.empty(mm + (mm + 4095) // 4096 + 1, dtype=I32, device=dev)
-        ovf_tiles = ovf[mm:]
+    scratch = torch.empty(max(chunk_scratch_elems(m, spill is not None), 1),
+                          dtype=I32, device=dev)
     _build.count_launch(CHUNK)
     if spill is not None:
         _build.count_launch(CHUNK_SPILL)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = fn(mbox.data_ptr(), count.data_ptr(), dropped.data_ptr(),
             key.data_ptr(), s.data_ptr(), m, nk, cap, int(bool(rank_major)),
-            offs.data_ptr(), scratch.data_ptr(), scratch[mm:].data_ptr(),
-            ptr(pairs), ptr(scnt), scap, ptr(ovf), ptr(ovf_tiles),
-            _stream(dev))
+            scratch.data_ptr(), scratch.numel(), ptr(pairs), ptr(scnt), scap,
+            _stream(dev.index))
     _build.check(rc, CHUNK)
     if spill is None:
         return mbox, count, dropped
@@ -442,7 +466,7 @@ def _deposit_launch(name, symbol, argtypes, pending, slots, dst, vals=None):
     width = () if vals is None else (pending.shape[2],)
     _build.count_launch(name)
     rc = fn(pending.data_ptr(), slots.data_ptr(), dst.data_ptr(), *tail,
-            slots.shape[0], b, n, *width, _stream(pending.device))
+            slots.shape[0], b, n, *width, _stream(pending.device.index))
     _build.check(rc, name)
     return pending
 

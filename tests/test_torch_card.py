@@ -179,26 +179,39 @@ def _drain(fn, d, kw, dev):
 
 
 def _chunk_inputs(seed, *, m=400, nk=300, cap=4, sentinel=0.15, hot=0,
-                  carry_hi=3):
+                  carry_hi=3, one_key=False, hot_carry=None, big=False):
     """Numpy inputs of one fused_chunk_step call: keys in [0, nk] (nk the
-    sentinel), a carried count, optionally a hot key past the cap."""
+    sentinel), a carried count, optionally a hot key (7) past the cap,
+    every live lane on it (`one_key`), or its carried count set to
+    `hot_carry`.  With `big`, the mailbox (nk*cap + 1 cells) is left to
+    ``_chunk_step`` to fill with -1 on the device."""
     rng = np.random.default_rng(seed)
     key = rng.integers(0, nk, m).astype(np.int32)
+    if one_key:
+        key[:] = 7
     key[rng.random(m) < sentinel] = nk
     if hot:
         key[rng.permutation(m)[:hot]] = 7
     count = rng.integers(0, carry_hi, nk + 1).astype(np.int32)
+    if hot_carry is not None:
+        count[7] = hot_carry
+    mbox = None if big else rng.integers(-1, 50, nk * cap + 1).astype(
+        np.int32)
     return dict(key=key, s=rng.integers(0, 10**6, m).astype(np.int32),
-                mbox=rng.integers(-1, 50, nk * cap + 1).astype(np.int32),
-                count=count), dict(nk=nk, cap=cap)
+                mbox=mbox, count=count), dict(nk=nk, cap=cap)
 
 
-def _chunk_step(fn, d, kw, rank_major, dev):
-    mbox, count = T(d["mbox"].copy()).to(dev), T(d["count"].copy()).to(dev)
+def _chunk_step(fn, d, kw, rank_major, dev, out_dev="cpu"):
+    if d["mbox"] is None:
+        mbox = torch.full((kw["nk"] * kw["cap"] + 1,), -1, dtype=torch.int32,
+                          device=dev)
+    else:
+        mbox = T(d["mbox"].copy()).to(dev)
+    count = T(d["count"].copy()).to(dev)
     dropped = torch.tensor(5, dtype=torch.int32, device=dev)
     fn(mbox, count, dropped, T(d["key"]).to(dev), T(d["s"]).to(dev),
        rank_major=rank_major, **kw)
-    return [mbox.cpu(), count.cpu(), dropped.cpu()]
+    return [mbox.to(out_dev), count.to(out_dev), dropped.to(out_dev)]
 
 
 def _negotiate_inputs(seed, kind, *, n=700, k=6, fanout=5, fanin=6):
@@ -349,6 +362,29 @@ def test_fused_unique_set_kernel_matches_plain_on_card():
     assert torch.equal(want, got.cpu())
 
 
+@pytest.mark.parametrize("m,flat_off,vals_off", (
+    (1, 0, 0), (1799, 0, 0), (786_431, 0, 0), (1800, 1, 1), (1800, 1, 0),
+    (1800, 3, 2)))
+def test_fused_unique_set_edges_match_plain_on_card(m, flat_off, vals_off):
+    """m = 1, m not a multiple of 4, and flat and vals as views that start
+    off a 16-byte boundary, alike (the vector path after a scalar head) or
+    not (the scalar path)."""
+    dev = _card()
+    rng = np.random.default_rng(m)
+    size = 2 * m + 8
+    ring = rng.integers(-50, 50, size).astype(np.int32)
+    flat = np.zeros(m + 4, np.int32)
+    flat[flat_off:flat_off + m] = rng.permutation(size)[:m]
+    vals = rng.integers(0, 10**6, m + 4).astype(np.int32)
+    fv = T(flat)[flat_off:flat_off + m]
+    vv = T(vals)[vals_off:vals_off + m]
+    want = deliver.fused_unique_set(T(ring.copy()), fv, vv)
+    got = deliver.fused_unique_set(T(ring).to(dev),
+                                   T(flat).to(dev)[flat_off:flat_off + m],
+                                   T(vals).to(dev)[vals_off:vals_off + m])
+    assert torch.equal(want, got.cpu())
+
+
 RING_CASES = {
     "two_rings": dict(), "one_ring": dict(rings=1),
     "overflow": dict(cap=60, base_hi=50), "dw8": dict(dw=8, m=3000),
@@ -375,21 +411,34 @@ def test_fused_ring_append_kernel_matches_plain_on_card(case):
         assert torch.equal(w, g)
 
 
+# nk*cap + 1 just under 2**31 at cap 8: 28-bit keys, the flat limit.
+FLAT_LIMIT_NK = (2**31 - 2) // 8
 CHUNK_CASES = {
     "plain": dict(), "hot_key": dict(hot=60), "no_sentinel": dict(sentinel=0),
     "carried_past_cap": dict(carry_hi=6),
     "wide": dict(m=200_000, nk=400_000, cap=16, hot=5000),
+    "one_key": dict(m=2**21, one_key=True),
+    "single_lane": dict(m=1, sentinel=0),
+    "all_sentinel": dict(sentinel=1.0),
+    "hot_carried_past_cap": dict(hot=60, hot_carry=4),
+    "nk_1e8": dict(m=300_000, nk=10**8, cap=8, hot=3000, big=True),
+    "flat_limit": dict(m=300_000, nk=FLAT_LIMIT_NK, cap=8, hot=3000,
+                       big=True),
 }
 
 
 @pytest.mark.parametrize("rank_major", (False, True))
 @pytest.mark.parametrize("case", sorted(CHUNK_CASES))
 def test_fused_chunk_step_kernel_matches_plain_on_card(case, rank_major):
+    """The plain version runs on the CPU, or on the card for the cases
+    whose mailbox is gigabytes (nk up to 2.7e8)."""
     dev = _card()
     d, kw = _chunk_inputs(12, **CHUNK_CASES[case])
-    want = _chunk_step(deliver.chunk_step_plain, d, kw, rank_major,
-                       torch.device("cpu"))
-    got = _chunk_step(deliver.fused_chunk_step, d, kw, rank_major, dev)
+    ref = dev if d["mbox"] is None else torch.device("cpu")
+    want = _chunk_step(deliver.chunk_step_plain, d, kw, rank_major, ref,
+                       out_dev=ref)
+    got = _chunk_step(deliver.fused_chunk_step, d, kw, rank_major, dev,
+                      out_dev=ref)
     for w, g in zip(want, got):
         assert torch.equal(w, g)
 
@@ -450,14 +499,28 @@ SPILL_CASES = {
     "full_already": dict(scap=12, scnt=12),
     "wide": dict(m=300_000, nk=100_000, cap=2, scap=250_000, scnt=1000),
     "wide_fills": dict(m=300_000, nk=100_000, cap=2, scap=9000),
+    # scap is set so that the spill fills on exactly its last overflow lane.
+    "fills_on_last": dict(scnt=5, scap="exact"),
+    "no_overflow": dict(cap=64),
 }
+
+
+def _overflow(seed, kw_case) -> int:
+    """The number of overflowing lanes of a spill case (plain version)."""
+    d, kw = _spill_inputs(seed, **dict(kw_case, scap=10**6))
+    out = _spill_step(deliver.chunk_step_plain, d, kw, False,
+                      torch.device("cpu"))
+    return int(out[4]) - d["scnt"]
 
 
 @pytest.mark.parametrize("rank_major", (False, True))
 @pytest.mark.parametrize("case", sorted(SPILL_CASES))
 def test_fused_chunk_step_spill_matches_plain_on_card(case, rank_major):
     dev = _card()
-    d, kw = _spill_inputs(16, **SPILL_CASES[case])
+    kw_case = dict(SPILL_CASES[case])
+    if kw_case.get("scap") == "exact":
+        kw_case["scap"] = kw_case.get("scnt", 0) + _overflow(16, kw_case)
+    d, kw = _spill_inputs(16, **kw_case)
     want = _spill_step(deliver.chunk_step_plain, d, kw, rank_major,
                        torch.device("cpu"))
     got = _spill_step(deliver.fused_chunk_step, d, kw, rank_major, dev)

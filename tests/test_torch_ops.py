@@ -317,6 +317,88 @@ def test_ctypes_signatures_match_the_sources(name, argtypes):
     assert _c_params(path, f"gossip_{name}") == list(argtypes)
 
 
+@pytest.mark.parametrize("spill", (False, True))
+def test_chunk_step_scratch_grows_with_m_not_nk(monkeypatch, spill):
+    """fused_chunk_step's scratch is O(m): the wrapper allocates
+    chunk_scratch_elems(m, spill) int32 cells and nothing sized by nk (no
+    zeroed per-key offsets); the same m at nk = 10**3 and 10**8 takes the
+    same bytes.  Driven through the wrapper's launch path on meta tensors,
+    its C entry point replaced by a recorder."""
+    i32 = lambda *shape: torch.empty(shape, dtype=torch.int32,  # noqa: E731
+                                     device="meta")
+    cap = 8
+    cases = {(nk, m): [i32(nk * cap + 1), i32(nk + 1), i32(), i32(m),
+                       i32(m)]
+             for nk in (10**3, 10**8) for m in (1000, 5000)}
+    spills = (i32(2, 101), i32()) if spill else None
+    calls, allocs = [], []
+    monkeypatch.setattr(deliver._build, "function",
+                        lambda *a: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(deliver._build, "LAUNCHES", dict(_build.LAUNCHES))
+    monkeypatch.setattr(deliver, "_stream", lambda dev: 0)
+    for name in ("empty", "zeros", "full"):
+        def record(*a, _real=getattr(torch, name), **kw):
+            t = _real(*a, **kw)
+            allocs.append(t.numel())
+            return t
+        monkeypatch.setattr(torch, name, record)
+    got = {}
+    for (nk, m), st in cases.items():
+        allocs.clear()
+        deliver._chunk_launch(*st, nk, cap, True, spills)
+        got[nk, m] = (list(allocs), calls[-1][10])
+        assert got[nk, m] == ([deliver.chunk_scratch_elems(m, spill)],
+                              deliver.chunk_scratch_elems(m, spill))
+    for m in (1000, 5000):
+        assert got[10**3, m] == got[10**8, m]
+    assert got[10**8, 5000][1] > got[10**8, 1000][1]
+    assert max(got[10**8, 5000][0]) < 10**6
+
+
+def test_chunk_scratch_constants_match_the_source():
+    """chunk_scratch_elems sizes the scratch the C entry point lays out
+    (it refuses a smaller one): hold its constants to the source's."""
+    import re
+
+    src = open(_build._target("fused_chunk_step")[0]).read()
+    num = {k: int(v) for k, v in
+           re.findall(r"^#define (\w+) (\d+)\b", src, re.M)}
+    assert deliver.CHUNK_TILE == num["THREADS"] * num["ITEMS"]
+    assert deliver.CHUNK_RADIX_MAX == 1 << num["RADIX_BITS_MAX"]
+    assert deliver.CHUNK_PASSES_MAX == num["PASSES_MAX"]
+    assert deliver.CHUNK_PASSES_MAX * num["RADIX_BITS_MAX"] >= 31
+
+
+def test_unique_set_launch_takes_lanes_and_raw_stream(monkeypatch):
+    """fused_unique_set's launch path builds and types its C entry point
+    once, passes the three pointers, the lane count and the current
+    stream's raw handle of the ring's card to it, counts each launch, and
+    refuses a ring it cannot write in place."""
+    built, calls = [], []
+
+    def function(*a):
+        built.append(a)
+        return lambda *args: calls.append(args) or 0
+
+    monkeypatch.setattr(deliver._build, "function", function)
+    monkeypatch.setattr(deliver._build, "LAUNCHES", dict(_build.LAUNCHES))
+    monkeypatch.setattr(deliver, "_stream", lambda index: 77 + index)
+    ring, flat, vals = (torch.empty(n, dtype=torch.int32, device="meta")
+                        for n in (64, 9, 9))
+    deliver._unique_fn.cache_clear()
+    try:
+        for _ in range(3):
+            assert deliver._launch(ring, flat, vals) is ring
+    finally:
+        deliver._unique_fn.cache_clear()
+    assert built == [(deliver.NAME, "gossip_fused_unique_set",
+                      deliver.UNIQUE_ARGTYPES)]
+    assert len(calls) == 3 and calls[0][3:] == (9, 76)
+    assert deliver._build.LAUNCHES[deliver.NAME] == 3
+    with pytest.raises(ValueError, match="ring must be contiguous"):
+        deliver._launch(ring[::2], flat, vals)
+
+
 def test_unported_inputs_raise():
     d, kw = _emit_inputs(0)
     args = [T(d["ring"].copy()), T(d["cnt"]), T(d["sf"]), T(d["drop"]),
