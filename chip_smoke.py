@@ -33,12 +33,15 @@ Phases, each printing its own line:
               and fused_deposit_both (20 x 1e6 x 16 rings, 6e6 lanes);
               and PushSum's shapes at n = 1e7, fanout 6, dim 2 (C = 12
               limb columns, dw = 3, cap 7e7): fused_drain_sum over one
-              slot of 6e7 live lanes, the wide fused_ring_append (6e7
-              lanes, a 12-column mass ring) and fused_deposit_rows at (1,
-              1e7, 12) on a 524,288-lane drain chunk; the widths past the
-              kernels' old limits (ROADMAP C1): fused_negotiate at k = 20
-              and 200 (1e6 rows), fused_emit at dw = 40, kw = 33 and kw =
-              112 (131,072 senders), fused_ring_append at dw = 40; and the
+              slot of 6e7 live lanes and at pushsum10m_sharded's per-shard
+              shape (n_local 1.25e6, 8.75e6 live lanes, the shard's cap),
+              each in the form the wrapper takes there, the wide
+              fused_ring_append (6e7 lanes, a 12-column mass ring) and
+              fused_deposit_rows at (1, 1e7, 12) on a 524,288-lane drain
+              chunk; the widths past the kernels' old limits (ROADMAP
+              C1): fused_negotiate at k = 20 and 200 (1e6 rows),
+              fused_emit at dw = 40, kw = 33 and kw = 112 (131,072
+              senders), fused_ring_append at dw = 40; and the
               generators: kout_pallas at 1e8 rows x 3 (headline_jax) and
               erdos_pallas at 1e7 rows, lam 8 (sir_10m_erdos) and 1e6 rows,
               lam 60, held to their plain versions in row blocks;
@@ -49,9 +52,10 @@ Phases, each printing its own line:
               larger of the call's bytes over 3.35 TB/s and its
               instructions over the card's dispatch rate (128 lanes an SM;
               rotates, shifts and logic over the integer ALU pipe's 64);
-              each case's kernel is also run 3 times under torch.profiler
-              ("device" lines: device ms per call, launches per call, ms by
-              kernel, the kernels line's device_ms), and the host time to
+              each case's kernel is also run 3 times under torch.profiler,
+              its state restored before each call ("device" lines: device
+              ms per call, launches per call, ms by kernel, the kernels
+              line's device_ms), and the host time to
               enqueue one fused_unique_set and fused_chunk_step call on an
               idle card is printed ("host" lines, with index_put_'s and
               the parts of the unique_set wrapper);
@@ -124,15 +128,19 @@ Phases, each printing its own line:
               compacted batch, 8 x 25,831 lanes; the same with the
               duplicate filter, fanout 6 crash 0; pushsum10m's window, 8
               x 4,375,000 lanes x 12 mass columns; an overflow case),
-              timed beside its bound; cuda-vs-cpu twins on 2 and 8
+              timed beside its bound, with the host's enqueue of the
+              batch call ("host" line) -- run right after phase 3, before
+              any full-size run, so the profiler records its device time;
+              then cuda-vs-cpu twins on 2 and 8
               shards (SI, SI crash 0, SIR, erdos, erdos -pallas, PushSum)
               that must launch fused_recv_land; then sharded_10m
               (bench.py's row: headline_jax's flags, -backend sharded) at
               n = 1e7 under the default gates and -phase2-kernel xla (one
               transcript; fused_recv_land only under the first),
               pushsum10m with -backend sharded (mass conserved, nothing
-              dropped), and config 5 at n = 1e8 with its wall seconds and
-              peak memory.
+              dropped), and config 5 at n = 1e8 with its wall seconds,
+              peak memory and the host seconds spent in the
+              fused_recv_land wrapper.
 
 With --profile, a full-size run (--profile-run: the default run, one
 of the ring engine's runs, pushsum, erdos or sharded, the last on 8
@@ -272,14 +280,9 @@ def _kernel_name(key: str) -> str:
     return name
 
 
-def device_split(label: str, fn, reps: int = DEVICE_REPS) -> None:
-    """Run fn() `reps` times under torch.profiler; print its device time
-    per call, in all and by kernel (every kernel the call launches:
-    scratch fills and copies included), and its launches per call, and
-    record the device ms per call in DEVICE[label].  The profiler at
-    times returns no device event for a case (most of phase 8's after the
-    full-size runs; the same phase alone records them): such a case
-    prints "not measured" and records nothing."""
+def _profile_split(fn, reps: int) -> tuple[dict, int]:
+    """Device ms per call by kernel, and launches, of `reps` calls of fn()
+    under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -293,6 +296,30 @@ def device_split(label: str, fn, reps: int = DEVICE_REPS) -> None:
         nm = _kernel_name(e.key)
         split[nm] = split.get(nm, 0.0) + _dev_us(e) / 1e3 / reps
         launches += e.count
+    return split, launches
+
+
+def device_split(label: str, fn, reps: int = DEVICE_REPS,
+                 setup=None) -> None:
+    """Run fn() `reps` times under torch.profiler; print its device time
+    per call, in all and by kernel (every kernel the call launches:
+    scratch fills and copies included), and its launches per call, and
+    record the device ms per call in DEVICE[label].  With `setup`, each
+    call is preceded by setup() (it restores what fn updates in place, so
+    every profiled call does the first call's work), whose own kernels,
+    profiled alone, are taken off.  The profiler at times returns no
+    device event for a case (phase 8's after the full-size runs, so
+    phase 8's cases run before them): such a case prints "not measured"
+    and records nothing."""
+    if setup is None:
+        split, launches = _profile_split(fn, reps)
+    else:
+        split, launches = _profile_split(lambda: (setup(), fn()), reps)
+        own, own_launches = _profile_split(setup, reps)
+        launches -= own_launches
+        for k, v in own.items():
+            split[k] = split.get(k, 0.0) - v
+        split = {k: v for k, v in split.items() if v > 1e-6}
     if not split:
         say(f"device {label}: not measured (the profiler returned no "
             "device events)")
@@ -568,7 +595,7 @@ def check_and_time(label, plain, kernel, fresh, call, restore, reps):
     st = states[1]
     t_k = time_ms(lambda: call(kernel, st), reps, lambda: restore(st))
     t_p = time_ms(lambda: call(plain, st), reps, lambda: restore(st))
-    device_split(label, lambda: call(kernel, st))
+    device_split(label, lambda: call(kernel, st), setup=lambda: restore(st))
     restore(st)
     call(kernel, st)
     return outs[1], err, t_k, t_p
@@ -1138,14 +1165,14 @@ def wide_ring_parity(dev, gen, reps: int) -> dict:
                 wide_bound_ms=bnd, wide_bound_by=by)
 
 
-def drain_parity(dev, gen, reps: int) -> dict:
-    """fused_drain_sum at pushsum10m's shape: the last slot of the full
-    ring (mass offsets past 2^31) holding one window's 6e7 live lanes,
-    into the (1e7, 12) accumulator; beside it drain_sum_plain and the one
-    index_add_ of the live lanes' rows."""
+def _drain_case(dev, gen, reps, label, n, m, dw, cap, length, c, b) -> dict:
+    """fused_drain_sum over the last slot of a ring of `length` rows
+    holding m live lanes, into an (n, c) accumulator: bit-exact to
+    drain_sum_plain, timed beside it, beside the one index_add_ of the live
+    lanes' rows and beside the bound, in the form the wrapper takes there
+    (drain_part_rows).  Returns the case's columns."""
     from gossip_simulator_tpu_torch.ops import megakernel
 
-    _, n, m, dw, cap, length, c, b, _ = pushsum_shapes()
     i32 = dict(dtype=torch.int32, device=dev)
     slot = dw - 1
     s0 = slot * cap
@@ -1162,9 +1189,8 @@ def drain_parity(dev, gen, reps: int) -> dict:
         fn(st[0], ids, mass, cnt, slot, cap=cap, b=b)
 
     out, err, t_k, t_p = check_and_time(
-        "fused_drain_sum", megakernel.drain_sum_plain,
-        megakernel.fused_drain_sum, lambda: [acc0.clone()], call,
-        lambda st: st[0].copy_(acc0), reps)
+        label, megakernel.drain_sum_plain, megakernel.fused_drain_sum,
+        lambda: [acc0.clone()], call, lambda st: st[0].copy_(acc0), reps)
     rows64, live = dst.long(), mass[s0:s0 + m]
     acc = out[0]
     t_l = time_ms(lambda: acc.index_add_(0, rows64, live), reps,
@@ -1174,17 +1200,36 @@ def drain_parity(dev, gen, reps: int) -> dict:
     # Each live lane's id and mass row in; each touched accumulator row
     # read and written once; one add per nonzero limb.
     bnd, by = bound_ms(m * (4 + 4 * c) + touched * 8 * c, nonzero)
-    say(f"fused_drain_sum: bit-exact over {m} live lanes x {c} columns "
-        f"(slot {slot} of cap {cap}, {touched} rows touched, {nonzero} "
-        f"nonzero limbs); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"index_add_ {t_l:.4f} ms, bound {bnd:.5f} ms ({by})")
+    rows = megakernel.drain_part_rows(n, c)
+    say(f"{label}: bit-exact over {m} live lanes x {c} columns (n {n}, "
+        f"slot {slot} of cap {cap}, {touched} rows touched, {nonzero} "
+        f"nonzero limbs); kernel {t_k:.4f} ms (part_rows {rows}), plain "
+        f"{t_p:.4f} ms, index_add_ {t_l:.4f} ms, bound {bnd:.5f} ms ({by})")
     del out, acc, acc0, ids, mass, dst, rows64, live
     torch.cuda.empty_cache()
-    return dict(route="cuda",
-                source="gossip_simulator_tpu_torch/csrc/fused_drain_sum.cu",
-                replaces="gossip_simulator_tpu/ops/pallas_megakernel.py:414",
-                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
-                bound_by=by, library_ms=t_l)
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
+                bound_by=by, library_ms=t_l, part_rows=rows)
+
+
+def drain_parity(dev, gen, reps: int) -> dict:
+    """fused_drain_sum at pushsum10m's shape (the last slot of the full
+    ring, mass offsets past 2^31, one window's 6e7 live lanes into the
+    (1e7, 12) accumulator) and at pushsum10m_sharded's per-shard shape
+    (n_local 1.25e6, 8.75e6 live lanes, the shard's own cap)."""
+    _, n, m, dw, cap, length, c, b, _ = pushsum_shapes()
+    row = dict(route="cuda",
+               source="gossip_simulator_tpu_torch/csrc/fused_drain_sum.cu",
+               replaces="gossip_simulator_tpu/ops/pallas_megakernel.py:414")
+    row.update(_drain_case(dev, gen, reps, DRAIN, n, m, dw, cap, length, c,
+                           b))
+    sh = pushsum_recv_shapes(PUSHSUM_N, SHARDS)
+    nl = sh["n_local"]
+    shard = _drain_case(dev, gen, reps, f"{DRAIN}[shard]", nl,
+                        sh["fill"] * SHARDS, sh["dw"], sh["cap"],
+                        sh["length"], sh["width"], sh["b"])
+    row["shard_max_abs_err"] = shard.pop("max_abs_err")
+    row.update({f"shard_{k}": v for k, v in shard.items()})
+    return row
 
 
 def pushsum_rows_parity(dev, gen, reps: int) -> dict:
@@ -2086,6 +2131,10 @@ def recv_parity(dev, gen, reps: int) -> dict:
             f"{landed} landed, {dropped} dropped, sup "
             f"{out[-1].tolist()}; cap {cap}, {w} word columns); kernel "
             f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd:.5f} ms ({by})")
+        if name == "event":
+            hu = host_us(lambda: call(megakernel.fused_recv_land, out[:3]))
+            say(f"host {RECV}[event]: {hu:.2f} us a call (the wrapper's "
+                "enqueue on an idle card)")
         if row is None:
             row = dict(route="cuda",
                        source="gossip_simulator_tpu_torch/csrc/"
@@ -2093,7 +2142,7 @@ def recv_parity(dev, gen, reps: int) -> dict:
                        replaces="gossip_simulator_tpu/ops/"
                                 "pallas_megakernel.py:328",
                        max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
-                       bound_by=by, library_ms=None)
+                       bound_by=by, library_ms=None, host_us=hu)
         else:
             row[f"{name}_max_abs_err"] = err
             row.update({f"{name}_ms": t_k, f"{name}_plain_ms": t_p,
@@ -2147,18 +2196,16 @@ def sharded_twins(n: int) -> None:
                 f"{wall_c:.2f} s; launches {launches}")
 
 
-def phase_sharded(dev, n: int, n_ps: int, n_big: int, reps: int) -> tuple:
+def phase_sharded(n: int, n_ps: int, n_big: int) -> dict:
     """The seventh slice's path, the sharded backend on SHARDS shards of
-    the card: fused_recv_land's parity, the cuda-vs-cpu twins, then
+    the card (fused_recv_land's parity runs before it, with phase 3: the
+    profiler records its device time there): the cuda-vs-cpu twins, then
     sharded_10m under the default gates (fused_recv_land) and with
     -phase2-kernel xla (the decode and ring-append chain: no
     fused_recv_land), which must give one transcript; PushSum at n_ps
     (pushsum10m's flags, -backend sharded), conserving the mass; and
     config 5 at n_big under the default gates, with wall seconds and peak
-    memory.  Returns (the kernel's row, the launches of each run)."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(7)
-    row = recv_parity(dev, gen, reps)
+    memory.  Returns the launches of each run."""
     sharded_twins(TWIN_N)
     runs, outs = {}, {}
     for name, gate, recv_on in (("sharded_10m", [], True),
@@ -2193,13 +2240,32 @@ def phase_sharded(dev, n: int, n_ps: int, n_big: int, reps: int) -> tuple:
              f"{st.initial_totals}, launches {runs['pushsum10m_sharded']}")
     say(f"full pushsum10m_sharded: report {res.report}; mass conserved")
     del st
-    out, res, st, runs["sharded_100m"], wall = full_run(
-        "sharded_100m", n_big, sharded_argv(n_big), shards=SHARDS)
+    # The host's share of the receive side: seconds spent inside the
+    # fused_recv_land wrapper (its enqueue; the device runs behind).
+    from gossip_simulator_tpu_torch.ops import megakernel
+    land, spent = megakernel.fused_recv_land, [0.0, 0]
+
+    def timed_land(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return land(*a, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+
+    megakernel.fused_recv_land = timed_land
+    try:
+        out, res, st, runs["sharded_100m"], wall = full_run(
+            "sharded_100m", n_big, sharded_argv(n_big), shards=SHARDS)
+    finally:
+        megakernel.fused_recv_land = land
+    say(f"host sharded_100m: {spent[0]:.3f} s in {spent[1]} "
+        f"{RECV} calls ({1e6 * spent[0] / max(spent[1], 1):.2f} us each)")
     del st
     _transcript("sharded_100m", out)
     say(f"full sharded_100m: wall {wall:.3f} s, peak "
         f"{torch.cuda.max_memory_allocated()} B")
-    return row, runs
+    return runs
 
 
 def _dev_us(evt) -> float:
@@ -2237,8 +2303,9 @@ PROFILE_KERNELS = (
     ("fused_deposit_add", ("deposit_add",)),
     ("fused_deposit_rows", ("deposit_rows",)),
     ("fused_deposit_both", ("deposit_both",)),
-    (DRAIN, ("drain_sum",)),
-    (RECV, ("recv_count", "recv_scan", "recv_write", "recv_finish")),
+    (DRAIN, ("drain_sum", "part_hist", "part_scan", "part_scatter",
+             "tile_accum")),
+    (RECV, ("recv_land",)),
     ("kout_pallas", ("kout",)),
     ("erdos_pallas", ("erdos",)))
 
@@ -2384,29 +2451,42 @@ def main() -> int:
     _build.build_all()
     say(f"build: {len(_build.KERNELS)} kernels in "
         f"{time.perf_counter() - t0:.2f} s ({_build.BUILD_DIR})")
+    t_lap = [time.perf_counter()]
 
-    # 3. parity
+    def lap(name: str) -> None:
+        """Print the seconds since the last lap: where the script's time
+        goes, phase by phase."""
+        now = time.perf_counter()
+        say(f"time {name}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
+    # 3. parity (and phase 8's, before any full-size run)
     kernels = phase_parity(dev, REPS) if "parity" in phases else {}
+    if "sharded" in phases:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        kernels[RECV] = recv_parity(dev, gen, REPS)
+    lap("parity")
 
     # 4. twins
     if "twins" in phases:
         phase_twins(TWIN_N)
+        lap("twins")
 
     # 5. full size: the kout and default runs, then the rounds overlay
-    runs = phase_full(FULL_N) if "full" in phases else {}
-    if "rounds" in phases:
-        runs.update(phase_rounds(FULL_N, SPLIT_N, TWIN_LIMIT_S))
-    if "ring" in phases:
-        runs.update(phase_ring(RING_N, RUMOR_N))
-    if "pushsum" in phases:
-        runs.update(phase_pushsum(PUSHSUM_N))
-    if "graphs" in phases:
-        runs.update(phase_graphs(KOUT_N, ERDOS_N, ERDOS_WIDE_N))
-    if "sharded" in phases:
-        row, sharded_runs = phase_sharded(dev, SHARDED_N, PUSHSUM_N,
-                                          SHARDED_BIG_N, REPS)
-        kernels[RECV] = row
-        runs.update(sharded_runs)
+    runs = {}
+    for name, phase in (
+            ("full", lambda: phase_full(FULL_N)),
+            ("rounds", lambda: phase_rounds(FULL_N, SPLIT_N, TWIN_LIMIT_S)),
+            ("ring", lambda: phase_ring(RING_N, RUMOR_N)),
+            ("pushsum", lambda: phase_pushsum(PUSHSUM_N)),
+            ("graphs", lambda: phase_graphs(KOUT_N, ERDOS_N,
+                                            ERDOS_WIDE_N)),
+            ("sharded", lambda: phase_sharded(SHARDED_N, PUSHSUM_N,
+                                              SHARDED_BIG_N))):
+        if name in phases:
+            runs.update(phase())
+            lap(name)
     say(f"full-size runs: {', '.join(runs)} ({time.perf_counter() - t0:.1f} "
         "s since the build started)")
 

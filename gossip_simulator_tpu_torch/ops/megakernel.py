@@ -44,6 +44,7 @@ Its plain version ``recv_land_plain`` is the JAX package's unfused chain
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -305,7 +306,55 @@ def fused_deposit_both(pending, pending_rumors, dst, slots, valid, newbits):
 DRAIN = "fused_drain_sum"
 DRAIN_ARGTYPES = ([ctypes.c_void_p] * 4
                   + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                     ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+# The drain (csrc/fused_drain_sum.cu) runs its direct kernel while the
+# accumulator holds at most DRAIN_DIRECT_MAX bytes.  Past that it cuts the
+# rows into even slices of at most DRAIN_BUDGET bytes, each added in shared
+# memory (the tile form); where DRAIN_PART_MAX slices would each outgrow
+# the DRAIN_TILE_MAX tile, the direct kernel runs again.  Chosen on the card
+# (PERF.md; tests/torch_drain_crossover.py: direct is faster up to 12 MiB,
+# the tile form from 24 MiB, at 12 and 36 columns).
+DRAIN_BUDGET = 96 << 10
+DRAIN_DIRECT_MAX = 12 << 20
+DRAIN_TILE_MAX = 220 << 10
+DRAIN_PART_MAX = 8192  # the kernel's partitions at most
+DRAIN_STAGE_MAX = 1024  # past this many, the lanes are scattered twice
+DRAIN_COARSE = 64  # the first scatter's groups of partitions
+
+
+def drain_part_rows(n: int, c: int, budget: int | None = None,
+                    direct_max: int | None = None) -> int:
+    """Rows a partition of the (n, c) int32 accumulator holds, or 0 for the
+    direct kernel: 0 while its n*c*4 bytes are at most `direct_max`
+    (DRAIN_DIRECT_MAX); else the rows of ceil(n / R) even slices of at most
+    `budget` (DRAIN_BUDGET) bytes each, fewer and larger slices where that
+    would take more than DRAIN_PART_MAX, and 0 where a slice would then
+    outgrow the DRAIN_TILE_MAX tile."""
+    budget = DRAIN_BUDGET if budget is None else budget
+    direct_max = DRAIN_DIRECT_MAX if direct_max is None else direct_max
+    if n * c * 4 <= direct_max:
+        return 0
+    rows = max(1, budget // (4 * c))
+    parts = min(-(-n // rows), DRAIN_PART_MAX)
+    rows = -(-n // parts)
+    return rows if rows * c * 4 <= DRAIN_TILE_MAX else 0
+
+
+def drain_scratch_elems(cap: int, n: int, part_rows: int) -> int:
+    """int32 scratch of one partitioned drain, as csrc/fused_drain_sum.cu
+    lays it out: a (row, lane) pair per lane of the slot (two pair buffers
+    past DRAIN_STAGE_MAX partitions), then P counts, P + 1 offsets and P
+    cursors (and, with two passes, G group cursors and G + 1 chunk
+    starts).  It grows with cap, never with n's rows (P <=
+    DRAIN_PART_MAX); 0 for the direct kernel."""
+    if part_rows == 0:
+        return 0
+    parts = -(-n // part_rows)
+    if parts <= DRAIN_STAGE_MAX:
+        return 2 * cap + 3 * parts + 1
+    group = -(-parts // DRAIN_COARSE)
+    return 4 * cap + 3 * parts + 1 + 2 * -(-parts // group) + 1
 
 
 def _drain_check(acc, mail_ids, mail_mass, mail_cnt, slot: int, cap: int,
@@ -362,11 +411,16 @@ def _drain_launch(acc, mail_ids, mail_mass, mail_cnt, slot, cap, b):
         if not t.is_contiguous():
             raise ValueError(f"{DRAIN}: {nm} must be contiguous")
     n, c = acc.shape
+    part_rows = drain_part_rows(n, c)
+    elems = drain_scratch_elems(cap, n, part_rows)
+    scratch = (torch.empty(elems, dtype=I32, device=acc.device)
+               if elems else None)
     fn = _build.function(DRAIN, "gossip_fused_drain_sum", DRAIN_ARGTYPES)
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
     _build.count_launch(DRAIN)
     rc = fn(acc.data_ptr(), mail_ids.data_ptr(), mail_mass.data_ptr(),
-            mail_cnt.data_ptr(), slot, cap, b, n, c, stream)
+            mail_cnt.data_ptr(), slot, cap, b, n, c, part_rows,
+            None if scratch is None else scratch.data_ptr(), elems,
+            deliver._stream(acc.get_device()))
     _build.check(rc, DRAIN)
     return acc
 
@@ -393,7 +447,39 @@ def fused_drain_sum(acc, mail_ids, mail_mass, mail_cnt, slot: int, *,
 
 RECV = "fused_recv_land"
 RECV_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                 + [ctypes.c_void_p] * 4)
+                 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_void_p])
+# csrc/fused_recv_land.cu: lanes a block, the workspace's head words (the
+# counters and sup sums) and the look-back epochs' range.
+RECV_TILE = 2048
+RECV_WS_HEAD = 1 + RING_SLOTS_MAX // 2
+RECV_EPOCH_MAX = 1 << 30
+# (card index, raw stream) -> [int64 workspace, last epoch]: the kernel's
+# look-back state and counters, kept across calls on one stream (calls on
+# one stream run in order; two streams never share one).
+_RECV_WS: dict = {}
+
+
+def recv_workspace_words(m: int, dw: int) -> int:
+    """int64 words of fused_recv_land's workspace for m lanes: the head and
+    one look-back word per (block, slot)."""
+    return RECV_WS_HEAD + max(1, -(-m // RECV_TILE)) * dw
+
+
+def _recv_workspace(dev, stream: int, words: int):
+    """The workspace of (card, stream), grown (zeroed) to `words`, and the
+    call's epoch: the last one plus 1, back to 1 with the workspace zeroed
+    once it reaches RECV_EPOCH_MAX (a look-back word of an old epoch must
+    never read as this call's)."""
+    ws = _RECV_WS.get((dev.index, stream))
+    if ws is None or ws[0].numel() < words:
+        ws = _RECV_WS[dev.index, stream] = [
+            torch.zeros(words, dtype=torch.int64, device=dev), 0]
+    ws[1] += 1
+    if ws[1] >= RECV_EPOCH_MAX:
+        ws[0].zero_()
+        ws[1] = 1
+    return ws[0], ws[1]
 
 
 def recv_decode(recv, *, dw: int, b: int, flags=None,
@@ -434,62 +520,85 @@ def recv_land_plain(mail_ids, mail_cnt, dropped, recv, *, dw: int, cap: int,
 
 def _recv_check(mail_ids, mail_cnt, dropped, recv, dw, cap, b, words,
                 mail_words, flags) -> None:
+    """Raise on what neither version takes, in attribute reads (the batch
+    call is short: its host path is most of its time)."""
     dev = recv.device
     if not 1 <= dw <= RING_SLOTS_MAX or b < 1:
         raise ValueError(f"{RECV}: dw={dw} outside 1..{RING_SLOTS_MAX} or "
                          f"b={b} < 1")
-    for t, nm, dt, dim in ((mail_ids, "mail_ids", I32, 1),
-                           (mail_cnt, "mail_cnt", I32, 2),
-                           (dropped, "dropped", I32, 0),
-                           (recv, "recv", I32, 1), (words, "words", I32, 2),
-                           (mail_words, "mail_words", I32, 2),
-                           (flags, "flags", torch.uint8, 1)):
-        if t is None:
-            continue
-        if t.dtype != dt or t.dim() != dim:
-            raise TypeError(f"{RECV}: {nm} must be {dim}-D {dt}, got "
-                            f"{t.dtype} {tuple(t.shape)}")
-        if t.device != dev:
-            raise ValueError(f"{RECV}: {nm} is on {t.device}, not {dev}")
+    if mail_ids.dtype is not I32 or mail_cnt.dtype is not I32 \
+            or dropped.dtype is not I32 or recv.dtype is not I32 \
+            or mail_ids.ndim != 1 or recv.ndim != 1 or dropped.ndim != 0:
+        raise TypeError(f"{RECV}: mail_ids, recv must be 1-D, dropped 0-D "
+                        f"int32, got {mail_ids.dtype} "
+                        f"{tuple(mail_ids.shape)}, {recv.dtype} "
+                        f"{tuple(recv.shape)}, {dropped.dtype} "
+                        f"{tuple(dropped.shape)}")
     if mail_cnt.shape != (1, dw):
-        raise ValueError(f"{RECV}: mail_cnt must be (1, {dw}), got "
-                         f"{tuple(mail_cnt.shape)}")
+        raise ValueError(f"{RECV}: mail_cnt must be (1, {dw}) int32, got "
+                         f"{mail_cnt.dtype} {tuple(mail_cnt.shape)}")
     if mail_ids.shape[0] < dw * cap + 1:
         raise ValueError(f"{RECV}: mail_ids of {mail_ids.shape[0]} lanes "
                          f"has no trash cell past dw*cap = {dw * cap}")
+    if mail_ids.device != dev or mail_cnt.device != dev \
+            or dropped.device != dev:
+        raise ValueError(f"{RECV}: the ring, counts and recv lie on "
+                         f"{mail_ids.device}, {mail_cnt.device}, "
+                         f"{dropped.device} and {dev}")
+    if flags is not None and (flags.dtype is not torch.uint8
+                              or flags.ndim != 1 or flags.device != dev):
+        raise TypeError(f"{RECV}: flags must be 1-D uint8 on {dev}, got "
+                        f"{flags.dtype} {tuple(flags.shape)} on "
+                        f"{flags.device}")
     if (words is None) != (mail_words is None):
         raise ValueError(f"{RECV}: words and mail_words go together")
-    if words is not None and (words.shape[0] != recv.shape[0]
-                              or mail_words.shape[1] != words.shape[1]
-                              or mail_words.shape[0] < dw * cap + 1):
+    if words is None:
+        return
+    if words.dtype is not I32 or mail_words.dtype is not I32 \
+            or words.ndim != 2 or mail_words.ndim != 2:
+        raise TypeError(f"{RECV}: words and mail_words must be 2-D int32, "
+                        f"got {words.dtype} {tuple(words.shape)}, "
+                        f"{mail_words.dtype} {tuple(mail_words.shape)}")
+    if words.device != dev or mail_words.device != dev:
+        raise ValueError(f"{RECV}: words on {words.device}, mail_words on "
+                         f"{mail_words.device}, not {dev}")
+    if (words.shape[0] != recv.shape[0]
+            or mail_words.shape[1] != words.shape[1]
+            or mail_words.shape[0] < dw * cap + 1):
         raise ValueError(f"{RECV}: words {tuple(words.shape)} and "
                          f"mail_words {tuple(mail_words.shape)} do not fit "
                          f"{recv.shape[0]} lanes and the ring")
 
 
+@functools.cache
+def _recv_fn():
+    """fused_recv_land's typed C entry point, held once it is built."""
+    return _build.function(RECV, "gossip_fused_recv_land", RECV_ARGTYPES)
+
+
 def _recv_launch(mail_ids, mail_cnt, dropped, recv, dw, cap, b, words,
                  mail_words, flags, received_bit):
-    for t, nm in ((mail_ids, "mail_ids"), (mail_cnt, "mail_cnt"),
-                  (mail_words, "mail_words")):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{RECV}: {nm} must be contiguous")
+    if not (mail_ids.is_contiguous() and mail_cnt.is_contiguous()
+            and (mail_words is None or mail_words.is_contiguous())):
+        raise ValueError(f"{RECV}: mail_ids, mail_cnt and mail_words must "
+                         f"be contiguous")
     dev = recv.device
     m = recv.shape[0]
-    nb = (m + 255) // 256
-    # Per-block per-slot sums, then the adds[dw] and lost cells.
-    scratch = torch.zeros(max(nb, 1) * dw + dw + 1, dtype=I32, device=dev)
-    sup = torch.zeros(dw, dtype=I32, device=dev)
-    w1 = 1 if words is None else words.shape[1]
-    fn = _build.function(RECV, "gossip_fused_recv_land", RECV_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = deliver._stream(dev.index)
+    ws, epoch = _recv_workspace(dev, stream, recv_workspace_words(m, dw))
+    sup = torch.empty(dw, dtype=I32, device=dev)
+    fn = _recv_fn()
     _build.count_launch(RECV)
     rc = fn(mail_ids.data_ptr(),
             None if words is None else mail_words.data_ptr(),
             recv.data_ptr(), None if words is None else words.data_ptr(),
             None if flags is None else flags.data_ptr(),
-            mail_cnt.data_ptr(), m, dw, cap, b, w1, int(received_bit),
-            dropped.data_ptr(), sup.data_ptr(), scratch.data_ptr(), stream)
-    _build.check(rc, RECV)
+            mail_cnt.data_ptr(), m, dw, cap, b,
+            1 if words is None else words.shape[1], received_bit,
+            dropped.data_ptr(), sup.data_ptr(), ws.data_ptr(), ws.numel(),
+            epoch, stream)
+    if rc:
+        _build.check(rc, RECV)
     if words is not None:
         return mail_ids, mail_cnt, dropped, sup, mail_words
     return mail_ids, mail_cnt, dropped, sup

@@ -148,15 +148,21 @@ def _recv_land(fn, d, kw, dev):
 
 
 def _drain_inputs(seed, *, n=500, c=12, cap=1000, dw=3, b=10, slot=1,
-                  m=None, oob=0.05, neg=0.0, tail=64):
+                  m=None, oob=0.05, neg=0.0, tail=64, rows=None, skip=None):
     """Numpy inputs of one PushSum drain: an (n, c) int32 limb accumulator,
     a ring of dw*cap + tail packed entries dst*b + off with its (L, c) mass
     rows (a third of the values zero), the live counts (m in the drained
     slot); `oob` of the entries decode to rows in [n, n + 50), `neg` of
-    them are negative (rows below 0)."""
+    them are negative (rows below 0).  With `rows`, every entry's row is
+    drawn from that list (before oob); with `skip` = (lo, hi), rows in
+    [lo, hi) move to lo - 1."""
     rng = np.random.default_rng(seed)
     length = dw * cap + tail
     dst = rng.integers(0, n, length)
+    if rows is not None:
+        dst = np.asarray(rows)[rng.integers(0, len(rows), length)]
+    if skip is not None:
+        dst[(dst >= skip[0]) & (dst < skip[1])] = skip[0] - 1
     far = rng.random(length) < oob
     dst[far] = rng.integers(n, n + 50, int(far.sum()))
     ids = (dst * b + rng.integers(0, b, length)).astype(np.int32)
@@ -638,6 +644,17 @@ RECV_CASES = {
                                                 rcap=2000, fill=1500),
     "wide": dict(sources=8, rcap=25_831, fill=24_576, n=1_250_000,
                  cap=3_750_000, flags=True),
+    # PushSum's window: 12 word columns, a tenth of each bucket live.
+    "pushsum_sparse": dict(sources=8, rcap=20_000, fill=2_000, width=12,
+                           n=50_000, cap=30_000),
+    # Every lane lands: the trash cell and its row keep their values.
+    "all_land": dict(fill=300, cap=2_000, width=12),
+    # 1172 blocks of 2048 lanes: a long look-back chain.
+    "blocks_1172": dict(sources=8, rcap=300_000, fill=200_000, n=1_000_000,
+                        cap=1_000_000),
+    "dw40_words": dict(dw=40, cap=50, width=12, flags=True),
+    "dw1024_words": dict(dw=1024, cap=3, n=40, rcap=2000, fill=1500,
+                         width=12),
 }
 
 
@@ -649,6 +666,44 @@ def test_fused_recv_land_kernel_matches_plain_on_card(case):
     got = _recv_land(megakernel.fused_recv_land, d, kw, dev)
     for w, g in zip(want, got):
         assert torch.equal(w, g)
+    if case == "all_land":
+        assert int((got[1] - T(d["cnt"])).sum()) == d["recv"].size
+
+
+@pytest.mark.parametrize("streams", (1, 2))
+def test_fused_recv_land_calls_in_flight_match_plain_on_card(streams):
+    """Calls enqueued back to back with no synchronise between them, on one
+    stream (one workspace: the counters left at 0, a new epoch a call) or
+    on two streams (a workspace each), each on its own ring, against the
+    plain version call by call."""
+    dev = _card()
+    cases = [_recv_inputs(seed, sources=8, rcap=3000, fill=2500, cap=8000,
+                          width=12 if seed % 2 else None)
+             for seed in (21, 22, 23, 24)]
+    want = [_recv_land(megakernel.recv_land_plain, d, kw,
+                       torch.device("cpu")) for d, kw in cases]
+    cuda = [torch.cuda.current_stream(dev)] + [
+        torch.cuda.Stream(dev) for _ in range(streams - 1)]
+    args = []
+    for d, kw in cases:  # inputs on the card before any call
+        args.append([T(d["ring"].copy()).to(dev), T(d["cnt"].copy()).to(dev),
+                     torch.tensor(3, dtype=torch.int32, device=dev),
+                     T(d["recv"]).to(dev)])
+        args[-1].append(T(d["words"]).to(dev) if "words" in d else None)
+        args[-1].append(T(d["mail_words"].copy()).to(dev) if "words" in d
+                        else None)
+    torch.cuda.synchronize()
+    outs = []
+    for k, ((d, kw), a) in enumerate(zip(cases, args)):
+        st = cuda[k % streams]
+        st.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(st):
+            outs.append(megakernel.fused_recv_land(
+                *a[:4], words=a[4], mail_words=a[5], **kw))
+    torch.cuda.synchronize()
+    for w, out in zip(want, outs):
+        for x, y in zip(w, out):
+            assert torch.equal(x, y.cpu())
 
 
 @pytest.mark.parametrize("shards", (2, 8))
@@ -689,6 +744,14 @@ DRAIN_CASES = {
     "out_of_range": dict(oob=0.3, neg=0.2), "empty": dict(m=0),
     "full_slot": dict(m=1000), "slot0": dict(slot=0),
     "wide": dict(n=200_000, cap=1_500_000, m=1_200_000, tail=1024),
+    # Past DRAIN_DIRECT_MAX: the partitioned form (977 slices at C = 12,
+    # one scatter pass; 2933 at C = 36, two), out-of-range and negative
+    # rows among the lanes.
+    "partitioned": dict(n=2_000_000, cap=12_000_000, m=12_000_000, dw=1,
+                        slot=0, oob=0.05, neg=0.05),
+    "partitioned_dim8": dict(n=2_000_000, c=36, cap=12_000_000,
+                             m=12_000_000, dw=1, slot=0, oob=0.05, neg=0.05),
+    "clamped": dict(m=1_500),
 }
 
 
@@ -700,6 +763,45 @@ def test_fused_drain_sum_kernel_matches_plain_on_card(case):
     d, kw = _drain_inputs(18, **DRAIN_CASES[case])
     want = _drain(megakernel.drain_sum_plain, d, kw, torch.device("cpu"))
     got = _drain(megakernel.fused_drain_sum, d, kw, dev)
+    assert torch.equal(want, got)
+
+
+# The partitioned form forced at small n: (rows a partition, inputs).
+DRAIN_PART_CASES = {
+    "many": (5, dict(n=5_000, cap=20_000, oob=0.1, neg=0.1)),  # 1000 slices
+    "one": (500, dict()),  # P = 1
+    "empty_partition": (50, dict(skip=(100, 150))),
+    "boundary": (50, dict(rows=[0, 49, 50, 99, 100, 449, 450, 499])),
+    "ragged": (77, dict(oob=0.2, neg=0.2)),
+    "clamped": (40, dict(m=1_500)),
+    "empty": (40, dict(m=0)),
+    "dim8": (30, dict(c=36)),
+    # Past DRAIN_STAGE_MAX partitions: two scatter passes (63 groups).
+    "two_pass": (2, dict(n=5_000, cap=20_000, oob=0.1, neg=0.1)),
+    "two_pass_sparse": (2, dict(n=5_000, m=300)),
+    "two_pass_dim8": (3, dict(n=5_000, c=36, cap=20_000)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DRAIN_PART_CASES))
+def test_fused_drain_sum_partitions_match_plain_on_card(case, monkeypatch):
+    """The partitioned drain forced at small n through the launch function
+    (no direct kernel, a budget of a few rows), against drain_sum_plain:
+    many slices, one, an empty one, rows on either side of a boundary, cnt
+    past cap, m = 0, the two-pass scatter."""
+    dev = _card()
+    part_rows, extra = DRAIN_PART_CASES[case]
+    d, kw = _drain_inputs(24, **extra)
+    n, c = d["acc"].shape
+    monkeypatch.setattr(megakernel, "DRAIN_DIRECT_MAX", 0)
+    monkeypatch.setattr(megakernel, "DRAIN_BUDGET", part_rows * c * 4)
+    rows = megakernel.drain_part_rows(n, c)
+    assert 0 < rows <= part_rows and -(-n // rows) == -(-n // part_rows)
+    want = _drain(megakernel.drain_sum_plain, d, kw, torch.device("cpu"))
+    t = lambda x: T(x.copy()).to(dev)  # noqa: E731
+    got = megakernel._drain_launch(t(d["acc"]), t(d["ids"]), t(d["mass"]),
+                                   t(d["cnt"]), kw["slot"], kw["cap"],
+                                   kw["b"]).cpu()
     assert torch.equal(want, got)
 
 

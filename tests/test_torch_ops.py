@@ -30,8 +30,9 @@ from gossip_simulator_tpu_torch.utils import rng as trng
 from test_torch_card import (DEPOSIT_FNS, _chunk_inputs, _chunk_step,
                              _deposit, _deposit_inputs, _emit_inputs,
                              _hosted_inputs, _negotiate, _negotiate_inputs,
-                             _request, _request_inputs, _ring_append,
-                             _ring_inputs, _spill_inputs, _spill_step)
+                             _recv_inputs, _request, _request_inputs,
+                             _ring_append, _ring_inputs, _spill_inputs,
+                             _spill_step)
 from test_torch_rng import match_jax_threefry
 
 T = torch.from_numpy
@@ -397,6 +398,208 @@ def test_unique_set_launch_takes_lanes_and_raw_stream(monkeypatch):
     assert deliver._build.LAUNCHES[deliver.NAME] == 3
     with pytest.raises(ValueError, match="ring must be contiguous"):
         deliver._launch(ring[::2], flat, vals)
+
+
+def _source_defines(name):
+    """The integer #defines of csrc/<name>.cu, products of two integers
+    (``(220 * 1024)``) and shifts (``(1 << 30)``) evaluated."""
+    import re
+
+    src = open(_build._target(name)[0]).read()
+    out = {}
+    for key, a, op, b in re.findall(
+            r"^#define (\w+) \(?(\d+)(?: (\*|<<) (\d+)\))?", src, re.M):
+        out[key] = (int(a) * int(b) if op == "*" else
+                    int(a) << int(b) if op == "<<" else int(a))
+    return out
+
+
+def test_drain_and_recv_constants_match_the_sources():
+    """The wrappers size the scratch, workspace and partitions the C entry
+    points lay out (they refuse a smaller one): hold the constants."""
+    d = _source_defines("fused_drain_sum")
+    assert megakernel.DRAIN_PART_MAX == d["PART_MAX"]
+    assert megakernel.DRAIN_STAGE_MAX == d["STAGE_MAX"]
+    assert megakernel.DRAIN_COARSE == d["COARSE"]
+    assert megakernel.DRAIN_TILE_MAX == d["TILE_SMEM_MAX"]
+    assert -(-megakernel.DRAIN_PART_MAX // megakernel.DRAIN_COARSE) \
+        <= megakernel.DRAIN_STAGE_MAX
+    r = _source_defines("fused_recv_land")
+    assert megakernel.RECV_TILE == r["THREADS"] * r["ITEMS"]
+    assert megakernel.RECV_WS_HEAD == 1 + r["DW_LIMIT"] // 2
+    assert megakernel.RECV_EPOCH_MAX == r["EPOCH_MAX"]
+    assert r["DW_LIMIT"] == deliver.RING_SLOTS_MAX
+
+
+@pytest.mark.parametrize("c", (8, 12, 36))
+@pytest.mark.parametrize("budget", (48, 5_000, 96 << 10, 192 << 10,
+                                    220 << 10, 256 << 10))
+def test_drain_partitions_cover_the_rows_within_the_budget(c, budget):
+    """drain_part_rows cuts [0, n) into ceil(n / R) slices of R rows (the
+    last ragged), each of at most `budget` bytes while that takes at most
+    DRAIN_PART_MAX slices, and never past the DRAIN_TILE_MAX tile; the
+    direct kernel (0) while the whole accumulator is within direct_max, and
+    where even DRAIN_PART_MAX slices (or the budget's own) outgrow the
+    tile."""
+    tile = megakernel.DRAIN_TILE_MAX
+    for n in (1, 7, 1_000, 1_250_000, 10_000_000, 100_000_000):
+        assert megakernel.drain_part_rows(n, c, budget, n * c * 4) == 0
+        rows = megakernel.drain_part_rows(n, c, budget, 0)
+        want = max(1, budget // (4 * c))
+        if rows == 0:
+            assert want * c * 4 > tile or -(
+                -n // megakernel.DRAIN_PART_MAX) * c * 4 > tile
+            continue
+        parts = -(-n // rows)
+        assert 1 <= parts <= megakernel.DRAIN_PART_MAX
+        assert (parts - 1) * rows < n <= parts * rows
+        assert rows * c * 4 <= tile
+        if -(-n // want) <= megakernel.DRAIN_PART_MAX:
+            assert rows <= want
+        # Even slices: none is more than a row longer than n / parts.
+        assert rows <= n / parts + 1
+
+
+def test_drain_takes_the_tile_form_at_pushsums_shapes():
+    """With the wrapper's own budgets: the tile form at pushsum10m's
+    accumulator (10^7 x 12, 2048-row slices) and at pushsum10m_sharded's
+    per-shard one (1.25e6 x 12) and from 24 MiB on (measured faster
+    there); the direct kernel up to 12 MiB (measured faster), for the
+    small accumulators of the tests, and where the tile cannot reach
+    (10^8 x 12)."""
+    assert megakernel.drain_part_rows(10_000_000, 12) == 2048
+    assert megakernel.drain_part_rows(1_250_000, 12) > 0
+    assert megakernel.drain_part_rows(1 << 19, 12) > 0  # 24 MiB
+    assert megakernel.drain_part_rows(174_763, 36) > 0  # 24 MiB
+    assert megakernel.drain_part_rows(1 << 18, 12) == 0  # 12 MiB
+    assert megakernel.drain_part_rows(87_381, 36) == 0  # 12 MiB
+    assert megakernel.drain_part_rows(500, 12) == 0
+    assert megakernel.drain_part_rows(100_000_000, 12) == 0
+
+
+def test_drain_scratch_grows_with_cap_not_n(monkeypatch):
+    """fused_drain_sum's scratch is O(cap): the launch path allocates
+    drain_scratch_elems(cap, n, R) int32 cells, passes that count, and
+    nothing sized by n (no zeroed per-row cells): at one cap it stays
+    within 4 * cap + a few DRAIN_PART_MAX-sized arrays from n = 1e4 to
+    3e7 (one scatter pass, two, and slices grown to stay within
+    DRAIN_PART_MAX); it doubles with
+    cap.  Driven through the launch path on meta tensors, the partitioned
+    form forced (DRAIN_DIRECT_MAX 0), its C entry point replaced by a
+    recorder."""
+    calls, allocs = [], []
+    monkeypatch.setattr(megakernel._build, "function",
+                        lambda *a: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(megakernel._build, "LAUNCHES",
+                        dict(_build.LAUNCHES))
+    monkeypatch.setattr(deliver, "_stream", lambda index: 0)
+    for name in ("empty", "zeros", "full"):
+        def record(*a, _real=getattr(torch, name), **kw):
+            t = _real(*a, **kw)
+            allocs.append(t.numel())
+            return t
+        monkeypatch.setattr(torch, name, record)
+    direct = megakernel.DRAIN_DIRECT_MAX
+    monkeypatch.setattr(megakernel, "DRAIN_DIRECT_MAX", 0)
+    meta = dict(dtype=torch.int32, device="meta")
+    c, dw, b = 12, 3, 10
+    ns = (10**4, 10**6, 3 * 10**7)
+    got = {}
+    for cap in (1_000, 2_000):
+        ids = torch.empty(dw * cap + 1, **meta)
+        mass = torch.empty((dw * cap + 1, c), **meta)
+        cnt = torch.empty((1, dw), **meta)
+        for n in ns:
+            acc = torch.empty((n, c), **meta)
+            allocs.clear()
+            megakernel._drain_launch(acc, ids, mass, cnt, 1, cap, b)
+            rows = megakernel.drain_part_rows(n, c)
+            want = megakernel.drain_scratch_elems(cap, n, rows)
+            assert rows > 0 and allocs == [want] and calls[-1][9:12] == (
+                rows, calls[-1][10], want)
+            got[cap, n] = want
+    # At 3e7 rows the slices grow past the budget to stay within
+    # DRAIN_PART_MAX.
+    assert megakernel.drain_part_rows(ns[-1], c) * c * 4 \
+        > megakernel.DRAIN_BUDGET
+    fixed = 3 * megakernel.DRAIN_PART_MAX + 2 * megakernel.DRAIN_COARSE + 3
+    for cap in (1_000, 2_000):
+        for n in ns:
+            assert 2 * cap < got[cap, n] <= 4 * cap + fixed
+    assert got[2_000, ns[-1]] - got[1_000, ns[-1]] == 4 * 1_000
+    # The direct kernel takes no scratch: a small accumulator under the
+    # wrapper's own DRAIN_DIRECT_MAX, and one past the tile's reach.
+    monkeypatch.setattr(megakernel, "DRAIN_DIRECT_MAX", direct)
+    ring = (torch.empty(dw * 1_000 + 1, **meta),
+            torch.empty((dw * 1_000 + 1, c), **meta),
+            torch.empty((1, dw), **meta))
+    for n in (10, 10**8):
+        acc = torch.empty((n, c), **meta)
+        allocs.clear()
+        megakernel._drain_launch(acc, *ring, 1, 1_000, b)
+        assert allocs == [] and calls[-1][9:12] == (0, None, 0)
+
+
+def test_recv_launch_keeps_a_workspace_per_stream(monkeypatch):
+    """fused_recv_land's launch path keeps one zeroed int64 workspace per
+    (card, stream) of recv_workspace_words(m, dw) words or more, grows it
+    when a call needs more, passes the raw stream and a new epoch each
+    call (1, 2, ... on each stream; from 1 again in a grown workspace,
+    which is new and zeroed), and when the epoch reaches
+    RECV_EPOCH_MAX zeroes the workspace and starts again at 1 (no old
+    look-back word can read as the new call's); sup comes from
+    torch.empty.  CPU tensors, the C entry point replaced by a recorder,
+    the stream handle set by the test."""
+    calls, built = [], []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(megakernel, "_recv_fn",
+                        lambda: built.append(1) or entry)
+    monkeypatch.setattr(megakernel._build, "LAUNCHES",
+                        dict(_build.LAUNCHES))
+    monkeypatch.setattr(megakernel, "_RECV_WS", {})
+    stream = [11]
+    monkeypatch.setattr(deliver, "_stream", lambda index: stream[0])
+    d, kw = _recv_inputs(5)
+    ring, cnt = T(d["ring"].copy()), T(d["cnt"].copy())
+    dropped = torch.tensor(0, dtype=torch.int32)
+
+    def launch(m):
+        recv = torch.full((m,), -1, dtype=torch.int32)
+        megakernel._recv_launch(ring, cnt, dropped, recv, kw["dw"],
+                                kw["cap"], kw["b"], None, None, None, 1)
+        a = calls[-1]
+        return a[14], a[15], a[16], a[17]  # ws, ws_words, epoch, stream
+
+    ws, words, epoch, st = launch(1200)
+    assert (epoch, st) == (1, 11)
+    table = megakernel._RECV_WS
+    key = (torch.device("cpu").index, 11)
+    assert words == table[key][0].numel() >= megakernel.recv_workspace_words(
+        1200, kw["dw"])
+    assert ws == table[key][0].data_ptr()
+    assert table[key][0].dtype == torch.int64
+    assert int(table[key][0].abs().sum()) == 0
+    assert [launch(1200)[2] for _ in range(3)] == [2, 3, 4]
+    assert launch(1200)[0] == ws  # kept, not reallocated
+    stream[0] = 12  # another stream: its own workspace, its own epochs
+    ws2, _, e2, st2 = launch(1200)
+    assert (e2, st2) == (1, 12) and ws2 != ws
+    stream[0] = 11
+    big = megakernel.RECV_TILE * 40
+    _, words_big, e3, _ = launch(big)  # grown: a new zeroed workspace
+    assert words_big >= megakernel.recv_workspace_words(big, kw["dw"])
+    assert e3 == 1
+    table[key][0].fill_(7)  # stale look-back words
+    table[key][1] = megakernel.RECV_EPOCH_MAX - 1
+    _, _, e4, _ = launch(big)
+    assert e4 == 1 and int(table[key][0].abs().sum()) == 0
+    assert launch(big)[2] == 2
+    assert megakernel._build.LAUNCHES[megakernel.RECV] == 9
+    assert len(built) == 9  # the typed entry point, held by _recv_fn
 
 
 def test_unported_inputs_raise():
