@@ -41,7 +41,8 @@ Phases, each printing its own line:
               chunk; the widths past the kernels' old limits (ROADMAP
               C1): fused_negotiate at k = 20 and 200 (1e6 rows),
               fused_emit at dw = 40, kw = 33 and kw = 112 (131,072
-              senders), fused_ring_append at dw = 40; and the
+              senders) and at erdos1m_wide's batch (38 lanes a sender),
+              fused_ring_append at dw = 40; and the
               generators: kout_pallas at 1e8 rows x 3 (headline_jax) and
               erdos_pallas at 1e7 rows, lam 8 (sir_10m_erdos) and 1e6 rows,
               lam 60, held to their plain versions in row blocks;
@@ -58,7 +59,9 @@ Phases, each printing its own line:
               line's device_ms), and the host time to
               enqueue one fused_unique_set and fused_chunk_step call on an
               idle card is printed ("host" lines, with index_put_'s and
-              the parts of the unique_set wrapper);
+              the parts of the unique_set wrapper, and those of the
+              fused_ring_append (main, wide) and fused_deposit_rows
+              (rumors) wrappers);
 4. twins   -- n = 20,000 runs on cuda and on cpu must give identical
               transcripts and final state leaves, and launch their
               kernels (every kout table through kout_pallas, under every
@@ -141,6 +144,11 @@ Phases, each printing its own line:
               dropped), and config 5 at n = 1e8 with its wall seconds,
               peak memory and the host seconds spent in the
               fused_recv_land wrapper.
+
+The twins' runs, on the card and on the CPU (phases 4 and 8), and the
+CPU's erdos rows (phase 7, before its full runs) run in WORKERS spawned
+worker processes, which have ended before any full run is timed; "time
+<phase>" lines say where the script's time goes.
 
 With --profile, a full-size run (--profile-run: the default run, one
 of the ring engine's runs, pushsum, erdos or sharded, the last on 8
@@ -357,15 +365,21 @@ def emit_shapes(cfg, k: int) -> tuple:
 
 
 def emit_case(gen, dev, n, m, k, dw, cap, b, ring_len, *, dup, sir, base_hi,
-              cnt_lo=None):
+              cnt_lo=None, lam=None):
     """Random inputs of one fused_emit call at the main path's shapes.
     With `cnt_lo`, each row holds a friend count drawn in [cnt_lo, k] and
-    is padded with -1 past it, as the overlay's friends table is."""
+    is padded with -1 past it, as the overlay's friends table is; with
+    `lam`, a Poisson(lam) count clipped to k, as an erdos table's."""
     ri = lambda lo, hi, shape: torch.randint(  # noqa: E731
         lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
     sf = ri(0, n, (m, k))
+    cnt = None
     if cnt_lo is not None:
         cnt = ri(cnt_lo, k + 1, (m,))
+    if lam is not None:
+        cnt = torch.poisson(torch.full((m,), lam, device=dev),
+                            generator=gen).clamp_max(k)
+    if cnt is not None:
         sf[torch.arange(k, device=dev)[None, :] >= cnt[:, None]] = -1
     drop = torch.rand((m, k), generator=gen, device=dev) < 0.1
     svalid = torch.arange(m, device=dev) < (m - m // 10)  # dead tail rows
@@ -385,9 +399,12 @@ def emit_case(gen, dev, n, m, k, dw, cap, b, ring_len, *, dup, sir, base_hi,
     return case, kw
 
 
-def emit_bytes(m, k, kw_lanes, dup, sir) -> tuple[float, float]:
+def emit_bytes(m, k, kw_lanes, dup, sir,
+               written=None) -> tuple[float, float]:
+    """The call's bytes and instructions; the ring writes are m * kw_lanes
+    entries, or `written` (the entries this call's data appends)."""
     nbytes = m * k * 4 + m * k + m + 4 * m + 4 * m  # sf drop svalid wslot off
-    nbytes += m * kw_lanes * 4  # ring writes
+    nbytes += (m * kw_lanes if written is None else written) * 4
     if dup:
         nbytes += m * k  # one flags byte per edge
     if sir:
@@ -411,6 +428,14 @@ def host_us(fn, calls: int = 200) -> float:
     return spent / calls * 1e6
 
 
+def host_split(label: str, parts: dict) -> None:
+    """Print host_us of each of `parts` (name -> call) on one line."""
+    out = {k: host_us(f) for k, f in parts.items()}
+    torch.cuda.synchronize()
+    say(f"host {label}: " + ", ".join(f"{k} {v:.2f} us"
+                                      for k, v in out.items()))
+
+
 def host_enqueue_split(dev, ring, flat, vals) -> None:
     """What one fused_unique_set call spends on the host, in parts: the
     current stream as a torch.cuda.Stream object and as a raw handle,
@@ -427,10 +452,7 @@ def host_enqueue_split(dev, ring, flat, vals) -> None:
         "wrapper": lambda: deliver.fused_unique_set(ring, flat, vals),
         "index_put_": lambda: ring.index_put_((flat64,), vals),
     }
-    out = {k: host_us(f) for k, f in parts.items()}
-    torch.cuda.synchronize()
-    say("host fused_unique_set: " + ", ".join(
-        f"{k} {v:.2f} us" for k, v in out.items()))
+    host_split("fused_unique_set", parts)
 
 
 def phase_parity(dev, reps: int) -> dict:
@@ -555,7 +577,7 @@ def phase_parity(dev, reps: int) -> dict:
     rows["fused_ring_append"].update(wide_ring_parity(dev, gen, reps))
     rows[DRAIN] = drain_parity(dev, gen, reps)
     rows["fused_deposit_rows"].update(pushsum_rows_parity(dev, gen, reps))
-    width_parity(dev, gen, reps)
+    rows["fused_emit"].update(width_parity(dev, gen, reps))
     rows.update(graph_parity(dev))
     return rows
 
@@ -601,6 +623,26 @@ def check_and_time(label, plain, kernel, fresh, call, restore, reps):
     return outs[1], err, t_k, t_p
 
 
+def ring_host(label, st, pays, wslot, valid, dw, cap) -> None:
+    """The host time to enqueue one fused_ring_append call on the kernel's
+    state `st` (rings, cnt, dropped), and its parts: the checks, the four
+    .contiguous() calls and the workspace with its epoch."""
+    from gossip_simulator_tpu_torch.ops import deliver
+
+    rings, cnt, dropped = st[:2], st[2], st[3]
+    dev = wslot.device
+    stream = deliver._stream(dev.index)
+    words = deliver.workspace_words(wslot.shape[0], dw)
+    host_split(label, {
+        "wrapper": lambda: deliver.fused_ring_append(
+            rings, cnt, dropped, pays, wslot, valid, dw, cap),
+        "checks": lambda: deliver._ring_check(rings, cnt, dropped, pays,
+                                              wslot, valid, dw, cap),
+        "contiguous x4": lambda: (pays[0].contiguous(), pays[1].contiguous(),
+                                  wslot.contiguous(), valid.contiguous()),
+        "workspace": lambda: deliver.workspace(dev, stream, words)})
+
+
 def ring_parity(dev, gen, reps: int) -> dict:
     """fused_ring_append at the overlay's shapes: one emission chunk (m =
     262,144 lanes) into the 10M default run's two rings (dw = 3, cap =
@@ -633,6 +675,9 @@ def ring_parity(dev, gen, reps: int) -> dict:
         err = max(err, e)
         lost = int(out[3])
         ok = int(valid.sum()) - lost
+        if name == "main":
+            ring_host("fused_ring_append[main]", out, pays, wslot, valid, dw,
+                      ccap)
         bnd, by = bound_ms(m * 13 + ok * 8 + 8 * dw, m * 40)
         say(f"fused_ring_append[{name}]: bit-exact over {m} lanes (cap "
             f"{ccap}, dropped {lost}); kernel {t_k:.4f} ms, plain "
@@ -983,6 +1028,20 @@ def _touched(flat, ok, cols=None):
     return int(torch.unique(cells).numel())
 
 
+def deposit_host(label, pend, slots, dst, vals) -> None:
+    """The host time to enqueue one fused_deposit_rows call, and its parts:
+    the checks and the three .contiguous() calls."""
+    from gossip_simulator_tpu_torch.ops import deliver
+
+    host_split(label, {
+        "wrapper": lambda: deliver.fused_deposit_rows(pend, slots, dst,
+                                                      vals),
+        "checks": lambda: deliver._deposit_check(
+            deliver.DEPOSIT_ROWS, pend, slots, dst, vals),
+        "contiguous x3": lambda: (slots.contiguous(), dst.contiguous(),
+                                  vals.contiguous())})
+
+
 def deposit_parity(dev, gen, reps: int) -> dict:
     """The ring engine's three deposit kernels at the full-size runs'
     shapes, each bit-exact to its plain version and timed beside it, the
@@ -1053,6 +1112,7 @@ def deposit_parity(dev, gen, reps: int) -> dict:
         deliver.fused_deposit_rows, lambda: [prum0.clone()],
         lambda fn, st: [fn(st[0], slots, dst_n, vals)][1:],
         lambda st: None, reps)
+    deposit_host("fused_deposit_rows", out[0], slots, dst_n, vals)
     flat_ok, vals_ok = flat[ok], vals[ok]
     pr = out[0].view(b * n, r)
     t_l = time_ms(lambda: pr.index_put_((flat_ok,), vals_ok,
@@ -1151,6 +1211,7 @@ def wide_ring_parity(dev, gen, reps: int) -> dict:
         lambda st: (st[2].zero_(), st[3].zero_()), reps)
     lost = int(out[3])
     ok = m - lost
+    ring_host("fused_ring_append[wide]", out, pays, wslot, valid, dw, cap)
     # Each lane's id, mass row, slot and flag in; id and row of each
     # appended lane out.
     bnd, by = bound_ms(m * (4 + 4 * c + 4 + 1) + ok * (4 + 4 * c), m * 40)
@@ -1268,14 +1329,18 @@ def pushsum_rows_parity(dev, gen, reps: int) -> dict:
                 pushsum_bound_by=by, pushsum_library_ms=t_l)
 
 
-def width_parity(dev, gen, reps: int) -> None:
+def width_parity(dev, gen, reps: int) -> dict:
     """ROADMAP C1: the widths past the kernels' old limits, bit-exact to
     the plain versions -- fused_negotiate at k = 20 and k = 200 (both
     past the 16-column register row) on 1e6 rows; fused_emit at dw = 40
     (-delaylow 1 -delayhigh 40), kw = 33 (-fanout 32 SIR) and kw = 112
-    (erdos SIR at lam = 60) on the main path's 131,072 senders;
-    fused_ring_append at dw = 40 on 262,144 lanes.  Times are printed,
-    not reported in the kernels line."""
+    (erdos SIR at lam = 60) on the main path's 131,072 senders, and at
+    erdos1m_wide's own batch (38 lanes a sender, Poisson(12) friend
+    counts); fused_ring_append at dw = 40 on 262,144 lanes.  Returns the
+    fused_emit row's kw112_* and erdos1m_wide_* columns (time, plain
+    time, bound: the ring writes counted as the entries the data
+    appends); the other times are printed only."""
+    from gossip_simulator_tpu_torch.config import parse_cli
     from gossip_simulator_tpu_torch.ops import deliver, megakernel
     from gossip_simulator_tpu_torch.ops import overlay_kernel
 
@@ -1307,13 +1372,24 @@ def width_parity(dev, gen, reps: int) -> None:
             del out
         del fr0, cnt0, pick, src, has
     m, b, nn = 131_072, 10, FULL_N
-    for name, k, dw, sir, cnt_lo in (("dw40", 6, 40, False, None),
-                                     ("kw33", 32, 3, True, None),
-                                     ("kw112", 111, 3, True, 30)):
+    # erdos1m_wide's own batch: -graph erdos -n 1e6 -er-p 1.2e-5 -protocol
+    # sir (lam 12: 37 friend columns, 38 lanes a sender, Poisson counts).
+    wcfg, _ = parse_cli(["-graph", "erdos", "-n", str(ERDOS_WIDE_N),
+                         "-er-p", "1.2e-5", "-protocol", "sir"])
+    wn, wk, wb, wdw, wcap, wm, wlen = emit_shapes(wcfg, wcfg.graph_width)
+    emit_rows = {}
+    for name, k, dw, sir, cnt_lo, lam, shape in (
+            ("dw40", 6, 40, False, None, None, None),
+            ("kw33", 32, 3, True, None, None, None),
+            ("kw112", 111, 3, True, 30, None, None),
+            ("erdos1m_wide", wk, wdw, True, None, 12.0,
+             (wn, wm, wb, wcap, wlen))):
         cap = 3_000_000
-        case, kw = emit_case(gen, dev, nn, m, k, dw, cap, b,
-                             dw * cap + m * (k + 1), dup=False, sir=sir,
-                             base_hi=cap // 2, cnt_lo=cnt_lo)
+        cn, cm, cb, ccap, clen = shape or (nn, m, b, cap,
+                                           dw * cap + m * (k + 1))
+        case, kw = emit_case(gen, dev, cn, cm, k, dw, ccap, cb, clen,
+                             dup=False, sir=sir, base_hi=ccap // 2,
+                             cnt_lo=cnt_lo, lam=lam)
         ring0 = case.pop("mail_ids")
         args = [case[x] for x in ("mail_cnt", "sf", "drop", "svalid",
                                   "wslot", "off")]
@@ -1322,9 +1398,17 @@ def width_parity(dev, gen, reps: int) -> None:
             megakernel.fused_emit, lambda: [ring0.clone()],
             lambda fn, st: fn(st[0], *args, **kw)[1:],  # noqa: B023
             lambda st: None, reps)
-        say(f"fused_emit[{name}]: bit-exact (m {m}, k {k}, dw {dw}, "
-            f"{'SIR' if sir else 'SI'}, adds {out[1].sum().item()}); "
-            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        written = int(out[1].sum())
+        bnd, by = bound_ms(*emit_bytes(cm, k, k + (1 if sir else 0), False,
+                                       sir, written=written))
+        say(f"fused_emit[{name}]: bit-exact (m {cm}, k {k}, dw {dw}, "
+            f"{'SIR' if sir else 'SI'}, {written} entries written); "
+            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd:.5f} ms "
+            f"({by})")
+        if name in ("kw112", "erdos1m_wide"):
+            emit_rows.update({f"{name}_ms": t_k, f"{name}_plain_ms": t_p,
+                              f"{name}_bound_ms": bnd,
+                              f"{name}_bound_by": by})
         del out, case, args, ring0
     dw, cap, m = 40, 2_000_000, 262_144
     rings0 = [ri(0, 2**30, (dw * cap + 1,)) for _ in range(2)]
@@ -1344,6 +1428,7 @@ def width_parity(dev, gen, reps: int) -> None:
         f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
     del out, rings0
     torch.cuda.empty_cache()
+    return emit_rows
 
 
 KOUT_N = 100_000_000  # headline_jax: 1e8 nodes, fanout 3
@@ -1548,12 +1633,77 @@ def lowered(*patches):
             setattr(mod, name, value)
 
 
+WORKERS = 6  # processes for the twins' runs and the CPU's erdos rows
+
+
+@contextlib.contextmanager
+def worker_pool():
+    """Worker processes (spawned: this process holds the card) that run the
+    twins' runs, on the card and on the CPU, and the CPU's erdos rows;
+    all of them end with the block."""
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        try:
+            yield pool
+        except BaseException:
+            pool.shutdown(wait=True, cancel_futures=True)
+            raise
+
+
+def _twin_side(argv, patches, shards, device):
+    """One side of a twin, in a worker process, every launch count set to 0
+    before it: (transcript, RunResult, final state leaves, wall s,
+    launches).  `patches` name their modules."""
+    import importlib
+
+    from gossip_simulator_tpu_torch.ops import _build
+
+    torch.set_num_threads(1)
+    with lowered(*[(importlib.import_module(m), k, v)
+                   for m, k, v in patches]):
+        _build.reset_launches()
+        out, res, st, wall = run_port(argv, device, shards=shards)
+        launches = dict(_build.LAUNCHES)
+    return out, res, st.state_pytree(), wall, launches
+
+
+def run_twins(cases, shards=None):
+    """Each (name, argv, patches, check) case on the card and on the CPU,
+    both sides in the worker pool, the cases side by side; fails unless
+    the transcripts and final state leaves agree, then calls
+    check(launches, RunResult) on the card run, which fails on what it
+    does not accept."""
+    import numpy as np
+
+    with worker_pool() as pool:
+        runs = [[pool.submit(_twin_side, argv,
+                             [(m.__name__, k, v) for m, k, v in patches],
+                             shards, device) for device in ("cuda", "cpu")]
+                for _, argv, patches, _ in cases]
+        for (name, argv, patches, check), (card, cpu) in zip(cases, runs):
+            out_g, res_g, tg, wall_g, launches = card.result()
+            out_c, _, tc, wall_c, _ = cpu.result()
+            if out_g != out_c:
+                fail(f"{name}: cuda and cpu transcripts differ:\n{out_g}\n"
+                     f"---\n{out_c}")
+            bad = [key for key in tc if not np.array_equal(tg[key], tc[key])]
+            if bad or set(tg) != set(tc):
+                fail(f"{name}: final state leaves differ: {bad}")
+            check(launches, res_g)
+            say(f"{name}: cuda == cpu (transcript, {len(tc)} leaves); "
+                f"{res_g.stats.total_message} messages, converged="
+                f"{res_g.converged}, {res_g.overlay_windows} overlay "
+                f"windows; cuda {wall_g:.2f} s, cpu {wall_c:.2f} s (in "
+                f"workers); launches {launches}")
+
+
 def phase_twins(n: int) -> None:
     from gossip_simulator_tpu_torch import config
     from gossip_simulator_tpu_torch.models import overlay
-    from gossip_simulator_tpu_torch.ops import _build
-
-    import numpy as np
 
     kout = ["-graph", "kout", "-n", str(n), "-fanout", "6", "-seed", "1"]
     ovl = ["-n", str(n), "-seed", "1", *OVERLAY]
@@ -1623,45 +1773,37 @@ def phase_twins(n: int) -> None:
          ("fused_emit",), ()),
         ("kout_fanout32_sir", kout + ["-fanout", "32", "-protocol", "sir"],
          ("fused_emit",), ())]
-    for name, argv, kernels, patches in cases:
-        with lowered(*patches):
-            _build.reset_launches()
-            out_g, res_g, st_g, wall_g = run_port(argv, "cuda")
-            launches = dict(_build.LAUNCHES)
-            out_c, res_c, st_c, wall_c = run_port(argv, "cpu")
-        if out_g != out_c:
-            fail(f"twin {name}: cuda and cpu transcripts differ:\n{out_g}\n"
-                 f"---\n{out_c}")
-        tg, tc = st_g.state_pytree(), st_c.state_pytree()
-        bad = [key for key in tc if not np.array_equal(tg[key], tc[key])]
-        if bad or set(tg) != set(tc):
-            fail(f"twin {name}: final state leaves differ: {bad}")
-        if any(launches[k] <= 0 for k in kernels):
-            fail(f"twin {name}: a kernel of {kernels} was never launched "
-                 f"({launches})")
-        if not kernels and any(gated(launches).values()):
-            fail(f"twin {name}: a path without kernels launched one "
-                 f"({launches})")
-        if ("kout" in argv and "pushpull" not in argv
-                and launches["kout_pallas"] <= 0):
-            fail(f"twin {name}: the kout table was not made by "
-                 f"kout_pallas ({launches})")
-        if name == "pushsum_p2_xla" and launches[DRAIN]:
-            fail(f"twin {name}: -phase2-kernel xla launched {DRAIN}")
-        if name == "overlay_xla" and any(launches[k] for k in PHASE1_KERNELS):
-            fail(f"twin {name}: the xla gates launched a phase-1 kernel "
-                 f"({launches})")
-        # With -overlay-dead-skip off every round counts its three
-        # emission matrices (breakups, makeups, bootstrap requests).
-        if (name == "rounds_split" and launches["fused_hosted_chunk"]
-                != 3 * res_g.overlay_windows):
-            fail(f"twin {name}: fused_hosted_chunk launched "
-                 f"{launches['fused_hosted_chunk']} times in "
-                 f"{res_g.overlay_windows} rounds, not three a round")
-        say(f"twin {name}: cuda == cpu (transcript, {len(tc)} leaves); "
-            f"{res_g.stats.total_message} messages, converged="
-            f"{res_g.converged}, {res_g.overlay_windows} overlay windows; "
-            f"cuda {wall_g:.2f} s, cpu {wall_c:.2f} s; launches {launches}")
+
+    def checker(name, argv, kernels):
+        def check(launches, res_g):
+            twin = f"twin {name}"
+            if any(launches[k] <= 0 for k in kernels):
+                fail(f"{twin}: a kernel of {kernels} was never launched "
+                     f"({launches})")
+            if not kernels and any(gated(launches).values()):
+                fail(f"{twin}: a path without kernels launched one "
+                     f"({launches})")
+            if ("kout" in argv and "pushpull" not in argv
+                    and launches["kout_pallas"] <= 0):
+                fail(f"{twin}: the kout table was not made by kout_pallas "
+                     f"({launches})")
+            if name == "pushsum_p2_xla" and launches[DRAIN]:
+                fail(f"{twin}: -phase2-kernel xla launched {DRAIN}")
+            if name == "overlay_xla" and any(launches[k]
+                                             for k in PHASE1_KERNELS):
+                fail(f"{twin}: the xla gates launched a phase-1 kernel "
+                     f"({launches})")
+            # With -overlay-dead-skip off every round counts its three
+            # emission matrices (breakups, makeups, bootstrap requests).
+            if (name == "rounds_split" and launches["fused_hosted_chunk"]
+                    != 3 * res_g.overlay_windows):
+                fail(f"{twin}: fused_hosted_chunk launched "
+                     f"{launches['fused_hosted_chunk']} times in "
+                     f"{res_g.overlay_windows} rounds, not three a round")
+        return check
+
+    run_twins([(f"twin {name}", argv, patches, checker(name, argv, kernels))
+               for name, argv, kernels, patches in cases])
 
 
 def _full_line(name, n, out, res, st, wall, counts) -> str:
@@ -1894,8 +2036,13 @@ def phase_pushsum(n: int) -> dict:
         if totals != st.initial_totals:
             fail(f"full {name}: mass not conserved: {totals} after, "
                  f"{st.initial_totals} before")
+        # Every window appends its n * fanout lanes, the valid ones
+        # counted in total_message: the wide append's valid share.
+        lanes = res.gossip_windows * st.cfg.n * st.cfg.fanout
         say(f"full {name}: report {res.report}; mass conserved "
-            f"(Sigma x, Sigma w = {totals})")
+            f"(Sigma x, Sigma w = {totals}); valid lanes "
+            f"{res.stats.total_message} of {lanes} "
+            f"({res.stats.total_message / lanes:.6f})")
         leaves = _host_leaves(st.state)
         del st
         if first is None:
@@ -1920,22 +2067,24 @@ def _transcript(name, out) -> None:
         say(f"  {name} | {line}")
 
 
-def phase_graphs(n_kout: int, n_erdos: int, n_wide: int) -> dict:
-    """The sixth slice's paths, static graph generation: headline_jax
-    (-graph kout -fanout 3 -crashrate 0.001 -coverage-target 0.90
-    -pallas at n_kout: kout_pallas), sir_10m_erdos (-graph erdos -fanout 8
-    -protocol sir -removal-rate 0.2 -coverage-target 0.8 at n_erdos)
-    without -pallas (graphs.erdos) and with it (erdos_pallas), and
-    -graph erdos -er-p 1.2e-5 -protocol sir at n_wide (lam = 12: 38 lanes
-    a sender, the rejection branch).  Each prints its transcript, wall
-    seconds and peak memory.  Then the rows where graphs.erdos's table on
-    the card parts from the CPU's, at n = 1e6 for lam = 5, 8, 12 and 60
-    (utils/rng.poisson: XLA's float32 log and lgamma), held to
-    ERDOS_CARD_CPU_PARTED.  Returns the launches of each run by
-    name."""
+def _erdos_parted(n, lam, r0, nr, card_f, card_d):
+    """In a worker: graphs.erdos's rows [r0, r0 + nr) at n and lam on the
+    CPU, the count of them that part from the card's (card_f, card_d),
+    and the seconds it took."""
     from gossip_simulator_tpu_torch.config import Config
     from gossip_simulator_tpu_torch.models import graphs
 
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    cfg = Config(n=n, graph="erdos", er_p=lam / n).validate()
+    cf, cd = graphs.generate(cfg, graphs.graph_key(cfg, "cpu"), r0, nr)
+    parted = int(((torch.from_numpy(card_f) != cf).any(dim=1)
+                  | (torch.from_numpy(card_d) != cd)).sum())
+    return parted, time.perf_counter() - t0
+
+
+def _graph_runs(n_kout: int, n_erdos: int, n_wide: int) -> dict:
+    """phase_graphs' four full runs; returns their launches by name."""
     runs = {}
     sir = ["-protocol", "sir", "-seed", "0"]
     for name, n, argv, gen_kernel in (
@@ -1965,34 +2114,56 @@ def phase_graphs(n_kout: int, n_erdos: int, n_wide: int) -> dict:
             fail(f"full {name}: launches {counts}, expected {want}")
         say(f"full {name}: wall {wall:.3f} s, peak "
             f"{torch.cuda.max_memory_allocated()} B")
-    for lam in (5.0, 8.0, 12.0, 60.0):
-        n = 1_000_000
-        cfg = Config(n=n, graph="erdos", er_p=lam / n).validate()
-        t0 = time.perf_counter()
-        gf, gd = graphs.generate(cfg, graphs.graph_key(cfg, "cuda"))
-        torch.cuda.synchronize()
-        t_g = time.perf_counter() - t0
-        gf, gd = gf.cpu(), gd.cpu()
-        # Row blocks of ~2**19 cells keep the CPU's int64 chain in cache
-        # (a row's draws do not depend on its block).
-        key, step = graphs.graph_key(cfg, "cpu"), max(4096,
-                                                      2**19 // gf.shape[1])
-        t0 = time.perf_counter()
-        parted = 0
-        for r0, nr in _blocks(n, step):
-            cf, cd = graphs.generate(cfg, key, r0, nr)
-            parted += int(((gf[r0:r0 + nr] != cf).any(dim=1)
-                           | (gd[r0:r0 + nr] != cd)).sum())
-        t_c = time.perf_counter() - t0
-        say(f"erdos card vs cpu: lam {lam:g}, n {n}, cap {gf.shape[1]}: "
-            f"{parted} rows part; generation cuda {t_g:.3f} s, cpu "
-            f"{t_c:.3f} s (row blocks of {step})")
-        if parted > ERDOS_CARD_CPU_PARTED:
-            fail(f"erdos card vs cpu: {parted} rows part at lam {lam:g} "
-                 f"(at most {ERDOS_CARD_CPU_PARTED} measured; ROADMAP C5)")
-        del gf, gd
-    torch.cuda.empty_cache()
     return runs
+
+
+def phase_graphs(n_kout: int, n_erdos: int, n_wide: int) -> dict:
+    """The sixth slice's paths, static graph generation: headline_jax
+    (-graph kout -fanout 3 -crashrate 0.001 -coverage-target 0.90
+    -pallas at n_kout: kout_pallas), sir_10m_erdos (-graph erdos -fanout 8
+    -protocol sir -removal-rate 0.2 -coverage-target 0.8 at n_erdos)
+    without -pallas (graphs.erdos) and with it (erdos_pallas), and
+    -graph erdos -er-p 1.2e-5 -protocol sir at n_wide (lam = 12: 38 lanes
+    a sender, the rejection branch).  Each prints its transcript, wall
+    seconds and peak memory.  Before them, in the worker processes (which
+    have ended when the timed runs start), the rows where graphs.erdos's
+    table on the card parts from the CPU's, at n = 1e6 for lam = 5, 8, 12
+    and 60 (utils/rng.poisson: XLA's float32 log and lgamma), held to
+    ERDOS_CARD_CPU_PARTED.  Returns the launches of each run by name."""
+    from gossip_simulator_tpu_torch.config import Config
+    from gossip_simulator_tpu_torch.models import graphs
+
+    rows = 1_000_000
+    with worker_pool() as pool:
+        parts = []
+        for lam in (5.0, 8.0, 12.0, 60.0):
+            cfg = Config(n=rows, graph="erdos", er_p=lam / rows).validate()
+            t0 = time.perf_counter()
+            gf, gd = graphs.generate(cfg, graphs.graph_key(cfg, "cuda"))
+            torch.cuda.synchronize()
+            t_g = time.perf_counter() - t0
+            gf, gd = gf.cpu(), gd.cpu()
+            # Row blocks of ~2**19 cells keep the CPU's int64 chain in
+            # cache (a row's draws do not depend on its block).
+            step = max(4096, 2**19 // gf.shape[1])
+            parts.append((lam, gf.shape[1], t_g, step, [
+                pool.submit(_erdos_parted, rows, lam, r0, nr,
+                            gf[r0:r0 + nr].numpy(), gd[r0:r0 + nr].numpy())
+                for r0, nr in _blocks(rows, step)]))
+            del gf, gd
+        torch.cuda.empty_cache()
+        for lam, cap, t_g, step, futs in parts:
+            got = [f.result() for f in futs]
+            parted = sum(p for p, _ in got)
+            say(f"erdos card vs cpu: lam {lam:g}, n {rows}, cap {cap}: "
+                f"{parted} rows part; generation cuda {t_g:.3f} s, cpu "
+                f"{sum(t for _, t in got):.3f} s (row blocks of {step}, "
+                f"summed over {WORKERS} workers)")
+            if parted > ERDOS_CARD_CPU_PARTED:
+                fail(f"erdos card vs cpu: {parted} rows part at lam "
+                     f"{lam:g} (at most {ERDOS_CARD_CPU_PARTED} measured; "
+                     "ROADMAP C5)")
+    return _graph_runs(n_kout, n_erdos, n_wide)
 
 
 # --- phase 8: the sharded backend, S shards laid out on the one card --------
@@ -2155,11 +2326,7 @@ def recv_parity(dev, gen, reps: int) -> dict:
 def sharded_twins(n: int) -> None:
     """cuda-vs-cpu twins of the sharded backend at n on 2 and 8 shards:
     identical transcripts and final state leaves, and fused_recv_land
-    launched on the card."""
-    import numpy as np
-
-    from gossip_simulator_tpu_torch.ops import _build
-
+    launched on the card (the cpu sides in worker processes)."""
     kout = ["-backend", "sharded", "-graph", "kout", "-n", str(n),
             "-fanout", "6", "-seed", "1"]
     erdos = ["-backend", "sharded", "-graph", "erdos", "-n", str(n),
@@ -2173,27 +2340,17 @@ def sharded_twins(n: int) -> None:
              ("erdos_pallas", erdos + ["-pallas"], ("erdos_pallas",)),
              ("pushsum", pushsum_argv(n, seed=1) + ["-backend", "sharded"],
               ()))
-    for shards in (2, SHARDS):
-        for name, argv, idle in cases:
-            _build.reset_launches()
-            out_g, res_g, st_g, wall_g = run_port(argv, "cuda",
-                                                  shards=shards)
-            launches = dict(_build.LAUNCHES)
-            out_c, _, st_c, wall_c = run_port(argv, "cpu", shards=shards)
-            tag = f"sharded twin {name} S={shards}"
-            if out_g != out_c:
-                fail(f"{tag}: cuda and cpu transcripts differ:\n{out_g}\n"
-                     f"---\n{out_c}")
-            tg, tc = st_g.state_pytree(), st_c.state_pytree()
-            bad = [k for k in tc if not np.array_equal(tg[k], tc[k])]
-            if bad or set(tg) != set(tc):
-                fail(f"{tag}: final state leaves differ: {bad}")
+
+    def checker(tag, idle):
+        def check(launches, res_g):
             if launches[RECV] <= 0 or any(launches[k] for k in idle):
                 fail(f"{tag}: launches {launches}")
-            say(f"{tag}: cuda == cpu (transcript, {len(tc)} leaves); "
-                f"{res_g.stats.total_message} messages, converged="
-                f"{res_g.converged}; cuda {wall_g:.2f} s, cpu "
-                f"{wall_c:.2f} s; launches {launches}")
+        return check
+
+    for shards in (2, SHARDS):
+        run_twins([(f"sharded twin {name} S={shards}", argv, (),
+                    checker(f"sharded twin {name} S={shards}", idle))
+                   for name, argv, idle in cases], shards=shards)
 
 
 def phase_sharded(n: int, n_ps: int, n_big: int) -> dict:
@@ -2254,16 +2411,17 @@ def phase_sharded(n: int, n_ps: int, n_big: int) -> dict:
             spent[1] += 1
 
     megakernel.fused_recv_land = timed_land
+    big = f"sharded_{n_big // 10**6}m"
     try:
-        out, res, st, runs["sharded_100m"], wall = full_run(
-            "sharded_100m", n_big, sharded_argv(n_big), shards=SHARDS)
+        out, res, st, runs[big], wall = full_run(
+            big, n_big, sharded_argv(n_big), shards=SHARDS)
     finally:
         megakernel.fused_recv_land = land
-    say(f"host sharded_100m: {spent[0]:.3f} s in {spent[1]} "
+    say(f"host {big}: {spent[0]:.3f} s in {spent[1]} "
         f"{RECV} calls ({1e6 * spent[0] / max(spent[1], 1):.2f} us each)")
     del st
-    _transcript("sharded_100m", out)
-    say(f"full sharded_100m: wall {wall:.3f} s, peak "
+    _transcript(big, out)
+    say(f"full {big}: wall {wall:.3f} s, peak "
         f"{torch.cuda.max_memory_allocated()} B")
     return runs
 
@@ -2291,8 +2449,7 @@ def _device_events(ka) -> list:
 PROFILE_KERNELS = (
     ("fused_emit", ("emit_count", "emit_scan", "emit_write")),
     ("fused_unique_set", ("unique_set_kernel",)),
-    ("fused_ring_append", ("ring_count", "ring_scan", "ring_write",
-                           "ring_finish")),
+    ("fused_ring_append", ("ring_append",)),
     ("fused_chunk_step", ("radix_hist", "radix_scan", "radix_scatter",
                           "chunk_write", "chunk_count", "scan_tiles",
                           "scan_sums", "scan_apply", "spill_write",

@@ -13,13 +13,25 @@
 //
 // Bound on the H100: bytes.  Each lane reads 8 bytes of slot and dst, and
 // an in-range lane its 4*w bytes of values; each touched (cell, column) is
-// read and written once, at random cells.  Design: a group of g threads per lane, g the
-// power of two at or above min(w, 32) (a half-warp for w = 16; a warp
-// looping over the columns for w up to 1024), so the group reads the
-// lane's value row coalesced; each nonzero value is one atomicAdd at the
-// 64-bit offset (slot*n + dst)*w + c.  Skipping a zero adds nothing, so
-// the result is the same; integer adds commute, so the order of the
-// atomics does not matter.
+// read and written once, at random cells.  At the multi-rumor run's shape
+// 80 % of the lanes are out of range (a fifth of the rows send), and at
+// PushSum's drain chunk every lane adds 12 limbs through L2 atomics, whose
+// rate (~1.2e11 adds a second) is the floor there.  Design, warp-compacted
+// lanes: each warp loads the slots and dsts of BATCH consecutive lanes,
+// 32 a round with coalesced loads, ballots the in-range ones and lists
+// them (lane, cell offset) in shared memory in lane order; an
+// out-of-range lane costs its two loads and a ballot bit.  Then the warp
+// walks the listed lanes' rows as one run of count * w (lane, column)
+// elements, STAGE at a time: it stages their values in shared memory,
+// 16 bytes a thread where w % 4 == 0 and vals is 16-byte aligned (a
+// piece never straddles two rows; else a word a thread), and adds them
+// with one thread an element, so the 32 adds of a warp instruction fall
+// on neighbouring columns of a few rows (a thread a lane, or a few
+// threads a lane each adding four columns, spread an instruction's adds
+// over as many rows and L2 sectors).  Each nonzero value is one
+// atomicAdd whose result is unused (a RED) at the 64-bit offset (slot*n
+// + dst)*w + c: skipping a zero adds nothing, so the result is the same,
+// and integer adds commute, so the order of the atomics does not matter.
 //
 // Plain C interface (built with nvcc, loaded with ctypes): returns the
 // cudaError_t of the launch.
@@ -28,49 +40,96 @@
 #include <cstdint>
 
 #define THREADS 256
+#define WARPS (THREADS / 32)
+#define ROUNDS 4  // 32-lane rounds a warp lists before serving them
+#define BATCH (32 * ROUNDS)
+#define STAGE 512  // value words a warp stages at a time (a multiple of 4)
+#define W_MAX (1 << 22)  // BATCH * w + STAGE elements stay within int32
+#define FULL_MASK 0xffffffffu
 
 namespace {
 
-__global__ void deposit_rows(int32_t* __restrict__ pending,
-                             const int32_t* __restrict__ slots,
-                             const int32_t* __restrict__ dst,
-                             const int32_t* __restrict__ vals, long long m,
-                             int b, long long n, int w, int g) {
-  const int per_block = THREADS / g;
-  const int sub = threadIdx.x % g;
-  const long long stride = (long long)gridDim.x * per_block;
-  for (long long i = (long long)blockIdx.x * per_block + threadIdx.x / g;
-       i < m; i += stride) {
-    const int sl = slots[i];
-    const int d = dst[i];
-    if (sl < 0 || sl >= b || d < 0 || (long long)d >= n) continue;
-    int32_t* row = pending + ((long long)sl * n + d) * w;
-    const int32_t* v = vals + i * w;
-    for (int c = sub; c < w; c += g) {
-      const int32_t x = v[c];
-      if (x != 0) atomicAdd(row + c, x);
+__global__ void __launch_bounds__(THREADS)
+deposit_rows(int32_t* __restrict__ pending, const int32_t* __restrict__ slots,
+             const int32_t* __restrict__ dst,
+             const int32_t* __restrict__ vals, long long m, int b,
+             long long n, int w, bool vec4) {
+  __shared__ int s_lane[WARPS][BATCH];
+  __shared__ long long s_cell[WARPS][BATCH];
+  __shared__ int4 s_val4[WARPS][STAGE / 4];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const long long base = ((long long)blockIdx.x * WARPS + wid) * BATCH;
+  int sl[ROUNDS], d[ROUNDS];
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {  // all the loads in flight at once
+    const long long i = base + r * 32 + lane;
+    sl[r] = i < m ? slots[i] : -1;
+    d[r] = i < m ? dst[i] : -1;
+  }
+  int count = 0;
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const bool in = sl[r] >= 0 && sl[r] < b && d[r] >= 0 && (long long)d[r] < n;
+    const unsigned mk = __ballot_sync(FULL_MASK, in);
+    if (in) {
+      const int k = count + __popc(mk & ((1u << lane) - 1u));
+      s_lane[wid][k] = r * 32 + lane;
+      s_cell[wid][k] = ((long long)sl[r] * n + d[r]) * w;
     }
+    count += __popc(mk);
+  }
+  __syncwarp();
+  const int* lanes = s_lane[wid];
+  const long long* cells = s_cell[wid];
+  int* val = reinterpret_cast<int*>(s_val4[wid]);
+  const int total = count * w;
+  for (int e0 = 0; e0 < total; e0 += STAGE) {
+    const int span = min(STAGE, total - e0);
+    if (vec4) {
+      const int q = w >> 2;
+      for (int j = lane; j < span / 4; j += 32) {
+        const int pe = e0 / 4 + j;
+        const int k = pe / q;
+        s_val4[wid][j] = reinterpret_cast<const int4*>(
+            vals + (base + lanes[k]) * w)[pe - k * q];
+      }
+    } else {
+      for (int j = lane; j < span; j += 32) {
+        const int e = e0 + j;
+        const int k = e / w;
+        val[j] = vals[(base + lanes[k]) * w + (e - k * w)];
+      }
+    }
+    __syncwarp();
+    for (int j = lane; j < span; j += 32) {
+      const int x = val[j];
+      if (x != 0) {
+        const int e = e0 + j;
+        const int k = e / w;
+        atomicAdd(pending + cells[k] + (e - k * w), x);
+      }
+    }
+    __syncwarp();
   }
 }
 
 }  // namespace
 
 // pending: int32[b * n * w], updated in place; slots, dst: int32[m];
-// vals: int32[m * w].
+// vals: int32[m * w]; w <= W_MAX.
 extern "C" int gossip_fused_deposit_rows(void* pending, const void* slots,
                                          const void* dst, const void* vals,
                                          long long m, int b, long long n,
                                          int w, void* stream) {
-  if (m < 0 || b < 0 || n < 0 || w < 1) return (int)cudaErrorInvalidValue;
+  if (m < 0 || b < 0 || n < 0 || w < 1 || w > W_MAX)
+    return (int)cudaErrorInvalidValue;
   if (m > 0 && b > 0 && n > 0) {
-    int g = 1;
-    while (g < w && g < 32) g *= 2;
-    const long long per_block = THREADS / g;
-    long long blocks = (m + per_block - 1) / per_block;
-    if (blocks > 8192) blocks = 8192;
+    const bool vec4 = w % 4 == 0 && (uintptr_t)vals % 16 == 0;
+    const long long per_block = (long long)WARPS * BATCH;
+    const long long blocks = (m + per_block - 1) / per_block;
     deposit_rows<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
         (int32_t*)pending, (const int32_t*)slots, (const int32_t*)dst,
-        (const int32_t*)vals, m, b, n, w, g);
+        (const int32_t*)vals, m, b, n, w, vec4);
   }
   return (int)cudaGetLastError();
 }

@@ -76,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "smem.cuh"
+
 #define THREADS 256
 #define MAX_BLOCKS 16384
 #define PART_MAX 8192  // ops/megakernel.py DRAIN_PART_MAX
@@ -380,15 +382,6 @@ tile_accum(int32_t* __restrict__ acc, const int2* __restrict__ pairs,
   }
   __syncthreads();
   for (int e = threadIdx.x; e < words; e += TILE_THREADS) src[e] = tile[e];
-}
-
-// Lets `kernel` take `bytes` of dynamic shared memory past the default 48
-// KB.  The attribute belongs to the current device, so it is set on every
-// launch that needs it (a cheap call beside these launches).
-cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace

@@ -6,240 +6,166 @@
 //                  same slot (lane order)
 //   capacity       ok = valid[i] && pos < cap
 //   ring write     ring0[wc*cap + pos] = pay0[i] (and ring1's row at the
-//                  same position = pay1's row i) when ok, else 0 at the
-//                  trash cell dw*cap (a zero row of ring1)
+//                  same position = pay1's row i) when ok
+//   trash          the trash cell ring0[dw*cap] (and ring1's row there) is
+//                  set to 0 when some lane is not ok (invalid or past the
+//                  capacity), and keeps its value when every lane is ok
 //   counts         cnt[s] += ok lanes of slot s; dropped += valid && !ok
 //
 // Replaces the TPU kernel gossip_simulator_tpu/ops/pallas_deliver.py
 // fused_ring_append (_ring_kernel), one serial loop over lanes whose
-// per-slot counter gives each lane its position.  Here the same positions
-// come from a deterministic parallel scan, never from the order atomics
-// happen to run in (the structure of csrc/fused_emit.cu, with one lane
-// per entry instead of one reservation per sender):
-//
-//   pass 1 (ring_count)  per-block per-slot totals of valid lanes into
-//                        block_sums[nb, dw] (shared-memory integer atomics:
-//                        sums commute);
-//   pass 2 (ring_scan)   one block per slot: exclusive scan of block_sums
-//                        over blocks, in place;
-//   pass 3 (ring_write)  intra-block exclusive scan of the one-hot per-slot
-//                        flags (warp shuffles over groups of DWM slots),
-//                        position, verdict and the ring writes; ok and lost
-//                        counts are integer sums (atomics are exact for
-//                        them) into adds/lost;
-//   pass 4 (ring_finish) cnt += adds, dropped += lost -- after every lane
-//                        has read the carried cnt.
-//
-// Widths: dw <= DW_LIMIT slots (the per-block slot sums and warp prefixes
-// are dynamic shared memory: 4 * 9 * dw bytes in pass 3); the register
-// scan runs over groups of DWM = 8 slots (dw <= 8, the usual dw = 3) or
-// 32.
-//
-// Every ok lane owns its cell; overflow lanes all write 0 to the one trash
-// cell, so their order is harmless.
+// per-slot counter gives each lane its position and whose every non-ok
+// lane stores 0 to the trash cell (so the cell ends at 0 iff some lane is
+// not ok: one write a call gives the same bits).  Here the same positions
+// come from the single-pass scan of csrc/lookback.cuh (shared with
+// fused_recv_land), never from the order atomics happen to run in.
 //
 // The companion ring ring1 is flat (w1 = 1: the overlay's payload ring) or
 // wide, int32[L, w1] (PushSum's mass ring, w1 = (dim + 1) * 4 limbs, 8 to
-// 36): each lane writes its whole payload row.  Row offsets are 64-bit:
-// the mass ring's flat * w1 passes 2^31 at n = 1e7 (2.1e8 rows x 12).
+// 36): each lane's whole payload row lands at its position.  Row offsets
+// are 64-bit: the mass ring's flat * w1 passes 2^31 at n = 1e7 (2.1e8 rows
+// x 12).
 //
-// Bound on the H100: bytes.  At the main path's shape (m = 262,144 lanes,
-// two rings, dw = 3) a call reads 13 B per lane (two payloads, the slot,
-// the flag) and writes 8 B per lane into the rings, ~5.5 MB (~1.6 us at
-// 3.35 TB/s); the scattered 4-byte ring stores land in contiguous runs
-// per slot, so sectors merge in L2.  Four launches of latency dominate at
-// this size.  The wide form at PushSum's full size (m = 6e7 lanes, w1 =
-// 12, dw = 3) reads 57 B and writes 52 B per lane, ~6.5 GB (~2.0 ms); a
-// thread writes its lane's 48-byte row, and neighbouring lanes of one slot
-// write neighbouring rows.
+// Bound on the H100: bytes.  At the overlay's shape (m = 262,144 lanes,
+// two flat rings, dw = 3, a tenth of the lanes invalid) a call reads 13 B
+// per lane and writes 8 B per landed lane, ~5.3 MB (~1.6 us at 3.35
+// TB/s); there the host's enqueue and the launches are the cost, so the
+// call is one launch with no allocation or fill (it was four launches, a
+// torch.zeros and a per-lane trash store).  The wide form at PushSum's
+// full size (m = 6e7 lanes, w1 = 12, dw = 3) reads 57 B and writes 52 B
+// per lane, ~6.5 GB (~2.0 ms); there the rows go through the staged list,
+// neighbouring threads on neighbouring 16-byte pieces (a thread a lane
+// with twelve 4-byte stores spanned 32 rows a warp instruction), and the
+// trash row is written once a call, not once per lane that does not land.
+//
+// One kernel, ring_append, a tile of TILE lanes a block: load the tile's
+// slots and flags (all in flight at once), rank the valid lanes
+// (rank_tile), resolve the earlier blocks' counts (look_back), write the
+// ids (and a flat ring1's entries) and stage a wide ring1's rows; the last
+// block to finish settles cnt and dropped, zeroes the trash cell and its
+// row once if fewer than m lanes landed, and leaves the workspace's
+// counters at 0.
 //
 // Plain C interface (built with nvcc, loaded with ctypes): returns the
-// cudaError_t of the last launch.
+// cudaError_t of the launch.
 
-#include <cuda_runtime.h>
-#include <cstdint>
-
-#define DW_LIMIT 1024  // ops/deliver.py RING_SLOTS_MAX
-#define DW_SMALL 8  // the register-scan group width for dw <= 8
-#define DW_GROUP 32  // the register-scan group width above it
-#define THREADS 256
-#define WARPS (THREADS / 32)
-#define SCAN_THREADS 1024
-#define FULL_MASK 0xffffffffu
+#include "lookback.cuh"
 
 namespace {
+
+using lookback::u64;
 
 __device__ __forceinline__ int clamp_slot(int w, int dw) {
   return w < 0 ? 0 : (w >= dw ? dw - 1 : w);
 }
 
-__global__ void ring_count(const int32_t* __restrict__ wslot,
-                           const uint8_t* __restrict__ valid, int m, int dw,
-                           int32_t* __restrict__ block_sums) {
-  extern __shared__ int s_tot[];  // [dw]
-  for (int j = threadIdx.x; j < dw; j += THREADS) s_tot[j] = 0;
-  __syncthreads();
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < m && valid[i] != 0) atomicAdd(&s_tot[clamp_slot(wslot[i], dw)], 1);
-  __syncthreads();
-  for (int j = threadIdx.x; j < dw; j += THREADS)
-    block_sums[(long long)blockIdx.x * dw + j] = s_tot[j];
-}
-
-// Exclusive scan of column blockIdx.x of block_sums[nb, dw], in place.
-__global__ void ring_scan(int32_t* __restrict__ block_sums, int nb, int dw) {
-  __shared__ int warp_tot[SCAN_THREADS / 32];
-  const int s = blockIdx.x;
-  const int per = (nb + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int lo = min(threadIdx.x * per, nb);
-  const int hi = min(lo + per, nb);
-  int local = 0;
-  for (int j = lo; j < hi; ++j) local += block_sums[(long long)j * dw + s];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  int x = local;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL_MASK, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_tot[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    const int t = warp_tot[lane];
-    int z = t;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL_MASK, z, o);
-      if (lane >= o) z += y;
-    }
-    warp_tot[lane] = z - t;
-  }
-  __syncthreads();
-  int run = warp_tot[wid] + x - local;
-  for (int j = lo; j < hi; ++j) {
-    const long long c = (long long)j * dw + s;
-    const int t = block_sums[c];
-    block_sums[c] = run;
-    run += t;
-  }
-}
-
-template <int DWM>
-__global__ void ring_write(int32_t* __restrict__ ring0,
-                           int32_t* __restrict__ ring1,
-                           const int32_t* __restrict__ pay0,
-                           const int32_t* __restrict__ pay1,
-                           const int32_t* __restrict__ wslot,
-                           const uint8_t* __restrict__ valid,
-                           const int32_t* __restrict__ cnt, int m, int dw,
-                           int cap, int w1,
-                           const int32_t* __restrict__ block_sums,
-                           int32_t* __restrict__ adds,
-                           int32_t* __restrict__ lost) {
+__global__ void __launch_bounds__(THREADS)
+ring_append(int32_t* __restrict__ ring0, int32_t* __restrict__ ring1,
+            const int32_t* __restrict__ pay0,
+            const int32_t* __restrict__ pay1,
+            const int32_t* __restrict__ wslot,
+            const uint8_t* __restrict__ valid, int32_t* __restrict__ cnt,
+            long long m, int dw, long long cap, int w1, bool vec4,
+            int32_t* __restrict__ dropped, u64* __restrict__ ws,
+            unsigned epoch) {
   extern __shared__ int smem[];
-  int* warp_pre = smem;             // [WARPS][dw]
-  int* s_adds = smem + WARPS * dw;  // [dw]
-  __shared__ int s_lost;
-  for (int j = threadIdx.x; j < dw; j += THREADS) s_adds[j] = 0;
-  if (threadIdx.x == 0) s_lost = 0;
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  const bool in = i < m;
-  const bool v = in && valid[i] != 0;
-  const int s = in ? clamp_slot(wslot[i], dw) : 0;
-  // Warp-inclusive scan of the one-hot per-slot valid flags, DWM slots at
-  // a time.
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  int incl = 0;
-  for (int g0 = 0; g0 < dw; g0 += DWM) {
-    int val[DWM];
+  const lookback::Slots sl = lookback::carve(smem, dw);
+  __shared__ int s_src[TILE];
+  __shared__ long long s_row[TILE];
+  __shared__ int s_nok;
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  const bool wide = ring1 != nullptr && w1 > 1;
+
+  const long long blk = lookback::ticket(ws, sl, dw, &s_nok);
+  const long long tile0 = blk * TILE;
+
+  // Warp wid takes the tile's lanes [wid * 32 * ITEMS, (wid + 1) * 32 *
+  // ITEMS) in ITEMS rounds of 32, all the loads in flight at once.
+  const long long lane0 = tile0 + wid * (32 * ITEMS) + lane;
+  int slot[ITEMS], rank[ITEMS];
 #pragma unroll
-    for (int d = 0; d < DWM; ++d) val[d] = (v && s == g0 + d) ? 1 : 0;
+  for (int r = 0; r < ITEMS; ++r) {
+    const long long i = lane0 + r * 32;
+    slot[r] = i < m ? wslot[i] : 0;
+    rank[r] = i < m ? (int)valid[i] : 0;
+  }
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
+  for (int r = 0; r < ITEMS; ++r) {
+    slot[r] = clamp_slot(slot[r], dw);
+    rank[r] = rank[r] != 0 ? 0 : -1;
+  }
+  lookback::rank_tile(slot, rank, sl, dw);
+  lookback::look_back(ws, blk, dw, epoch, sl);
+
+  // Positions, the id writes (a flat ring1's too), and a wide ring1's
+  // landed lanes staged for their rows.
 #pragma unroll
-      for (int d = 0; d < DWM; ++d) {
-        const int y = __shfl_up_sync(FULL_MASK, val[d], o);
-        if (lane >= o) val[d] += y;
+  for (int r = 0; r < ITEMS; ++r) {
+    bool ok = false;
+    long long row = 0;
+    if (rank[r] >= 0) {
+      const int s = slot[r];
+      const long long pos = (long long)cnt[s] + sl.aux[s] + rank[r];
+      ok = pos < cap;
+      row = s * cap + pos;
+      if (ok) {
+        const long long i = lane0 + r * 32;
+        ring0[row] = pay0[i];
+        if (ring1 != nullptr && !wide) ring1[row] = pay1[i];
       }
     }
-#pragma unroll
-    for (int d = 0; d < DWM; ++d) {
-      if (lane == 31 && g0 + d < dw) warp_pre[wid * dw + g0 + d] = val[d];
-      if (g0 + d == s) incl = val[d];
-    }
+    if (wide)
+      lookback::stage(ok, (int)(lane0 - tile0) + r * 32, row, &s_nok, s_src,
+                      s_row);
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < dw; j += THREADS) {
-    int run = 0;
-    for (int w = 0; w < WARPS; ++w) {
-      const int t = warp_pre[w * dw + j];
-      warp_pre[w * dw + j] = run;
-      run += t;
-    }
+  if (wide) {
+    __syncthreads();
+    lookback::copy_rows(ring1, pay1, s_src, s_row, s_nok, w1, vec4, tile0);
   }
-  __syncthreads();
-  if (in) {
-    bool ok = false;
-    long long pos = 0;
-    if (v) {
-      pos = (long long)cnt[s] + block_sums[(long long)blockIdx.x * dw + s]
-            + warp_pre[wid * dw + s] + incl - 1;
-      ok = pos < cap;
-      if (ok) atomicAdd(&s_adds[s], 1);
-      else atomicAdd(&s_lost, 1);
-    }
-    const long long flat = ok ? (long long)s * cap + pos : (long long)dw * cap;
-    ring0[flat] = ok ? pay0[i] : 0;
-    if (ring1 != nullptr) {
-      int32_t* row = ring1 + flat * w1;
-      const int32_t* src = pay1 + (long long)i * w1;
-      for (int c = 0; c < w1; ++c) row[c] = ok ? src[c] : 0;
-    }
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < dw; j += THREADS)
-    if (s_adds[j]) atomicAdd(&adds[j], s_adds[j]);
-  if (threadIdx.x == 0 && s_lost) atomicAdd(lost, s_lost);
-}
 
-__global__ void ring_finish(int32_t* __restrict__ cnt,
-                            int32_t* __restrict__ dropped,
-                            const int32_t* __restrict__ adds,
-                            const int32_t* __restrict__ lost, int dw) {
-  for (int j = threadIdx.x; j < dw; j += blockDim.x) cnt[j] += adds[j];
-  if (threadIdx.x == 0) *dropped += *lost;
+  // The last block to finish: counts, the trash cell, the counters.
+  if (!lookback::last_to_finish(ws)) return;
+  const long long landed = lookback::settle(ws, cnt, dropped, dw, cap);
+  if (landed < m) {
+    const long long trash = (long long)dw * cap;
+    if (t == 0) ring0[trash] = 0;
+    if (ring1 != nullptr)
+      for (int c = t; c < w1; c += THREADS) ring1[trash * w1 + c] = 0;
+  }
 }
 
 }  // namespace
 
-// Scratch (zeroed by the caller): block_sums int32[ceil(m/256) * dw], then
-// adds int32[dw], then lost int32[1].  ring1/pay1 may be null (one ring);
-// ring1 rows and pay1 rows hold w1 int32 columns (1: a flat ring).
+// ring1/pay1 may be null (one ring); at m = 0 the inputs pay0, pay1, wslot
+// and valid may be null (an empty tensor's storage).  ring1 rows and pay1
+// rows hold w1 int32 columns (1: a flat ring).  ws is the int64 workspace
+// of at least
+// WS_HEAD + max(1, ceil(m / TILE)) * dw words (ops/deliver.py
+// workspace_words), zeroed when it was made; epoch in [1, EPOCH_MAX), new
+// for every call that uses ws.
 extern "C" int gossip_fused_ring_append(
     void* ring0, void* ring1, const void* pay0, const void* pay1,
     const void* wslot, const void* valid, void* cnt, int m, int dw, int cap,
-    int w1, void* dropped, void* scratch, void* stream) {
-  if (dw < 1 || dw > DW_LIMIT || w1 < 1) return (int)cudaErrorInvalidValue;
-  if ((ring1 == nullptr) != (pay1 == nullptr)) return (int)cudaErrorInvalidValue;
-  if (m <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
-  const int nb = (m + THREADS - 1) / THREADS;
-  int32_t* block_sums = (int32_t*)scratch;
-  int32_t* adds = block_sums + (long long)nb * dw;
-  int32_t* lost = adds + dw;
-  ring_count<<<nb, THREADS, dw * sizeof(int), st>>>(
-      (const int32_t*)wslot, (const uint8_t*)valid, m, dw, block_sums);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ring_scan<<<dw, SCAN_THREADS, 0, st>>>(block_sums, nb, dw);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  auto write = dw <= DW_SMALL ? ring_write<DW_SMALL> : ring_write<DW_GROUP>;
-  write<<<nb, THREADS, (WARPS + 1) * dw * sizeof(int), st>>>(
+    int w1, void* dropped, void* ws, long long ws_words, int epoch,
+    void* stream) {
+  if (dw < 1 || dw > DW_LIMIT || w1 < 1 || m < 0 || cap < 0)
+    return (int)cudaErrorInvalidValue;
+  // An empty batch's payloads may have no storage (a null pointer).
+  if (m > 0 && (ring1 == nullptr) != (pay1 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = lookback::check_ws(m, dw, ws, ws_words, epoch);
+  if (e != cudaSuccess) return (int)e;
+  const long long nb = m > 0 ? ((long long)m + TILE - 1) / TILE : 1;
+  const bool vec4 = ring1 != nullptr && w1 % 4 == 0
+                    && (uintptr_t)ring1 % 16 == 0
+                    && (uintptr_t)pay1 % 16 == 0;
+  const size_t shmem = lookback::slots_bytes(dw);
+  e = allow_smem((const void*)ring_append, shmem);
+  if (e != cudaSuccess) return (int)e;
+  ring_append<<<(unsigned)nb, THREADS, shmem, (cudaStream_t)stream>>>(
       (int32_t*)ring0, (int32_t*)ring1, (const int32_t*)pay0,
       (const int32_t*)pay1, (const int32_t*)wslot, (const uint8_t*)valid,
-      (const int32_t*)cnt, m, dw, cap, w1, block_sums, adds, lost);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ring_finish<<<1, 256, 0, st>>>((int32_t*)cnt, (int32_t*)dropped, adds, lost,
-                                dw);
+      (int32_t*)cnt, m, dw, cap, w1, vec4, (int32_t*)dropped, (u64*)ws,
+      (unsigned)epoch);
   return (int)cudaGetLastError();
 }

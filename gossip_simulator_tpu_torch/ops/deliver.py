@@ -49,7 +49,8 @@ NAME = "fused_unique_set"
 UNIQUE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
                                            ctypes.c_void_p]
 RING_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                 + [ctypes.c_void_p] * 3)
+                 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_void_p])
 CHUNK_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p, ctypes.c_longlong]
                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
@@ -165,49 +166,115 @@ def ring_append_plain(rings, cnt, dropped, payloads, wslot, valid, dw: int,
     return rings, cnt, dropped
 
 
-def _ring_launch(rings, cnt, dropped, payloads, wslot, valid, dw, cap):
-    dev = wslot.device
+# The single-pass appends (fused_ring_append, megakernel.fused_recv_land;
+# csrc/lookback.cuh): lanes a block, the workspace's head words (the
+# counters and fused_recv_land's sup sums) and the look-back epochs' range.
+APPEND_TILE = 2048
+APPEND_WS_HEAD = 1 + RING_SLOTS_MAX // 2
+APPEND_EPOCH_MAX = 1 << 30
+# (card index, raw stream) -> [int64 workspace, last epoch]: both kernels'
+# look-back state and counters, kept across calls on one stream (calls on
+# one stream run in order; two streams never share one).
+_WS: dict = {}
+
+
+def workspace_words(m: int, dw: int) -> int:
+    """int64 words of a single-pass append's workspace for m lanes: the head
+    and one look-back word per (block, slot)."""
+    return APPEND_WS_HEAD + max(1, -(-m // APPEND_TILE)) * dw
+
+
+def workspace(dev, stream: int, words: int):
+    """The workspace of (card, stream), grown (zeroed) to `words`, and the
+    call's epoch: the last one plus 1, back to 1 with the workspace zeroed
+    once it reaches APPEND_EPOCH_MAX (a look-back word of an old epoch must
+    never read as this call's)."""
+    ws = _WS.get((dev.index, stream))
+    if ws is None or ws[0].numel() < words:
+        ws = _WS[dev.index, stream] = [
+            torch.zeros(words, dtype=I64, device=dev), 0]
+    ws[1] += 1
+    if ws[1] >= APPEND_EPOCH_MAX:
+        ws[0].zero_()
+        ws[1] = 1
+    return ws[0], ws[1]
+
+
+def _ring_check(rings, cnt, dropped, payloads, wslot, valid, dw, cap) -> int:
+    """Raise on what the kernel does not take, in attribute reads of a few
+    tenths of a microsecond each (the overlay's call is short: its host
+    path is most of its time); returns the companion ring's columns (1
+    when flat or absent)."""
+    card = wslot.get_device()
     m = wslot.shape[0]
     if not 1 <= dw <= RING_SLOTS_MAX:
         raise ValueError(f"{RING}: dw={dw} outside the kernel's "
                          f"1..{RING_SLOTS_MAX}")
-    if len(rings) not in (1, 2):
-        raise ValueError(f"{RING}: the kernel takes one or two rings, got "
-                         f"{len(rings)}")
+    if len(rings) not in (1, 2) or len(payloads) != len(rings):
+        raise ValueError(f"{RING}: the kernel takes one or two rings and "
+                         f"their payloads, got {len(rings)} and "
+                         f"{len(payloads)}")
     w1 = 1
     for i, (r, p) in enumerate(zip(rings, payloads)):
-        # The id ring is flat; the companion ring may carry W columns.
-        dim = r.dim() if i == 1 else 1
-        _need(RING, r, f"ring{i}", I32, dev, dim=dim)
-        _need(RING, p, f"payload{i}", I32, dev, dim=dim)
-        if dim == 2:
+        if r.dtype is not I32 or p.dtype is not I32 or r.ndim != p.ndim:
+            raise TypeError(f"{RING}: ring{i} and payload{i} must be int32 "
+                            f"of one rank, got {r.dtype} {tuple(r.shape)}, "
+                            f"{p.dtype} {tuple(p.shape)}")
+        if r.get_device() != card or p.get_device() != card:
+            raise ValueError(f"{RING}: ring{i} on {r.device}, payload{i} on "
+                             f"{p.device}, not {wslot.device}")
+        if not r.is_contiguous():
+            raise ValueError(f"{RING}: ring{i} must be contiguous")
+        rows, lanes = r.shape[0], p.shape[0]
+        if r.ndim == 2:
             w1 = r.shape[1]
-            if p.shape[1] != w1:
+            if p.shape[1] != w1 or w1 < 1:
                 raise ValueError(f"{RING}: ring1 of {w1} columns and its "
                                  f"payload of {p.shape[1]} differ")
-        if r.shape[0] < dw * cap + 1 or p.shape[0] != m:
-            raise ValueError(f"{RING}: ring{i} of {r.shape[0]} rows / "
-                             f"payload of {p.shape[0]} lanes do not fit "
-                             f"dw*cap + 1 = {dw * cap + 1} / m = {m}")
-    _need(RING, wslot, "wslot", I32, dev)
-    _need(RING, valid, "valid", torch.bool, dev)
-    _need(RING, cnt, "cnt", I32, dev, dim=2)
-    _need(RING, dropped, "dropped", I32, dev, dim=0)
-    if cnt.shape != (1, dw):
-        raise ValueError(f"{RING}: cnt must be (1, {dw}), got "
-                         f"{tuple(cnt.shape)}")
-    fn = _build.function(RING, "gossip_fused_ring_append", RING_ARGTYPES)
-    nb = (m + 255) // 256
-    # Per-block per-slot sums, then the adds[dw] and lost cells: one
-    # allocation per call.
-    scratch = torch.zeros(max(nb, 1) * dw + dw + 1, dtype=I32, device=dev)
-    ring1 = rings[1].data_ptr() if len(rings) == 2 else None
-    pay1 = payloads[1].data_ptr() if len(rings) == 2 else None
+        if rows < dw * cap + 1 or lanes != m:
+            raise ValueError(f"{RING}: ring{i} of {rows} rows / payload of "
+                             f"{lanes} lanes do not fit dw*cap + 1 = "
+                             f"{dw * cap + 1} / m = {m}")
+    if wslot.dtype is not I32 or wslot.ndim != 1 \
+            or valid.dtype is not torch.bool or valid.ndim != 1 \
+            or valid.shape[0] != m or valid.get_device() != card:
+        raise TypeError(f"{RING}: wslot must be int32 (m,) and valid bool "
+                        f"(m,) on one device, got {wslot.dtype} "
+                        f"{tuple(wslot.shape)}, {valid.dtype} "
+                        f"{tuple(valid.shape)} on {valid.device}")
+    if cnt.dtype is not I32 or cnt.shape != (1, dw) \
+            or cnt.get_device() != card or not cnt.is_contiguous():
+        raise ValueError(f"{RING}: cnt must be contiguous int32 (1, {dw}) "
+                         f"on {wslot.device}, got {cnt.dtype} "
+                         f"{tuple(cnt.shape)} on {cnt.device}")
+    if dropped.dtype is not I32 or dropped.ndim != 0 \
+            or dropped.get_device() != card:
+        raise ValueError(f"{RING}: dropped must be a 0-d int32 on "
+                         f"{wslot.device}, got {dropped.dtype} "
+                         f"{tuple(dropped.shape)} on {dropped.device}")
+    return w1
+
+
+@functools.cache
+def _ring_fn():
+    """fused_ring_append's typed C entry point, held once it is built."""
+    return _build.function(RING, "gossip_fused_ring_append", RING_ARGTYPES)
+
+
+def _ring_launch(rings, cnt, dropped, payloads, wslot, valid, dw, cap):
+    w1 = _ring_check(rings, cnt, dropped, payloads, wslot, valid, dw, cap)
+    m = wslot.shape[0]
+    stream = _stream(wslot.device.index)
+    ws, epoch = workspace(wslot.device, stream, workspace_words(m, dw))
+    two = len(rings) == 2
+    fn = _ring_fn()
     _build.count_launch(RING)
-    rc = fn(rings[0].data_ptr(), ring1, payloads[0].data_ptr(), pay1,
+    rc = fn(rings[0].data_ptr(), rings[1].data_ptr() if two else None,
+            payloads[0].data_ptr(), payloads[1].data_ptr() if two else None,
             wslot.data_ptr(), valid.data_ptr(), cnt.data_ptr(), m, dw, cap,
-            w1, dropped.data_ptr(), scratch.data_ptr(), _stream(dev.index))
-    _build.check(rc, RING)
+            w1, dropped.data_ptr(), ws.data_ptr(), ws.numel(), epoch, stream)
+    if rc:
+        _build.check(rc, RING)
     return rings, cnt, dropped
 
 

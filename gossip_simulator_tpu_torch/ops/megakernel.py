@@ -449,37 +449,8 @@ RECV = "fused_recv_land"
 RECV_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                  + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                             ctypes.c_void_p])
-# csrc/fused_recv_land.cu: lanes a block, the workspace's head words (the
-# counters and sup sums) and the look-back epochs' range.
-RECV_TILE = 2048
-RECV_WS_HEAD = 1 + RING_SLOTS_MAX // 2
-RECV_EPOCH_MAX = 1 << 30
-# (card index, raw stream) -> [int64 workspace, last epoch]: the kernel's
-# look-back state and counters, kept across calls on one stream (calls on
-# one stream run in order; two streams never share one).
-_RECV_WS: dict = {}
-
-
-def recv_workspace_words(m: int, dw: int) -> int:
-    """int64 words of fused_recv_land's workspace for m lanes: the head and
-    one look-back word per (block, slot)."""
-    return RECV_WS_HEAD + max(1, -(-m // RECV_TILE)) * dw
-
-
-def _recv_workspace(dev, stream: int, words: int):
-    """The workspace of (card, stream), grown (zeroed) to `words`, and the
-    call's epoch: the last one plus 1, back to 1 with the workspace zeroed
-    once it reaches RECV_EPOCH_MAX (a look-back word of an old epoch must
-    never read as this call's)."""
-    ws = _RECV_WS.get((dev.index, stream))
-    if ws is None or ws[0].numel() < words:
-        ws = _RECV_WS[dev.index, stream] = [
-            torch.zeros(words, dtype=torch.int64, device=dev), 0]
-    ws[1] += 1
-    if ws[1] >= RECV_EPOCH_MAX:
-        ws[0].zero_()
-        ws[1] = 1
-    return ws[0], ws[1]
+# The workspace and epochs: deliver.workspace, shared with fused_ring_append
+# (csrc/lookback.cuh).
 
 
 def recv_decode(recv, *, dw: int, b: int, flags=None,
@@ -585,7 +556,7 @@ def _recv_launch(mail_ids, mail_cnt, dropped, recv, dw, cap, b, words,
     dev = recv.device
     m = recv.shape[0]
     stream = deliver._stream(dev.index)
-    ws, epoch = _recv_workspace(dev, stream, recv_workspace_words(m, dw))
+    ws, epoch = deliver.workspace(dev, stream, deliver.workspace_words(m, dw))
     sup = torch.empty(dw, dtype=I32, device=dev)
     fn = _recv_fn()
     _build.count_launch(RECV)

@@ -78,18 +78,19 @@ EMIT_CASES = {
 
 
 def _ring_inputs(seed, *, m=300, dw=3, cap=200, base_hi=None, rings=2,
-                 dead=0.2, width=None):
+                 dead=0.2, width=None, base_lo=0):
     """Numpy inputs of one fused_ring_append call (test_torch_overlay.py
-    shares them): random rings, base counts, slots and dead lanes.  With
-    `width` the second ring is wide, (dw*cap + 1, width) with (m, width)
-    payload rows (PushSum's mass ring)."""
+    shares them): random rings, base counts in [base_lo, base_hi), slots
+    and dead lanes.  With `width` the second ring is wide, (dw*cap + 1,
+    width) with (m, width) payload rows (PushSum's mass ring)."""
     rng = np.random.default_rng(seed)
     cols = [() if width is None or i == 0 else (width,)
             for i in range(rings)]
     d = dict(
         rings=[rng.integers(0, 1000, (dw * cap + 1,) + w).astype(np.int32)
                for w in cols],
-        cnt=rng.integers(0, base_hi or cap // 2, (1, dw)).astype(np.int32),
+        cnt=rng.integers(base_lo, base_hi or cap // 2, (1, dw)).astype(
+            np.int32),
         pays=[rng.integers(0, 10**6, (m,) + w).astype(np.int32)
               for w in cols],
         wslot=rng.integers(0, dw, m).astype(np.int32),
@@ -301,12 +302,13 @@ def _spill_step(fn, d, kw, rank_major, dev):
 
 
 def _deposit_inputs(seed, *, b=3, n=500, k=4, rows=None, r=5, valid=0.7,
-                    vals_hi=4):
+                    vals_hi=4, slots_out=0.0):
     """Numpy inputs of the ring engine's deposits: a (b, n) ring and its
     (b, n, r) rumor ring, m = rows * k lanes (row-major by sender) with
-    slots in [0, b), the invalid lanes at dst = n, each sender's new-rumor
-    bits, and an int32 (m, r) value matrix for fused_deposit_rows, a third
-    of it zero; `vals_hi` past 2**30 makes the adds wrap."""
+    slots in [0, b) (a `slots_out` share at -1 or b), the invalid lanes at
+    dst = n, each sender's new-rumor bits, and an int32 (m, r) value matrix
+    for fused_deposit_rows, a third of it zero; `vals_hi` past 2**30 makes
+    the adds wrap."""
     rng = np.random.default_rng(seed)
     rows = n if rows is None else rows
     m = rows * k
@@ -314,10 +316,13 @@ def _deposit_inputs(seed, *, b=3, n=500, k=4, rows=None, r=5, valid=0.7,
     dst = rng.integers(0, n, m).astype(np.int32)
     vals = rng.integers(-vals_hi, vals_hi, (m, r)).astype(np.int32)
     vals[rng.random((m, r)) < 0.33] = 0
+    slots = rng.integers(0, b, m).astype(np.int32)
+    out = rng.random(m) < slots_out
+    slots[out] = np.where(rng.random(int(out.sum())) < 0.5, -1, b)
     return dict(
         pending=rng.integers(0, 5, (b, n)).astype(np.int32),
         prum=rng.integers(0, 5, (b, n, r)).astype(np.int32),
-        slots=rng.integers(0, b, m).astype(np.int32),
+        slots=slots,
         dst=dst, valid=ok, dst_n=np.where(ok, dst, n).astype(np.int32),
         newbits=rng.random((rows, r)) < 0.4, vals=vals)
 
@@ -404,7 +409,22 @@ RING_CASES = {
     "dw40": dict(dw=40, m=3000, cap=300),
     "dw40_mass_w12": dict(dw=40, width=12, m=5000, cap=200, base_hi=150),
     "dw1024": dict(dw=1024, m=50_000, cap=100),
+    # Every lane invalid; every lane past its slot's capacity (a count at
+    # or above cap); no lane, one, and one past a 2048-lane block.
+    "all_invalid": dict(dead=1.0, width=12),
+    "all_overflow": dict(cap=50, base_lo=50, base_hi=60, width=12),
+    "m0": dict(m=0), "m0_wide": dict(m=0, width=12),
+    "m1": dict(m=1, width=12), "m2049": dict(m=2049, width=12),
+    "m2049_all_land": dict(m=2049, dead=0.0, cap=5000, width=8),
 }
+# The slot counts and row widths the port's rings take: dw 1 (one delay),
+# 3 (the default), 40, 512 (slot counts whose shared memory passes 48 KB
+# only with the static staging list) and the limit; one column (a 2-D ring
+# of one) and PushSum's 8, 12 and 36 limbs.  Slots fill and some overflow.
+for _dw in (1, 3, 40, 512, 1024):
+    for _w1 in (1, 8, 12, 36):
+        RING_CASES[f"dw{_dw}_w{_w1}"] = dict(
+            dw=_dw, width=_w1, m=5000, cap=2 * 5000 // _dw + 5)
 
 
 @pytest.mark.parametrize("case", sorted(RING_CASES))
@@ -415,6 +435,109 @@ def test_fused_ring_append_kernel_matches_plain_on_card(case):
     got = _ring_append(deliver.fused_ring_append, d, kw, dev)
     for w, g in zip(want, got):
         assert torch.equal(w, g)
+
+
+def _on_card(d, dev):
+    """fused_ring_append's arguments on the card (rings and counts fresh)."""
+    return [tuple(T(r.copy()).to(dev) for r in d["rings"]),
+            T(d["cnt"].copy()).to(dev),
+            torch.tensor(3, dtype=torch.int32, device=dev),
+            tuple(T(p).to(dev) for p in d["pays"]), T(d["wslot"]).to(dev),
+            T(d["valid"]).to(dev)]
+
+
+def _same_as_plain(d, kw, a):
+    want = _ring_append(deliver.ring_append_plain, d, kw, torch.device("cpu"))
+    got = [r.cpu() for r in a[0]] + [a[1].cpu(), a[2].cpu()]
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+
+
+def test_fused_ring_append_epoch_wrap_matches_plain_on_card():
+    """The call that takes the stream's epoch past APPEND_EPOCH_MAX - 1
+    zeroes the workspace and starts at 1: look-back words left by the last
+    cycle (here epoch 1, published, a wrong count) are never read as its
+    own; the next call (epoch 2) is right too."""
+    dev = _card()
+    cases = [_ring_inputs(seed, m=20_000, cap=9000, width=12)
+             for seed in (31, 32)]
+    card = torch.device("cuda", torch.cuda.current_device())
+    stream = deliver._stream(card.index)
+    words = deliver.workspace_words(20_000, 3)
+    ws, _ = deliver.workspace(card, stream, words)
+    stale = ((1 << 2 | 2) << 32) | 12345  # epoch 1, flag P, count 12345
+    ws.fill_(stale)
+    ws[0] = 0  # the counters as every call leaves them
+    ws[1:deliver.APPEND_WS_HEAD] = 0
+    deliver._WS[card.index, stream][1] = deliver.APPEND_EPOCH_MAX - 1
+    for d, kw in cases:
+        a = _on_card(d, card)
+        deliver.fused_ring_append(*a, **kw)
+        _same_as_plain(d, kw, a)
+    assert deliver._WS[card.index, stream][1] == 2
+
+
+@pytest.mark.parametrize("streams", (1, 2))
+def test_fused_ring_append_calls_in_flight_match_plain_on_card(streams):
+    """Calls enqueued back to back with no synchronise between them, on one
+    stream (one workspace: the counters left at 0, a new epoch a call) or
+    on two streams (a workspace each), flat and wide, each on its own
+    rings, against the plain version call by call."""
+    dev = _card()
+    cases = [_ring_inputs(seed, m=30_000, cap=12_000,
+                          width=12 if seed % 2 else None)
+             for seed in (41, 42, 43, 44)]
+    cuda = [torch.cuda.current_stream(dev)] + [
+        torch.cuda.Stream(dev) for _ in range(streams - 1)]
+    args = [_on_card(d, dev) for d, _ in cases]
+    torch.cuda.synchronize()
+    for k, ((d, kw), a) in enumerate(zip(cases, args)):
+        st = cuda[k % streams]
+        st.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(st):
+            deliver.fused_ring_append(*a, **kw)
+    torch.cuda.synchronize()
+    for (d, kw), a in zip(cases, args):
+        _same_as_plain(d, kw, a)
+
+
+def test_ring_append_and_recv_land_interleaved_match_plain_on_card():
+    """fused_ring_append and fused_recv_land take one workspace per stream:
+    calls of both, interleaved on one stream with no synchronise between
+    them (epochs 1, 2, 3, ... whichever kernel runs), each against its
+    plain version."""
+    dev = _card()
+    rings = [_ring_inputs(seed, m=25_000, cap=10_000,
+                          width=12 if seed % 2 else None)
+             for seed in (51, 52, 53)]
+    recvs = [_recv_inputs(seed, sources=8, rcap=3000, fill=2500, cap=8000,
+                          width=12 if seed % 2 else None)
+             for seed in (54, 55, 56)]
+    ring_args = [_on_card(d, dev) for d, _ in rings]
+    recv_args = []
+    for d, _ in recvs:
+        recv_args.append(dict(
+            ring=T(d["ring"].copy()).to(dev), cnt=T(d["cnt"].copy()).to(dev),
+            dropped=torch.tensor(3, dtype=torch.int32, device=dev),
+            recv=T(d["recv"]).to(dev),
+            words=T(d["words"]).to(dev) if "words" in d else None,
+            mail_words=(T(d["mail_words"].copy()).to(dev) if "words" in d
+                        else None)))
+    torch.cuda.synchronize()
+    outs = []
+    for (d, kw), a, (dr, kwr), b in zip(rings, ring_args, recvs, recv_args):
+        deliver.fused_ring_append(*a, **kw)
+        outs.append(megakernel.fused_recv_land(
+            b["ring"], b["cnt"], b["dropped"], b["recv"], words=b["words"],
+            mail_words=b["mail_words"], **kwr))
+    torch.cuda.synchronize()
+    for (d, kw), a in zip(rings, ring_args):
+        _same_as_plain(d, kw, a)
+    for (dr, kwr), out in zip(recvs, outs):
+        want = _recv_land(megakernel.recv_land_plain, dr, kwr,
+                          torch.device("cpu"))
+        for x, y in zip(want, out):
+            assert torch.equal(x, y.cpu())
 
 
 # nk*cap + 1 just under 2**31 at cap 8: 28-bit keys, the flat limit.
@@ -610,6 +733,18 @@ DEPOSIT_CASES = {
     "wide": dict(b=20, n=100_000, k=6, rows=50_000, r=16),
     "wrap": dict(r=8, vals_hi=2**31 - 1),
     "all_invalid": dict(valid=0.0),
+    # The row widths the warp-compacted deposit serves differently: one
+    # word a thread (1, 17, 33), 16-byte pieces (12: PushSum's limbs, three
+    # threads a lane; 16: four), a warp looping over a row (1024); lanes
+    # with slots out of range; every lane out of range; negative values
+    # that wrap.
+    "r1": dict(r=1, n=700, k=6), "r12": dict(r=12, n=700, k=6),
+    "r17": dict(r=17, n=300, k=5),
+    "r12_pushsum_chunk": dict(b=1, n=20_000, k=1, rows=30_000, r=12,
+                              valid=1.0, vals_hi=2**16),
+    "r16_slots_out": dict(r=16, slots_out=0.3),
+    "r12_all_out": dict(r=12, valid=0.0, slots_out=1.0),
+    "r12_wrap": dict(r=12, vals_hi=2**31 - 1),
 }
 DEPOSIT_FNS = {
     "add": (deliver.deposit_add_plain, deliver.fused_deposit_add),
@@ -633,6 +768,24 @@ def test_fused_deposit_kernels_match_plain_on_card(case, kind):
         assert torch.equal(w, g)
 
 
+def test_fused_deposit_rows_unaligned_vals_match_plain_on_card():
+    """Value rows that start off a 16-byte boundary (a contiguous view one
+    word into its storage) take the word path at w = 12 and 16."""
+    dev = _card()
+    for r in (12, 16):
+        d = _deposit_inputs(23, r=r, n=700, k=6)
+        m = d["vals"].shape[0]
+        flat = torch.zeros(m * r + 1, dtype=torch.int32, device=dev)
+        vals = flat[1:].view(m, r)
+        vals.copy_(T(d["vals"]))
+        want = _deposit("rows", deliver.deposit_rows_plain, d,
+                        torch.device("cpu"))
+        got = deliver.fused_deposit_rows(
+            T(d["prum"].copy()).to(dev), T(d["slots"]).to(dev),
+            T(d["dst_n"]).to(dev), vals)
+        assert torch.equal(want[0], got.cpu())
+
+
 RECV_CASES = {
     "plain": dict(), "dup": dict(flags=True),
     "overflow": dict(cap=60, base_hi=50), "dup_overflow": dict(
@@ -642,6 +795,8 @@ RECV_CASES = {
         width=36, cap=80, base_hi=60),
     "dw40": dict(dw=40, cap=50), "dw1024": dict(dw=1024, cap=3, n=40,
                                                 rcap=2000, fill=1500),
+    # Dynamic shared memory under 48 KB, past it with the static list.
+    "dw512": dict(dw=512, cap=6, n=40, rcap=2000, fill=1500),
     "wide": dict(sources=8, rcap=25_831, fill=24_576, n=1_250_000,
                  cap=3_750_000, flags=True),
     # PushSum's window: 12 word columns, a tenth of each bucket live.
@@ -655,6 +810,8 @@ RECV_CASES = {
     "dw40_words": dict(dw=40, cap=50, width=12, flags=True),
     "dw1024_words": dict(dw=1024, cap=3, n=40, rcap=2000, fill=1500,
                          width=12),
+    "dw512_words": dict(dw=512, cap=6, n=40, rcap=2000, fill=1500,
+                        width=12),
 }
 
 

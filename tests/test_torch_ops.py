@@ -401,11 +401,15 @@ def test_unique_set_launch_takes_lanes_and_raw_stream(monkeypatch):
 
 
 def _source_defines(name):
-    """The integer #defines of csrc/<name>.cu, products of two integers
-    (``(220 * 1024)``) and shifts (``(1 << 30)``) evaluated."""
+    """The integer #defines of csrc/<name>.cu (or of the header csrc/<name>
+    when it names one), products of two integers (``(220 * 1024)``) and
+    shifts (``(1 << 30)``) evaluated."""
+    import os
     import re
 
-    src = open(_build._target(name)[0]).read()
+    path = (os.path.join(_build.CSRC, name) if name.endswith(".cuh")
+            else _build._target(name)[0])
+    src = open(path).read()
     out = {}
     for key, a, op, b in re.findall(
             r"^#define (\w+) \(?(\d+)(?: (\*|<<) (\d+)\))?", src, re.M):
@@ -424,11 +428,36 @@ def test_drain_and_recv_constants_match_the_sources():
     assert megakernel.DRAIN_TILE_MAX == d["TILE_SMEM_MAX"]
     assert -(-megakernel.DRAIN_PART_MAX // megakernel.DRAIN_COARSE) \
         <= megakernel.DRAIN_STAGE_MAX
-    r = _source_defines("fused_recv_land")
-    assert megakernel.RECV_TILE == r["THREADS"] * r["ITEMS"]
-    assert megakernel.RECV_WS_HEAD == 1 + r["DW_LIMIT"] // 2
-    assert megakernel.RECV_EPOCH_MAX == r["EPOCH_MAX"]
+    r = _source_defines("lookback.cuh")
+    assert deliver.APPEND_TILE == r["THREADS"] * r["ITEMS"]
+    assert deliver.APPEND_WS_HEAD == 1 + r["DW_LIMIT"] // 2
+    assert deliver.APPEND_EPOCH_MAX == r["EPOCH_MAX"]
     assert r["DW_LIMIT"] == deliver.RING_SLOTS_MAX
+    # Both single-pass appends take the shared header's layout, and define
+    # none of their own.
+    for name in ("fused_recv_land", "fused_ring_append"):
+        src = open(_build._target(name)[0]).read()
+        assert '#include "lookback.cuh"' in src
+        assert not set(_source_defines(name)) & set(r), name
+
+
+def test_dynamic_shared_memory_goes_through_one_allow_smem():
+    """A launch gets 48 KB of shared memory less its kernel's static shared
+    memory unless the attribute is set: the kernels that take dynamic
+    shared memory past that set it through csrc/smem.cuh's allow_smem
+    (lookback.cuh includes it) and keep no copy of their own."""
+    import os
+
+    with open(os.path.join(_build.CSRC, "smem.cuh")) as f:
+        assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in f.read()
+    with open(os.path.join(_build.CSRC, "lookback.cuh")) as f:
+        hdr = f.read()
+    assert '#include "smem.cuh"' in hdr and "cudaFuncSetAttribute" not in hdr
+    for name in ("fused_drain_sum", "fused_recv_land", "fused_ring_append"):
+        with open(_build._target(name)[0]) as f:
+            src = f.read()
+        assert "allow_smem((const void*)" in src, name
+        assert "cudaFuncSetAttribute" not in src, name
 
 
 @pytest.mark.parametrize("c", (8, 12, 36))
@@ -542,11 +571,11 @@ def test_drain_scratch_grows_with_cap_not_n(monkeypatch):
 
 def test_recv_launch_keeps_a_workspace_per_stream(monkeypatch):
     """fused_recv_land's launch path keeps one zeroed int64 workspace per
-    (card, stream) of recv_workspace_words(m, dw) words or more, grows it
+    (card, stream) of workspace_words(m, dw) words or more, grows it
     when a call needs more, passes the raw stream and a new epoch each
     call (1, 2, ... on each stream; from 1 again in a grown workspace,
     which is new and zeroed), and when the epoch reaches
-    RECV_EPOCH_MAX zeroes the workspace and starts again at 1 (no old
+    APPEND_EPOCH_MAX zeroes the workspace and starts again at 1 (no old
     look-back word can read as the new call's); sup comes from
     torch.empty.  CPU tensors, the C entry point replaced by a recorder,
     the stream handle set by the test."""
@@ -560,7 +589,7 @@ def test_recv_launch_keeps_a_workspace_per_stream(monkeypatch):
                         lambda: built.append(1) or entry)
     monkeypatch.setattr(megakernel._build, "LAUNCHES",
                         dict(_build.LAUNCHES))
-    monkeypatch.setattr(megakernel, "_RECV_WS", {})
+    monkeypatch.setattr(deliver, "_WS", {})
     stream = [11]
     monkeypatch.setattr(deliver, "_stream", lambda index: stream[0])
     d, kw = _recv_inputs(5)
@@ -576,9 +605,9 @@ def test_recv_launch_keeps_a_workspace_per_stream(monkeypatch):
 
     ws, words, epoch, st = launch(1200)
     assert (epoch, st) == (1, 11)
-    table = megakernel._RECV_WS
+    table = deliver._WS
     key = (torch.device("cpu").index, 11)
-    assert words == table[key][0].numel() >= megakernel.recv_workspace_words(
+    assert words == table[key][0].numel() >= deliver.workspace_words(
         1200, kw["dw"])
     assert ws == table[key][0].data_ptr()
     assert table[key][0].dtype == torch.int64
@@ -589,17 +618,94 @@ def test_recv_launch_keeps_a_workspace_per_stream(monkeypatch):
     ws2, _, e2, st2 = launch(1200)
     assert (e2, st2) == (1, 12) and ws2 != ws
     stream[0] = 11
-    big = megakernel.RECV_TILE * 40
+    big = deliver.APPEND_TILE * 40
     _, words_big, e3, _ = launch(big)  # grown: a new zeroed workspace
-    assert words_big >= megakernel.recv_workspace_words(big, kw["dw"])
+    assert words_big >= deliver.workspace_words(big, kw["dw"])
     assert e3 == 1
     table[key][0].fill_(7)  # stale look-back words
-    table[key][1] = megakernel.RECV_EPOCH_MAX - 1
+    table[key][1] = deliver.APPEND_EPOCH_MAX - 1
     _, _, e4, _ = launch(big)
     assert e4 == 1 and int(table[key][0].abs().sum()) == 0
     assert launch(big)[2] == 2
     assert megakernel._build.LAUNCHES[megakernel.RECV] == 9
     assert len(built) == 9  # the typed entry point, held by _recv_fn
+
+
+@pytest.mark.parametrize("m,dw,blocks", (
+    (0, 3, 1), (1, 3, 1), (2048, 3, 1), (2049, 3, 2), (262_144, 3, 128),
+    (60_000_000, 3, 29_297), (50_000, 1024, 25)))
+def test_append_workspace_words_cover_the_look_back(m, dw, blocks):
+    """A single-pass append of m lanes runs ceil(m / APPEND_TILE) blocks
+    (one for m = 0) and takes the head and a look-back word per (block,
+    slot): at the overlay's batch, 128 blocks; at PushSum's window,
+    29,297."""
+    assert deliver.workspace_words(m, dw) == (deliver.APPEND_WS_HEAD
+                                              + blocks * dw)
+
+
+def test_ring_launch_shares_the_workspace_and_allocates_nothing(
+        monkeypatch):
+    """fused_ring_append's launch path is one C call a call with no
+    per-call allocation: it takes the (card, stream) workspace that
+    fused_recv_land uses too, a new epoch each call whichever of the two
+    kernels made the last one, passes the companion ring's columns (1 flat
+    or absent, W wide) and counts one launch; at APPEND_EPOCH_MAX the
+    epoch starts again at 1 on a zeroed workspace.  CPU tensors, both C
+    entry points replaced by recorders."""
+    calls = []
+
+    def entry(kind):
+        def fn(*args):
+            calls.append((kind, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(deliver, "_ring_fn", lambda: entry("ring"))
+    monkeypatch.setattr(megakernel, "_recv_fn", lambda: entry("recv"))
+    monkeypatch.setattr(deliver._build, "LAUNCHES", dict(_build.LAUNCHES))
+    monkeypatch.setattr(deliver, "_WS", {})
+    monkeypatch.setattr(deliver, "_stream", lambda index: 5)
+    allocs = []
+    for name in ("empty", "zeros", "full", "zeros_like", "empty_like"):
+        def record(*a, _real=getattr(torch, name), _name=name, **kw):
+            allocs.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(torch, name, record)
+
+    def ring_call(width, m=300):
+        d, kw = _ring_inputs(3, m=m, width=width)
+        rings = tuple(T(r.copy()) for r in d["rings"])
+        deliver._ring_launch(rings, T(d["cnt"].copy()),
+                             torch.tensor(0, dtype=torch.int32),
+                             tuple(T(p) for p in d["pays"]), T(d["wslot"]),
+                             T(d["valid"]), kw["dw"], kw["cap"])
+        return calls[-1][1]
+
+    a = ring_call(None)  # the first call makes the workspace
+    assert allocs == ["zeros"]
+    allocs.clear()
+    assert a[10] == 1 and a[14] == 1 and a[15] == 5
+    ws = deliver._WS[None, 5][0]
+    assert (a[12], a[13]) == (ws.data_ptr(), ws.numel())
+    assert ws.numel() >= deliver.workspace_words(300, 3)
+    assert ring_call(12)[10] == 12 and calls[-1][1][14] == 2
+    d, kw = _recv_inputs(5)
+    recv = torch.full((600,), -1, dtype=torch.int32)
+    allocs.clear()
+    megakernel._recv_launch(T(d["ring"].copy()), T(d["cnt"].copy()),
+                            torch.tensor(0, dtype=torch.int32), recv,
+                            kw["dw"], kw["cap"], kw["b"], None, None, None, 1)
+    assert calls[-1][0] == "recv" and calls[-1][1][14] == ws.data_ptr()
+    assert calls[-1][1][16] == 3  # the recv call took the next epoch
+    assert allocs == ["empty"]  # recv's sup, nothing of the ring's
+    allocs.clear()
+    assert ring_call(None)[14] == 4 and allocs == []
+    deliver._WS[None, 5][1] = deliver.APPEND_EPOCH_MAX - 1
+    ws.fill_(7)
+    a = ring_call(None)
+    assert a[14] == 1 and int(ws.abs().sum()) == 0
+    assert deliver._build.LAUNCHES[deliver.RING] == 4
+    assert [k for k, _ in calls] == ["ring", "ring", "recv", "ring", "ring"]
 
 
 def test_unported_inputs_raise():
