@@ -60,8 +60,12 @@ Phases, each printing its own line:
               enqueue one fused_unique_set and fused_chunk_step call on an
               idle card is printed ("host" lines, with index_put_'s and
               the parts of the unique_set wrapper, and those of the
-              fused_ring_append (main, wide) and fused_deposit_rows
-              (rumors) wrappers);
+              fused_ring_append (main, wide), fused_emit (overlay, si),
+              fused_deposit_rows (rumors) and fused_deposit_both
+              wrappers), and fused_emit's two forms (a thread and eight
+              threads a sender row) are profiled at each shape
+              ("forms" lines, device ms per call: ops/megakernel.py
+              emit_group's measurement);
 4. twins   -- n = 20,000 runs on cuda and on cpu must give identical
               transcripts and final state leaves, and launch their
               kernels (every kout table through kout_pallas, under every
@@ -178,6 +182,9 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+# Integer atomic adds a second through L2 at random cells, as measured on
+# the card (PERF.md section 6): the floor of the deposits' adds.
+L2_ATOMICS_PER_S = 1.2e11
 # Instruction rates of the 132 SMs at the 1.98 GHz boost clock: the
 # integer ALU pipe (shifts, rotates, logic) has 64 lanes an SM; every
 # instruction of any pipe dispatches at one warp instruction per SM
@@ -399,12 +406,14 @@ def emit_case(gen, dev, n, m, k, dw, cap, b, ring_len, *, dup, sir, base_hi,
     return case, kw
 
 
-def emit_bytes(m, k, kw_lanes, dup, sir,
-               written=None) -> tuple[float, float]:
-    """The call's bytes and instructions; the ring writes are m * kw_lanes
-    entries, or `written` (the entries this call's data appends)."""
+def emit_bytes(m, k, kw_lanes, dup, sir) -> tuple[float, float]:
+    """The call's bytes and instructions: every one of the m * kw_lanes
+    lanes is stored once, a kept lane of a sender that fits at its ring
+    cell and every other lane (0, or an overflowed edge's payload) at its
+    own trash lane, as the serial kernel and the plain version store
+    them."""
     nbytes = m * k * 4 + m * k + m + 4 * m + 4 * m  # sf drop svalid wslot off
-    nbytes += (m * kw_lanes if written is None else written) * 4
+    nbytes += m * kw_lanes * 4
     if dup:
         nbytes += m * k  # one flags byte per edge
     if sir:
@@ -434,6 +443,66 @@ def host_split(label: str, parts: dict) -> None:
     torch.cuda.synchronize()
     say(f"host {label}: " + ", ".join(f"{k} {v:.2f} us"
                                       for k, v in out.items()))
+
+
+def emit_forms(label, ring, args, kw) -> None:
+    """Device ms per call (torch.profiler, DEVICE_REPS calls) of
+    fused_emit's two forms (1 and 8 threads a sender row) on one call's
+    inputs; the wrapper takes megakernel.emit_group(kw) of them."""
+    from gossip_simulator_tpu_torch.ops import megakernel
+
+    opt = dict(tb=None, strig=None, sender_ids=None, flags=None,
+               received_bit=1)
+    opt.update(kw)
+    parts = []
+    for g in (1, 8):
+        split, _ = _profile_split(lambda: megakernel._launch(  # noqa: B023
+            ring, *args, group=g, **opt), DEVICE_REPS)  # noqa: B023
+        parts.append(f"{g} a row " + (f"{sum(split.values()):.4f} ms"
+                                      if split else "not measured"))
+    k = args[1].shape[1] + (kw.get("strig") is not None)
+    say(f"forms fused_emit[{label}]: device " + ", ".join(parts)
+        + f" (the wrapper takes {megakernel.emit_group(k)})")
+
+
+def emit_host(label, ring, args, kw) -> None:
+    """The host time to enqueue one fused_emit call, and its parts: the
+    checks, the workspace with its epoch, the outputs' torch.empty and the
+    ctypes call (a new epoch each call, as the workspace gives)."""
+    from gossip_simulator_tpu_torch.ops import deliver, megakernel
+
+    dev = ring.device
+    mail_cnt, sf, drop, svalid, wslot, off = args
+    m, k = sf.shape
+    dw, cap, b = kw["dw"], kw["cap"], kw["b"]
+    strig, sids, flags = (kw.get(x) for x in ("strig", "sender_ids",
+                                              "flags"))
+    stream = deliver._stream(dev.index)
+    words = deliver.workspace_words(m, dw, megakernel.EMIT_TILE)
+    ws, _ = deliver.workspace(dev, stream, words)
+    entry = deliver._WS[dev.index, stream]
+    out = torch.empty(2 * dw + 1, dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    head = (ring.data_ptr(), mail_cnt.data_ptr(), sf.data_ptr(),
+            drop.data_ptr(), svalid.data_ptr(), wslot.data_ptr(),
+            off.data_ptr(), ptr(flags), 1, ptr(strig), ptr(sids),
+            kw.get("tb") or 0, m, k, dw, cap, b,
+            megakernel.emit_group(k + (strig is not None)), out.data_ptr(),
+            ws.data_ptr(), ws.numel())
+    fn = megakernel._emit_fn()
+
+    def call():
+        entry[1] += 1
+        return fn(*head, entry[1], stream)
+
+    host_split(label, {
+        "wrapper": lambda: megakernel.fused_emit(ring, *args, **kw),
+        "checks": lambda: megakernel._emit_check(ring, *args, dw, cap, flags,
+                                                 strig, sids),
+        "workspace": lambda: deliver.workspace(dev, stream, words),
+        "outputs": lambda: torch.empty(2 * dw + 1, dtype=torch.int32,
+                                       device=dev),
+        "ctypes call": call})
 
 
 def host_enqueue_split(dev, ring, flat, vals) -> None:
@@ -513,6 +582,9 @@ def phase_parity(dev, reps: int) -> dict:
                       reps)
         device_split(f"fused_emit[{name}]",
                      lambda: megakernel.fused_emit(ring_k, *args, **kw))
+        emit_forms(name, ring_k, args, kw)
+        if name in ("overlay", "si"):
+            emit_host(f"fused_emit[{name}]", ring_k, args, kw)
         bnd, by = bound_ms(*emit_bytes(m, k, k + (1 if sir else 0), dup,
                                        sir))
         say(f"fused_emit[{name}]: bit-exact ({100 * pad:.2f}% of sf -1, "
@@ -1042,6 +1114,31 @@ def deposit_host(label, pend, slots, dst, vals) -> None:
                                   vals.contiguous())})
 
 
+def both_host(st, dst, slots, valid, newbits) -> None:
+    """The host time to enqueue one fused_deposit_both call on the kernel's
+    state `st` (pending, pending_rumors), and its parts: the checks, the
+    four .contiguous() calls and the ctypes call."""
+    from gossip_simulator_tpu_torch.ops import _build, deliver, megakernel
+
+    pend, prum = st[0], st[1]
+    k = newbits.shape[0] and dst.shape[0] // newbits.shape[0]
+    fn = _build.function(megakernel.BOTH, "gossip_fused_deposit_both",
+                         megakernel.BOTH_ARGTYPES)
+    b, n = pend.shape
+    head = (pend.data_ptr(), prum.data_ptr(), slots.data_ptr(),
+            dst.data_ptr(), valid.data_ptr(), newbits.data_ptr(),
+            dst.shape[0], b, n, newbits.shape[1], k,
+            deliver._stream(pend.get_device()))
+    host_split("fused_deposit_both", {
+        "wrapper": lambda: megakernel.fused_deposit_both(
+            pend, prum, dst, slots, valid, newbits),
+        "checks": lambda: megakernel._both_check(pend, prum, dst, slots,
+                                                 valid, newbits),
+        "contiguous x4": lambda: (dst.contiguous(), slots.contiguous(),
+                                  valid.contiguous(), newbits.contiguous()),
+        "ctypes call": lambda: fn(*head)})
+
+
 def deposit_parity(dev, gen, reps: int) -> dict:
     """The ring engine's three deposit kernels at the full-size runs'
     shapes, each bit-exact to its plain version and timed beside it, the
@@ -1146,11 +1243,25 @@ def deposit_parity(dev, gen, reps: int) -> dict:
         pr.index_put_((flat_ok,), vals_ok, accumulate=True)
 
     t_l = time_ms(library, reps)
+    both_host(out, dst, slots, ok, newbits)
     # Every lane's valid byte; slot and dst of a valid lane; the bit row
     # of a sender with a valid lane, once.
     senders = int(ok.view(rows, k).any(dim=1).sum())
     bnd, by = bound_ms(m + kept * 8 + senders * r + touched * 8
                        + touched_r * 8, kept * (r + 1))
+    # The adds through L2 atomics: one a kept lane's count, one a set bit;
+    # and the 32-byte sectors they fall in, each read and written once
+    # from device memory (a random 4-byte add moves a whole sector).
+    adds = kept + int(vals[ok].sum())
+    cols = torch.arange(r, device=dev)
+    sectors = (torch.unique(flat[ok] * 4 // 32).numel()
+               + torch.unique((flat[ok, None] * r + cols)[vals[ok] != 0]
+                              * 4 // 32).numel())
+    say(f"fused_deposit_both: {adds} atomic adds, "
+        f"{adds / L2_ATOMICS_PER_S * 1e3:.5f} ms at the L2 atomic rate; "
+        f"{sectors} sectors touched, "
+        f"{sectors * 64 / HBM_BYTES_PER_S * 1e3:.5f} ms to read and "
+        f"write them")
     say(f"fused_deposit_both: bit-exact over {m} lanes x {r} ({kept} "
         f"kept, {senders} senders); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, the two "
         f"index_put_ {t_l:.4f} ms, bound {bnd:.5f} ms ({by})")
@@ -1338,8 +1449,8 @@ def width_parity(dev, gen, reps: int) -> dict:
     erdos1m_wide's own batch (38 lanes a sender, Poisson(12) friend
     counts); fused_ring_append at dw = 40 on 262,144 lanes.  Returns the
     fused_emit row's kw112_* and erdos1m_wide_* columns (time, plain
-    time, bound: the ring writes counted as the entries the data
-    appends); the other times are printed only."""
+    time, bound: every lane's store counted, at its ring cell or its
+    trash lane); the other times are printed only."""
     from gossip_simulator_tpu_torch.config import parse_cli
     from gossip_simulator_tpu_torch.ops import deliver, megakernel
     from gossip_simulator_tpu_torch.ops import overlay_kernel
@@ -1399,8 +1510,9 @@ def width_parity(dev, gen, reps: int) -> dict:
             lambda fn, st: fn(st[0], *args, **kw)[1:],  # noqa: B023
             lambda st: None, reps)
         written = int(out[1].sum())
+        emit_forms(name, ring0, args, kw)
         bnd, by = bound_ms(*emit_bytes(cm, k, k + (1 if sir else 0), False,
-                                       sir, written=written))
+                                       sir))
         say(f"fused_emit[{name}]: bit-exact (m {cm}, k {k}, dw {dw}, "
             f"{'SIR' if sir else 'SI'}, {written} entries written); "
             f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd:.5f} ms "
@@ -2447,7 +2559,7 @@ def _device_events(ka) -> list:
 
 
 PROFILE_KERNELS = (
-    ("fused_emit", ("emit_count", "emit_scan", "emit_write")),
+    ("fused_emit", ("emit",)),
     ("fused_unique_set", ("unique_set_kernel",)),
     ("fused_ring_append", ("ring_append",)),
     ("fused_chunk_step", ("radix_hist", "radix_scan", "radix_scatter",

@@ -45,6 +45,11 @@ class Stepper(abc.ABC):
         """Current counters snapshot (host-side)."""
 
     @abc.abstractmethod
+    def stats_and_inflight(self) -> tuple[Stats, bool]:
+        """``stats()`` and whether any message is still in flight, in one
+        device-to-host read."""
+
+    @abc.abstractmethod
     def sim_time_ms(self) -> float:
         """Simulated milliseconds elapsed in the current phase."""
 

@@ -66,12 +66,12 @@ class ShardedStepper(Stepper):
 
     def gossip_window(self) -> Stats:
         self._window_fn(self.state, self.key)
-        stats, live = self._stats_and_inflight()
+        stats, live = self.stats_and_inflight()
         self.exhausted = not live
         stats.exhausted = self.exhausted
         return stats
 
-    def _stats_and_inflight(self) -> tuple[Stats, bool]:
+    def stats_and_inflight(self) -> tuple[Stats, bool]:
         """All progress-window scalars in ONE device-to-host read: the
         replicated counters from shard 0, removed and in-flight over every
         shard."""
@@ -92,7 +92,7 @@ class ShardedStepper(Stepper):
             exchange_overflow=xo, exhausted=self.exhausted), bool(live)
 
     def stats(self) -> Stats:
-        return self._stats_and_inflight()[0]
+        return self.stats_and_inflight()[0]
 
     def sim_time_ms(self) -> float:
         # A static graph: 0 ms of phase 1 until the broadcast starts.

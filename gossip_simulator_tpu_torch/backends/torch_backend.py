@@ -195,14 +195,14 @@ class TorchStepper(Stepper):
 
     def gossip_window(self) -> Stats:
         self._window_fn(self.state, self.key)
-        stats, live = self._stats_and_inflight()
+        stats, live = self.stats_and_inflight()
         # Push-pull draws fresh peers every round: nothing is ever "in
         # flight", and its wave never dies in the ring.
         self.exhausted = not live and self.cfg.protocol != "pushpull"
         stats.exhausted = self.exhausted
         return stats
 
-    def _stats_and_inflight(self) -> tuple[Stats, bool]:
+    def stats_and_inflight(self) -> tuple[Stats, bool]:
         """All progress-window scalars in ONE device-to-host read."""
         cfg, st = self.cfg, self.state
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -228,7 +228,7 @@ class TorchStepper(Stepper):
             rumor_min_recv=rmin, rumors_done=rdone), bool(live)
 
     def stats(self) -> Stats:
-        return self._stats_and_inflight()[0]
+        return self.stats_and_inflight()[0]
 
     def sim_time_ms(self) -> float:
         if not self._overlay_done:

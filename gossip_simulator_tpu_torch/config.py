@@ -15,8 +15,8 @@ run's transcript matches it byte for byte.
 Every flag of the JAX package's parser is parsed here, and ``validate``
 rejects a value outside the slices by name with the ROADMAP item that
 ports it, e.g. ``-traffic stream ... is not yet ported (ROADMAP A11)``.
-``-telemetry off`` selects the windowed loop, which is the loop the port
-runs under either value.
+``-telemetry on`` (the default) reports phase 2 as the JAX package's
+device loop and replay do, ``-telemetry off`` as its windowed loop.
 
 The engines' tuned constants (``tuning.py``'s registry defaults in the
 JAX package) are copied below as plain constants; the port has no tuning
@@ -169,8 +169,8 @@ class Config:
     pushsum_eps: float = 1e-3  # convergence: max relative error
     # Parsed with the JAX package's spellings and defaults; a value away
     # from its default names the ROADMAP item that ports it
-    # (UNPORTED_FLAGS).  "-telemetry off" selects the windowed loop the
-    # port runs under either value.
+    # (UNPORTED_FLAGS).  "-telemetry" picks which of the JAX package's
+    # phase-2 transcripts the driver reproduces (driver.py).
     telemetry: str = "on"
     telemetry_spatial: str = "off"
     telemetry_summary: bool = False
@@ -747,7 +747,8 @@ def _build_parser() -> argparse.ArgumentParser:
     _flag(p, "exchange-pipeline", dest="exchange_pipeline",
           choices=("auto", "off", "double"), default=d.exchange_pipeline)
     _flag(p, "telemetry", choices=("on", "off"), default=d.telemetry,
-          help="the port runs the windowed loop under either value")
+          help="on: phase 2 reported as the JAX package's device loop "
+               "replays it; off: as its windowed loop")
     _flag(p, "telemetry-spatial", dest="telemetry_spatial",
           choices=("on", "off"), default=d.telemetry_spatial)
     _flag(p, "telemetry-summary", dest="telemetry_summary",

@@ -17,35 +17,30 @@
 // 80 % of the lanes are out of range (a fifth of the rows send), and at
 // PushSum's drain chunk every lane adds 12 limbs through L2 atomics, whose
 // rate (~1.2e11 adds a second) is the floor there.  Design, warp-compacted
-// lanes: each warp loads the slots and dsts of BATCH consecutive lanes,
-// 32 a round with coalesced loads, ballots the in-range ones and lists
-// them (lane, cell offset) in shared memory in lane order; an
-// out-of-range lane costs its two loads and a ballot bit.  Then the warp
-// walks the listed lanes' rows as one run of count * w (lane, column)
-// elements, STAGE at a time: it stages their values in shared memory,
-// 16 bytes a thread where w % 4 == 0 and vals is 16-byte aligned (a
-// piece never straddles two rows; else a word a thread), and adds them
-// with one thread an element, so the 32 adds of a warp instruction fall
-// on neighbouring columns of a few rows (a thread a lane, or a few
-// threads a lane each adding four columns, spread an instruction's adds
-// over as many rows and L2 sectors).  Each nonzero value is one
-// atomicAdd whose result is unused (a RED) at the 64-bit offset (slot*n
-// + dst)*w + c: skipping a zero adds nothing, so the result is the same,
-// and integer adds commute, so the order of the atomics does not matter.
+// lanes (csrc/lanes.cuh, shared with fused_deposit_both): each warp loads
+// the slots and dsts of BATCH consecutive lanes, 32 a round with coalesced
+// loads, ballots the in-range ones and lists them (lane, cell offset) in
+// shared memory in lane order; an out-of-range lane costs its two loads
+// and a ballot bit.  Then the warp walks the listed lanes' rows as one run
+// of count * w (lane, column) elements, STAGE at a time: it stages their
+// values in shared memory, 16 bytes a thread where w % 4 == 0 and vals is
+// 16-byte aligned (a piece never straddles two rows; else a word a
+// thread), and adds them with one thread an element, so the 32 adds of a
+// warp instruction fall on neighbouring columns of a few rows (a thread a
+// lane, or a few threads a lane each adding four columns, spread an
+// instruction's adds over as many rows and L2 sectors).  Each nonzero
+// value is one atomicAdd whose result is unused (a RED) at the 64-bit
+// offset (slot*n + dst)*w + c: skipping a zero adds nothing, so the result
+// is the same, and integer adds commute, so the order of the atomics does
+// not matter.
 //
 // Plain C interface (built with nvcc, loaded with ctypes): returns the
 // cudaError_t of the launch.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "lanes.cuh"
 
-#define THREADS 256
-#define WARPS (THREADS / 32)
-#define ROUNDS 4  // 32-lane rounds a warp lists before serving them
-#define BATCH (32 * ROUNDS)
 #define STAGE 512  // value words a warp stages at a time (a multiple of 4)
 #define W_MAX (1 << 22)  // BATCH * w + STAGE elements stay within int32
-#define FULL_MASK 0xffffffffu
 
 namespace {
 
@@ -59,26 +54,8 @@ deposit_rows(int32_t* __restrict__ pending, const int32_t* __restrict__ slots,
   __shared__ int4 s_val4[WARPS][STAGE / 4];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const long long base = ((long long)blockIdx.x * WARPS + wid) * BATCH;
-  int sl[ROUNDS], d[ROUNDS];
-#pragma unroll
-  for (int r = 0; r < ROUNDS; ++r) {  // all the loads in flight at once
-    const long long i = base + r * 32 + lane;
-    sl[r] = i < m ? slots[i] : -1;
-    d[r] = i < m ? dst[i] : -1;
-  }
-  int count = 0;
-#pragma unroll
-  for (int r = 0; r < ROUNDS; ++r) {
-    const bool in = sl[r] >= 0 && sl[r] < b && d[r] >= 0 && (long long)d[r] < n;
-    const unsigned mk = __ballot_sync(FULL_MASK, in);
-    if (in) {
-      const int k = count + __popc(mk & ((1u << lane) - 1u));
-      s_lane[wid][k] = r * 32 + lane;
-      s_cell[wid][k] = ((long long)sl[r] * n + d[r]) * w;
-    }
-    count += __popc(mk);
-  }
-  __syncwarp();
+  const int count = listing::lanes(slots, dst, nullptr, base, m, b, n, w,
+                                   s_lane[wid], s_cell[wid]);
   const int* lanes = s_lane[wid];
   const long long* cells = s_cell[wid];
   int* val = reinterpret_cast<int*>(s_val4[wid]);

@@ -16,274 +16,354 @@
 //
 // Replaces the TPU kernel gossip_simulator_tpu/ops/pallas_megakernel.py
 // fused_emit (_emit_kernel), one serial loop over senders whose per-slot
-// counter gives each sender its start.  Here the same starts come from a
-// deterministic parallel scan, never from the order atomics happen to
-// run in:
+// counter gives each sender its start.  Here the starts come from the
+// single-pass append of csrc/lookback.cuh (shared with fused_ring_append
+// and fused_recv_land), weighted: a sender reserves one contiguous run of
+// ec cells, so its slot's count grows by ec (rank_tile_weighted), never in
+// the order atomics happen to run.  Overflowed senders form a suffix of
+// each slot, as in the serial loop.
 //
-//   pass 1 (emit_count)  one thread per row: masks, kept count, dup count;
-//                        per-block per-slot totals into block_sums[nb, dw]
-//                        (shared-memory integer atomics: sums commute).
-//   pass 2 (emit_scan)   one block per slot: exclusive scan of block_sums
-//                        over blocks, in place.
-//   pass 3 (emit_write)  one thread per row: intra-block exclusive scan of
-//                        the one-hot per-slot counts (warp shuffles over
-//                        groups of DWM slots), start = base + block prefix
-//                        + intra-block prefix, the capacity verdict and the
-//                        kw ring writes.  adds, sup and lost are integer
-//                        sums, so atomics are exact for them.
+// Bound on the H100: bytes.  At the main path's shape (m = 131,072
+// senders, k = 6, dw = 3) a call reads ~39 B a sender (sf, drop, svalid,
+// wslot, off) and stores every lane once (its ring cell or its trash
+// lane), ~8.3 MB (~2.5 us at 3.35 TB/s); there the host's enqueue, the
+// launches and the latency of a few dependent steps are the cost, so the
+// call is one launch with no allocation but its 2 * dw + 1 outputs and no
+// fill (it was a zero fill and three kernels: count, scan, write).
 //
-// Widths: any kw (the kept-lane mask of a row is ceil(kw / 32) words) and
-// dw <= DW_LIMIT slots (the per-block slot sums and warp prefixes are
-// dynamic shared memory: 4 * 9 * dw bytes in pass 3).  The register scan
-// runs over groups of DWM = 8 slots (dw <= 8, the usual dw = 3) or 32.
-//
-// Bound on the H100: bytes, and at the main path's shape (m = 131,072,
-// k = 6) launch latency before that: one call moves ~9-10 MB (~3 us at
-// 3.35 TB/s) across three launches.  The scattered ring stores are the
-// costliest bytes (one 32-byte sector per 4-byte cell, merged in L2 when
-// a sender's lanes are contiguous).  The kept-lane bitmask of pass 1 is
-// kept in scratch (4 bytes per 32 lanes of a row) so pass 3 does not
-// gather the flags again.
+// One kernel, emit, a tile of EMIT_TILE senders a block:
+//   - masks and counts: a row's kept lanes (a mask up to 32 lanes) and
+//     suppressed duplicates, the duplicates summed per slot.  G threads
+//     serve a row, neighbouring threads on neighbouring lanes, each thread
+//     keeping the loads of U passes over the tile in flight: G = 1 (a
+//     thread a row) at the event engine's 6 and 7 lanes, G = 8 at wide
+//     rows (kw 38, 112), where a thread a row spread each warp
+//     instruction's loads over 32 rows (ops/megakernel.py emit_group);
+//   - the weighted ranks by a thread a row (rank_tile_weighted) and the
+//     earlier blocks' sums (look_back);
+//   - each row's start and verdict (adds and lost summed per slot);
+//   - the ring stores: rows of up to 32 lanes in the tile's (row, lane)
+//     order, a thread a lane, so a warp's stores fall on the runs of a few
+//     rows and on one stretch of trash lanes; wider rows by groups again,
+//     their lanes computed again from the (cached) rows.
+// adds, sup and lost are integer sums: each block adds its own into the
+// workspace's head, and the last block to finish writes them out whole
+// and zeroes them.
 //
 // Plain C interface (built with nvcc, loaded with ctypes): returns the
-// cudaError_t of the last launch.
+// cudaError_t of the launch.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "lookback.cuh"
 
-#define DW_LIMIT 1024  // ops/deliver.py RING_SLOTS_MAX
-#define DW_SMALL 8  // the register-scan group width for dw <= 8
-#define DW_GROUP 32  // the register-scan group width above it
-#define THREADS 256
-#define WARPS (THREADS / 32)
-#define SCAN_THREADS 1024
-#define FULL_MASK 0xffffffffu
+#define EMIT_ITEMS 1  // senders a thread ranks
+#define EMIT_TILE (THREADS * EMIT_ITEMS)  // ops/megakernel.py EMIT_TILE
 
 namespace {
 
-__global__ void emit_count(const int32_t* __restrict__ sf,
-                           const uint8_t* __restrict__ drop,
-                           const uint8_t* __restrict__ svalid,
-                           const int32_t* __restrict__ wslot,
-                           const uint8_t* __restrict__ flags, int rbit,
-                           const uint8_t* __restrict__ strig,
-                           int m, int k, int kw, int dw, int nw,
-                           int32_t* __restrict__ emask,
-                           int32_t* __restrict__ block_sums,
-                           int32_t* __restrict__ sup) {
+using lookback::u64;
+
+struct Emit {
+  int32_t* ring;
+  const int32_t* base;
+  const int32_t* sf;
+  const uint8_t* drop;
+  const uint8_t* svalid;
+  const int32_t* wslot;
+  const int32_t* off;
+  const uint8_t* flags;
+  const uint8_t* strig;
+  const int32_t* sids;
+  long long m;
+  long long cap;
+  int rbit, tb, k, kw, dw, b;
+};
+
+// Lane kk of U rows (row i[u], in range in[u], valid v[u]): e[u] whether
+// it is a kept lane, dup[u] an edge the duplicate filter suppressed, f[u]
+// the friend.  Every row's loads are issued before the first is used (the
+// friends and drops, then the flags they name).
+template <int U>
+__device__ __forceinline__ void kept_lanes(const Emit& a,
+                                           const long long (&i)[U],
+                                           const bool (&in)[U],
+                                           const bool (&v)[U], int kk,
+                                           bool (&e)[U], bool (&dup)[U],
+                                           int (&f)[U]) {
+  uint8_t dr[U], fl[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const bool edge = in[u] && kk < a.k;
+    const long long at = i[u] * a.k + kk;
+    f[u] = edge ? a.sf[at] : -1;
+    dr[u] = edge ? a.drop[at] : 1;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    e[u] = v[u] && dr[u] == 0 && f[u] >= 0;
+    fl[u] = e[u] && a.flags != nullptr ? a.flags[f[u]] : 0;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    dup[u] = (fl[u] & a.rbit) != 0;
+    e[u] = e[u] && !dup[u];
+    if (in[u] && kk == a.k && a.strig != nullptr)  // the SIR trigger lane
+      e[u] = a.strig[i[u]] != 0;
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(THREADS)
+emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws,
+     unsigned epoch) {
   extern __shared__ int smem[];
-  int* s_tot = smem;
-  int* s_sup = smem + dw;
-  for (int j = threadIdx.x; j < dw; j += THREADS) {
-    s_tot[j] = 0;
-    s_sup[j] = 0;
+  const lookback::Slots sl = lookback::carve(smem, a.dw);
+  int* s_sup = sl.aux;  // the duplicates, until look_back
+  __shared__ int s_key[EMIT_TILE];  // a row's slot, -1: reserves nothing
+  __shared__ int s_ec[EMIT_TILE];
+  __shared__ unsigned s_mask[EMIT_TILE];  // a row's kept lanes (kw <= 32)
+  __shared__ long long s_dst[EMIT_TILE];  // a row's first cell, -1: none
+  __shared__ int s_nok, s_lost;
+  int* acc = lookback::sums(ws);  // sup [0, dw), adds, lost
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  const int sub = lane & (G - 1);
+  const int shift = lane - sub;
+  const unsigned gmask = (1u << G) - 1u;
+  const unsigned below = (1u << sub) - 1u;
+  const int dw = a.dw;
+  constexpr int PASS = THREADS / G;  // rows a pass of the block
+  constexpr int PASSES = EMIT_TILE / PASS;
+  constexpr int U = PASSES < 4 ? PASSES : 4;  // passes whose loads overlap
+
+  for (int j = t; j < dw; j += THREADS) s_sup[j] = 0;
+  const long long blk = lookback::ticket(ws, sl, dw, &s_nok);
+  const long long tile0 = blk * EMIT_TILE;
+
+  // Masks and counts: G threads a row, neighbouring lanes, U passes of
+  // the block's rows at a time.
+  for (int p0 = 0; p0 < PASSES; p0 += U) {
+    long long i[U];
+    bool in[U], v[U];
+    int ec[U], dc[U];
+    unsigned km[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      i[u] = tile0 + (p0 + u) * PASS + t / G;
+      in[u] = i[u] < a.m;
+      v[u] = in[u] && a.svalid[i[u]] != 0;
+      ec[u] = 0;
+      dc[u] = 0;
+      km[u] = 0;
+    }
+    for (int c = 0; c < a.kw; c += G) {
+      bool e[U], dup[U];
+      int f[U];
+      kept_lanes(a, i, in, v, c + sub, e, dup, f);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const unsigned eb = (__ballot_sync(FULL_MASK, e[u]) >> shift) & gmask;
+        ec[u] += __popc(eb);
+        dc[u] += __popc((__ballot_sync(FULL_MASK, dup[u]) >> shift) & gmask);
+        if (c < 32) km[u] |= eb << c;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (sub != 0) continue;
+      const int rr = (p0 + u) * PASS + t / G;
+      const int s = in[u] ? a.wslot[i[u]] : -1;
+      const bool slot_ok = s >= 0 && s < dw;
+      s_key[rr] = v[u] && slot_ok && ec[u] > 0 ? s : -1;
+      s_ec[rr] = ec[u];
+      s_mask[rr] = km[u];
+      if (dc[u] && slot_ok) atomicAdd(&s_sup[s], dc[u]);
+    }
   }
   __syncthreads();
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < m) {
-    const bool v = svalid[i] != 0;
-    int32_t* em = emask + (long long)i * nw;
-    unsigned word = 0;
-    int ec = 0, dcnt = 0;
-    const long long row = (long long)i * k;
-    for (int kk = 0; kk < kw; ++kk) {
-      bool e;
-      if (kk < k) {
-        const int f = sf[row + kk];
-        e = v && drop[row + kk] == 0 && f >= 0;
-        if (e && flags != nullptr && (flags[f] & rbit) != 0) {
-          ++dcnt;
-          e = false;
-        }
+
+  // Weighted ranks, a thread a row: warp wid takes the tile's rows [wid *
+  // 32 * EMIT_ITEMS, (wid + 1) * 32 * EMIT_ITEMS) in rounds of 32.
+  const int row0 = wid * (32 * EMIT_ITEMS) + lane;
+  int slot[EMIT_ITEMS], wt[EMIT_ITEMS], rank[EMIT_ITEMS];
+#pragma unroll
+  for (int r = 0; r < EMIT_ITEMS; ++r) {
+    const int key = s_key[row0 + r * 32];
+    slot[r] = key < 0 ? 0 : key;
+    wt[r] = s_ec[row0 + r * 32];
+    rank[r] = key < 0 ? -1 : 0;
+  }
+  lookback::rank_tile_weighted(slot, wt, rank, sl, dw);
+  for (int j = t; j < dw; j += THREADS)
+    if (s_sup[j]) atomicAdd(&acc[j], s_sup[j]);
+  int* s_adds = sl.warp;  // free after the ranks
+  for (int j = t; j < dw; j += THREADS) s_adds[j] = 0;
+  if (t == 0) s_lost = 0;
+  lookback::look_back(ws, blk, dw, epoch, sl);
+
+  // Starts and verdicts: an okr row's first cell, adds and lost.
+  int lost = 0;
+#pragma unroll
+  for (int r = 0; r < EMIT_ITEMS; ++r) {
+    long long dst = -1;
+    if (rank[r] >= 0) {
+      const int s = slot[r];
+      const long long start = (long long)a.base[s] + sl.aux[s] + rank[r];
+      if (start + wt[r] <= a.cap) {
+        dst = s * a.cap + start;
+        atomicAdd(&s_adds[s], wt[r]);
       } else {
-        e = strig[i] != 0;  // the SIR trigger lane
+        lost += wt[r];
       }
-      if (e) {
-        word |= 1u << (kk & 31);
-        ++ec;
-      }
-      if ((kk & 31) == 31 || kk == kw - 1) {
-        em[kk >> 5] = (int32_t)word;
-        word = 0;
-      }
+    } else {
+      lost += wt[r];  // kept lanes of a row that reserves nothing
     }
-    const int s = wslot[i];
-    if (s >= 0 && s < dw) {
-      if (v && ec) atomicAdd(&s_tot[s], ec);
-      if (dcnt) atomicAdd(&s_sup[s], dcnt);
-    }
+    s_dst[row0 + r * 32] = dst;
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) lost += __shfl_xor_sync(FULL_MASK, lost, o);
+  if (lane == 0 && lost) atomicAdd(&s_lost, lost);
   __syncthreads();
-  for (int j = threadIdx.x; j < dw; j += THREADS) {
-    block_sums[(long long)blockIdx.x * dw + j] = s_tot[j];
-    if (s_sup[j]) atomicAdd(&sup[j], s_sup[j]);
-  }
-}
+  for (int j = t; j < dw; j += THREADS)
+    if (s_adds[j]) atomicAdd(&acc[DW_LIMIT + j], s_adds[j]);
+  if (t == 0 && s_lost) atomicAdd(&acc[2 * DW_LIMIT], s_lost);
 
-// Exclusive scan of column blockIdx.x of block_sums[nb, dw], in place.
-__global__ void emit_scan(int32_t* __restrict__ block_sums, int nb, int dw) {
-  __shared__ int warp_tot[SCAN_THREADS / 32];
-  const int s = blockIdx.x;
-  const int per = (nb + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int lo = min(threadIdx.x * per, nb);
-  const int hi = min(lo + per, nb);
-  int local = 0;
-  for (int j = lo; j < hi; ++j) local += block_sums[(long long)j * dw + s];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  int x = local;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL_MASK, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_tot[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    const int t = warp_tot[lane];
-    int z = t;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL_MASK, z, o);
-      if (lane >= o) z += y;
-    }
-    warp_tot[lane] = z - t;
-  }
-  __syncthreads();
-  int run = warp_tot[wid] + x - local;
-  for (int j = lo; j < hi; ++j) {
-    const long long c = (long long)j * dw + s;
-    const int t = block_sums[c];
-    block_sums[c] = run;
-    run += t;
-  }
-}
-
-template <int DWM>
-__global__ void emit_write(int32_t* __restrict__ ring,
-                           const int32_t* __restrict__ base,
-                           const int32_t* __restrict__ sf,
-                           const uint8_t* __restrict__ svalid,
-                           const int32_t* __restrict__ wslot,
-                           const int32_t* __restrict__ off,
-                           const int32_t* __restrict__ sender_ids, int tb,
-                           int m, int k, int kw, int dw, int nw, int cap,
-                           int b, const int32_t* __restrict__ emask,
-                           const int32_t* __restrict__ block_sums,
-                           int32_t* __restrict__ adds,
-                           int32_t* __restrict__ lost) {
-  extern __shared__ int smem[];
-  int* warp_pre = smem;              // [WARPS][dw]
-  int* s_adds = smem + WARPS * dw;   // [dw]
-  __shared__ int s_lost;
-  for (int j = threadIdx.x; j < dw; j += THREADS) s_adds[j] = 0;
-  if (threadIdx.x == 0) s_lost = 0;
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  const bool in = i < m;
-  const int32_t* em = emask + (long long)(in ? i : 0) * nw;
-  int ec = 0;
-  if (in)
-    for (int w = 0; w < nw; ++w) ec += __popc((unsigned)em[w]);
-  const bool v = in && svalid[i] != 0;
-  const int s = in ? wslot[i] : 0;
-  const bool counted = v && s >= 0 && s < dw;
-  // Warp-inclusive scan of the one-hot per-slot reservation sizes, DWM
-  // slots at a time.
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  int incl = 0;
-  for (int g0 = 0; g0 < dw; g0 += DWM) {
-    int val[DWM];
-#pragma unroll
-    for (int d = 0; d < DWM; ++d) val[d] = (counted && s == g0 + d) ? ec : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-#pragma unroll
-      for (int d = 0; d < DWM; ++d) {
-        const int y = __shfl_up_sync(FULL_MASK, val[d], o);
-        if (lane >= o) val[d] += y;
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < DWM; ++d) {
-      if (lane == 31 && g0 + d < dw) warp_pre[wid * dw + g0 + d] = val[d];
-      if (g0 + d == s) incl = val[d];
-    }
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < dw; j += THREADS) {
-    int run = 0;
-    for (int w = 0; w < WARPS; ++w) {
-      const int t = warp_pre[w * dw + j];
-      warp_pre[w * dw + j] = run;
-      run += t;
-    }
-  }
-  __syncthreads();
-  if (in) {
-    long long start = 0;
-    bool okr = false;
-    if (counted) {
-      start = (long long)base[s] + block_sums[(long long)blockIdx.x * dw + s]
-              + warp_pre[wid * dw + s] + incl - ec;
-      okr = start + ec <= cap;
-    }
-    if (okr) {
-      if (ec) atomicAdd(&s_adds[s], ec);
-    } else if (ec) {
-      atomicAdd(&s_lost, ec);
-    }
-    const int o = off[i];
-    const long long row = (long long)i * k;
-    const long long trash = (long long)dw * cap + (long long)i * kw;
-    const long long dst = (long long)s * cap + start;
-    int col = 0;
-    unsigned word = 0;
-    for (int kk = 0; kk < kw; ++kk) {
-      if ((kk & 31) == 0) word = (unsigned)em[kk >> 5];
-      const bool e = (word >> (kk & 31)) & 1u;
+  // Ring stores: a kept lane of an okr row at its column (its kept rank in
+  // the row), every other lane at its trash lane.  Rows of up to 32 lanes
+  // go in the tile's (row, lane) order, a thread a lane, their kept lanes
+  // from the masks: a warp's stores fall on the runs of a few rows and on
+  // one stretch of the tile's trash lanes, and a kept edge's friend is
+  // read again, coalesced, for its payload.  Wider rows go by groups and
+  // compute their lanes again.
+  if (a.kw <= 32) {
+    const long long trash0 = (long long)dw * a.cap + tile0 * a.kw;
+    const long long rows = a.m - tile0 < EMIT_TILE ? a.m - tile0 : EMIT_TILE;
+    const int lanes = (int)rows * a.kw;
+#pragma unroll 4
+    for (int e = t; e < lanes; e += THREADS) {
+      const int rr = e / a.kw;
+      const int kk = e - rr * a.kw;
+      const long long i = tile0 + rr;
+      const unsigned km = s_mask[rr];
+      const long long dst = s_dst[rr];
+      const bool kept = ((km >> kk) & 1u) != 0;
       int32_t pay = 0;
-      if (e) pay = kk < k ? sf[row + kk] * b + o : tb + sender_ids[i] * b + o;
-      ring[(e && okr) ? dst + col : trash + kk] = pay;
-      col += e ? 1 : 0;
+      if (kept) {
+        const int o = a.off[i];
+        pay = kk < a.k ? a.sf[i * a.k + kk] * a.b + o
+                       : a.tb + a.sids[i] * a.b + o;
+      }
+      a.ring[kept && dst >= 0 ? dst + __popc(km & ((1u << kk) - 1u))
+                              : trash0 + e] = pay;
+    }
+  } else {
+    for (int p0 = 0; p0 < PASSES; p0 += U) {
+      long long i[U], dst[U];
+      bool in[U], v[U];
+      int o[U], col[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int rr = (p0 + u) * PASS + t / G;
+        i[u] = tile0 + rr;
+        in[u] = i[u] < a.m;
+        v[u] = in[u] && a.svalid[i[u]] != 0;
+        o[u] = in[u] ? a.off[i[u]] : 0;
+        dst[u] = s_dst[rr];
+        col[u] = 0;
+      }
+      for (int c = 0; c < a.kw; c += G) {
+        const int kk = c + sub;
+        bool e[U], dup[U];
+        int f[U];
+        kept_lanes(a, i, in, v, kk, e, dup, f);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const unsigned eb =
+              (__ballot_sync(FULL_MASK, e[u]) >> shift) & gmask;
+          if (in[u] && kk < a.kw) {
+            int32_t pay = 0;
+            if (e[u])
+              pay = kk < a.k ? f[u] * a.b + o[u]
+                             : a.tb + a.sids[i[u]] * a.b + o[u];
+            a.ring[(e[u] && dst[u] >= 0)
+                       ? dst[u] + col[u] + __popc(eb & below)
+                       : (long long)dw * a.cap + i[u] * a.kw + kk] = pay;
+          }
+          col[u] += __popc(eb);
+        }
+      }
     }
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < dw; j += THREADS)
-    if (s_adds[j]) atomicAdd(&adds[j], s_adds[j]);
-  if (threadIdx.x == 0 && s_lost) atomicAdd(lost, s_lost);
+
+  // The last block to finish: the outputs, the head's sums, the counters.
+  if (!lookback::last_to_finish(ws)) return;
+  volatile int* sums = acc;
+  for (int j = t; j < dw; j += THREADS) {
+    out[j] = sums[DW_LIMIT + j];
+    out[dw + j] = sums[j];
+    sums[DW_LIMIT + j] = 0;
+    sums[j] = 0;
+  }
+  if (t == 0) {
+    out[2 * dw] = sums[2 * DW_LIMIT];
+    sums[2 * DW_LIMIT] = 0;
+  }
+  lookback::reset_counters(ws);
+}
+
+template <int G>
+cudaError_t launch(const Emit& a, int32_t* out, u64* ws, unsigned epoch,
+                   cudaStream_t st) {
+  const long long nb = a.m > 0 ? (a.m + EMIT_TILE - 1) / EMIT_TILE : 1;
+  const size_t shmem = lookback::slots_bytes(a.dw);
+  cudaError_t e = allow_smem((const void*)emit<G>, shmem);
+  if (e != cudaSuccess) return e;
+  emit<G><<<(unsigned)nb, THREADS, shmem, st>>>(a, out, ws, epoch);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Scratch: emask int32[m * ceil(kw / 32)], block_sums int32[ceil(m/256) *
-// dw]; dw <= DW_LIMIT.  Outputs adds/sup int32[dw] and lost int32[1] must
-// be zeroed by the caller.  flags (dup filter) and strig/sender_ids (SIR
-// trigger lane) may be null.
+// out: int32[2 * dw + 1], written whole (adds, sup, lost).  flags (dup
+// filter) and strig/sender_ids (SIR trigger lane) may be null; at m = 0 the
+// per-sender inputs may be null.  group: the threads that serve a row (1
+// or 8; ops/megakernel.py emit_group).  ws is the int64 workspace of at
+// least WS_HEAD + max(1, ceil(m / EMIT_TILE)) * dw words (ops/deliver.py
+// workspace_words), zeroed when it was made; epoch in [1, EPOCH_MAX), new
+// for every call that uses ws.  dw <= DW_LIMIT.
 extern "C" int gossip_fused_emit(
     void* ring, const void* base, const void* sf, const void* drop,
     const void* svalid, const void* wslot, const void* off,
     const void* flags, int rbit, const void* strig, const void* sender_ids,
-    int tb, int m, int k, int dw, int cap, int b, void* emask,
-    void* block_sums, void* adds, void* sup, void* lost, void* stream) {
-  if (dw < 1 || dw > DW_LIMIT || k < 1) return (int)cudaErrorInvalidValue;
-  if (m <= 0) return (int)cudaGetLastError();
-  const int kw = k + (strig != nullptr ? 1 : 0);
-  const int nw = (kw + 31) / 32;
+    int tb, int m, int k, int dw, int cap, int b, int group, void* out,
+    void* ws, long long ws_words, int epoch, void* stream) {
+  if (dw < 1 || dw > DW_LIMIT || k < 1 || m < 0 || cap < 0 || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if ((strig == nullptr) != (sender_ids == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = lookback::check_ws(m, dw, ws, ws_words, epoch, EMIT_TILE);
+  if (e != cudaSuccess) return (int)e;
+  Emit a;
+  a.ring = (int32_t*)ring;
+  a.base = (const int32_t*)base;
+  a.sf = (const int32_t*)sf;
+  a.drop = (const uint8_t*)drop;
+  a.svalid = (const uint8_t*)svalid;
+  a.wslot = (const int32_t*)wslot;
+  a.off = (const int32_t*)off;
+  a.flags = (const uint8_t*)flags;
+  a.strig = (const uint8_t*)strig;
+  a.sids = (const int32_t*)sender_ids;
+  a.m = m;
+  a.cap = cap;
+  a.rbit = rbit;
+  a.tb = tb;
+  a.k = k;
+  a.kw = k + (strig != nullptr ? 1 : 0);
+  a.dw = dw;
+  a.b = b;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nb = (m + THREADS - 1) / THREADS;
-  emit_count<<<nb, THREADS, 2 * dw * sizeof(int), st>>>(
-      (const int32_t*)sf, (const uint8_t*)drop, (const uint8_t*)svalid,
-      (const int32_t*)wslot, (const uint8_t*)flags, rbit,
-      (const uint8_t*)strig, m, k, kw, dw, nw, (int32_t*)emask,
-      (int32_t*)block_sums, (int32_t*)sup);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  emit_scan<<<dw, SCAN_THREADS, 0, st>>>((int32_t*)block_sums, nb, dw);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  auto write = dw <= DW_SMALL ? emit_write<DW_SMALL> : emit_write<DW_GROUP>;
-  write<<<nb, THREADS, (WARPS + 1) * dw * sizeof(int), st>>>(
-      (int32_t*)ring, (const int32_t*)base, (const int32_t*)sf,
-      (const uint8_t*)svalid, (const int32_t*)wslot, (const int32_t*)off,
-      (const int32_t*)sender_ids, tb, m, k, kw, dw, nw, cap, b,
-      (const int32_t*)emask, (const int32_t*)block_sums, (int32_t*)adds,
-      (int32_t*)lost);
-  return (int)cudaGetLastError();
+  switch (group) {
+    case 1: return (int)launch<1>(a, (int32_t*)out, (u64*)ws, epoch, st);
+    case 8: return (int)launch<8>(a, (int32_t*)out, (u64*)ws, epoch, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -71,7 +71,7 @@ recv_land(int32_t* __restrict__ ring0, int32_t* __restrict__ ring1,
   __shared__ int s_src[TILE];
   __shared__ long long s_row[TILE];
   __shared__ int s_nok;
-  int* sup_acc = reinterpret_cast<int*>(ws + 1);
+  int* sup_acc = lookback::sums(ws);
   const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
 
   for (int j = t; j < dw; j += THREADS) s_sup[j] = 0;

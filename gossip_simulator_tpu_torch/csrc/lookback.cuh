@@ -1,18 +1,24 @@
-// lookback.cuh: the single-pass ring append that fused_recv_land and
-// fused_ring_append share -- one launch a call, positions deterministic.
+// lookback.cuh: the single-pass append that fused_recv_land,
+// fused_ring_append and fused_emit share -- one launch a call, positions
+// deterministic.
 //
-// Each lane i that survives (a valid lane of its window slot s) takes
+// Each item i that survives (a valid lane, or a sender's reservation, of
+// its window slot s) takes, with weight w[i] (1 for a lane, the kept lanes
+// of a sender for fused_emit):
 //
-//   pos[i] = cnt[s] + surviving lanes j < i of slot s (lane order)
+//   pos[i] = cnt[s] + sum of w[j] over surviving items j < i of slot s
 //
-// and lands when pos < cap.  A block holds a tile of TILE consecutive lanes:
+// and lands when pos (+ w[i] for a reservation) fits under cap.  A block
+// holds a tile of consecutive items:
 //   - its logical index is a ticket from an atomic counter (ticket), so the
 //     blocks before it have started and a look-back never waits on a block
 //     that is not resident;
-//   - rank_tile: each warp takes 32 * ITEMS consecutive lanes of the tile, 32
-//     a round, and ranks each lane among the warp's survivors of its slot so
+//   - rank_tile: each warp takes 32 * N consecutive items of the tile, 32
+//     a round, and ranks each item among the warp's survivors of its slot so
 //     far (__match_any_sync, a popcount and the warp's running per-slot
-//     counts in shared memory); then the warps' counts are scanned per slot;
+//     counts in shared memory; rank_tile_weighted: the weights of the
+//     item's group's lower lanes, shuffled in one at a time); then the
+//     warps' counts are scanned per slot;
 //   - look_back: the block publishes its per-slot counts (flag A; block 0
 //     its inclusive prefix, flag P), then each warp looks back over the
 //     preceding blocks for its slots, 32 at a time, summing counts down to
@@ -28,17 +34,20 @@
 //     the carried cnt), the rest to dropped, and resets the counters.  The
 //     caller then writes the trash cell once if fewer than m lanes landed:
 //     the serial kernel it replaces stores 0 there for every lane that does
-//     not land, so one write gives the same bits.
+//     not land, so one write gives the same bits.  (fused_emit's totals are
+//     sums over its reservations that do fit, which the totals cannot give:
+//     it adds them into the head's sums, which its last block reads out.)
 //
 // Workspace (int64[ws_words], kept by ops/deliver.py per card and stream,
-// shared by both kernels: calls on one stream run in order): word 0 holds
-// the ticket and done counters (uint32 each), words 1 .. DW_LIMIT/2 int32
-// per-slot sums of the caller's own (fused_recv_land's duplicates); the
-// kernels leave all of them at 0 for the next call.  From word WS_HEAD on,
-// one look-back word per (logical block, slot): (epoch << 2 | flag) in the
-// high half, the count in the low.  These are never zeroed: each call
-// carries a new epoch (1 .. EPOCH_MAX - 1; the wrapper zeroes the workspace
-// when it wraps), and a word of another epoch reads as not yet published.
+// shared by the three kernels: calls on one stream run in order): word 0
+// holds the ticket and done counters (uint32 each), words 1 .. WS_HEAD - 1
+// the caller's own int32 sums (sums(): DW_LIMIT per-slot sums, DW_LIMIT
+// more, then one); the kernels leave all of them at 0 for the next call.
+// From word WS_HEAD on, one look-back word per (logical block, slot):
+// (epoch << 2 | flag) in the high half, the count in the low.  These are
+// never zeroed: each call carries a new epoch (1 .. EPOCH_MAX - 1; the
+// wrapper zeroes the workspace when it wraps), and a word of another epoch
+// reads as not yet published.
 //
 // Shared memory: the caller's dynamic array of (2 * WARPS + 2) * dw int32
 // (dw <= DW_LIMIT slots), cut by carve(), set by allow_smem (smem.cuh); the
@@ -56,7 +65,7 @@
 #define WARPS (THREADS / 32)
 #define ITEMS 8
 #define TILE (THREADS * ITEMS)  // ops/deliver.py APPEND_TILE
-#define WS_HEAD (1 + DW_LIMIT / 2)  // ops/deliver.py APPEND_WS_HEAD
+#define WS_HEAD (DW_LIMIT + 2)  // ops/deliver.py APPEND_WS_HEAD
 #define EPOCH_MAX (1 << 30)  // ops/deliver.py APPEND_EPOCH_MAX
 #define FLAG_A 1u
 #define FLAG_P 2u
@@ -112,27 +121,13 @@ __device__ __forceinline__ long long ticket(u64* ws, const Slots& sl, int dw,
   return s_blk;
 }
 
-// rank[r] >= 0 marks a surviving lane (round r of this thread), slot[r] its
-// slot; on return rank[r] is its rank among the block's survivors of that
-// slot, in lane order (-1 stays -1), and sl.run holds the block's per-slot
-// counts.
-__device__ __forceinline__ void rank_tile(const int (&slot)[ITEMS],
-                                          int (&rank)[ITEMS], const Slots& sl,
-                                          int dw) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  int* my_cnt = sl.warp + wid * dw;
-#pragma unroll
-  for (int r = 0; r < ITEMS; ++r) {
-    const bool v = rank[r] >= 0;
-    const int s = slot[r];
-    const unsigned grp = __match_any_sync(FULL_MASK, v ? s : -1);
-    const int before = v ? my_cnt[s] : 0;
-    __syncwarp();
-    if (v && (grp >> lane) == 1u) my_cnt[s] = before + __popc(grp);
-    __syncwarp();
-    rank[r] = v ? before + __popc(grp & below) : -1;
-  }
+// The warps' per-slot counts (sl.warp) scanned over the warps: each
+// item's rank gains its warp's prefix, and sl.run gets the block's counts.
+template <int N>
+__device__ __forceinline__ void scan_warps(const int (&slot)[N],
+                                           int (&rank)[N], const Slots& sl,
+                                           int dw) {
+  const int wid = threadIdx.x >> 5;
   __syncthreads();
   for (int j = threadIdx.x; j < dw; j += THREADS) {
     int run = 0;
@@ -145,8 +140,70 @@ __device__ __forceinline__ void rank_tile(const int (&slot)[ITEMS],
   }
   __syncthreads();
 #pragma unroll
-  for (int r = 0; r < ITEMS; ++r)
+  for (int r = 0; r < N; ++r)
     if (rank[r] >= 0) rank[r] += sl.pre[wid * dw + slot[r]];
+}
+
+// rank[r] >= 0 marks a surviving lane (round r of this thread), slot[r] its
+// slot; on return rank[r] is its rank among the block's survivors of that
+// slot, in lane order (-1 stays -1), and sl.run holds the block's per-slot
+// counts.
+template <int N>
+__device__ __forceinline__ void rank_tile(const int (&slot)[N],
+                                          int (&rank)[N], const Slots& sl,
+                                          int dw) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int* my_cnt = sl.warp + wid * dw;
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const bool v = rank[r] >= 0;
+    const int s = slot[r];
+    const unsigned grp = __match_any_sync(FULL_MASK, v ? s : -1);
+    const int before = v ? my_cnt[s] : 0;
+    __syncwarp();
+    if (v && (grp >> lane) == 1u) my_cnt[s] = before + __popc(grp);
+    __syncwarp();
+    rank[r] = v ? before + __popc(grp & below) : -1;
+  }
+  scan_warps(slot, rank, sl, dw);
+}
+
+// As rank_tile, each surviving item weighing weight[r] >= 0: on return
+// rank[r] is the sum of the weights of the block's earlier survivors of
+// its slot, and sl.run the block's per-slot weight sums.  Within a round a
+// lane adds the weights of its group's lower lanes one at a time, so a
+// round costs as many shuffles as its largest group has lanes.
+template <int N>
+__device__ __forceinline__ void rank_tile_weighted(const int (&slot)[N],
+                                                   const int (&weight)[N],
+                                                   int (&rank)[N],
+                                                   const Slots& sl, int dw) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int* my_cnt = sl.warp + wid * dw;
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const bool v = rank[r] >= 0;
+    const int s = slot[r];
+    const unsigned grp = __match_any_sync(FULL_MASK, v ? s : -1);
+    unsigned rest = v ? grp & below : 0u;
+    int pre = 0;
+    for (int it = __reduce_max_sync(FULL_MASK, __popc(rest)); it > 0; --it) {
+      const int w = __shfl_sync(FULL_MASK, weight[r],
+                                rest ? __ffs(rest) - 1 : lane);
+      if (rest) {
+        pre += w;
+        rest &= rest - 1u;
+      }
+    }
+    const int before = v ? my_cnt[s] : 0;
+    __syncwarp();
+    if (v && (grp >> lane) == 1u) my_cnt[s] = before + pre + weight[r];
+    __syncwarp();
+    rank[r] = v ? before + pre : -1;
+  }
+  scan_warps(slot, rank, sl, dw);
 }
 
 // Publish the block's counts, resolve each slot's survivors over the
@@ -255,6 +312,21 @@ __device__ __forceinline__ bool last_to_finish(u64* ws) {
   return s_last;
 }
 
+// In the last block: the ticket and done counters back to 0.
+__device__ __forceinline__ void reset_counters(u64* ws) {
+  if (threadIdx.x == 0) {
+    unsigned* ctr = reinterpret_cast<unsigned*>(ws);
+    ctr[0] = 0;
+    ctr[1] = 0;
+  }
+}
+
+// The head's int32 sums of the caller's own, after the counters: 2 *
+// DW_LIMIT + 1 cells, all 0 between calls.
+__device__ __forceinline__ int* sums(u64* ws) {
+  return reinterpret_cast<int*>(ws + 1);
+}
+
 // In the last block: cnt[j] += the landed lanes of slot j, dropped += the
 // lanes past the capacity, the counters reset; returns the landed lanes.
 __device__ __forceinline__ long long settle(u64* ws, int32_t* cnt,
@@ -278,20 +350,17 @@ __device__ __forceinline__ long long settle(u64* ws, int32_t* cnt,
   }
   __syncthreads();
   const long long landed = (long long)s_landed;
-  if (threadIdx.x == 0) {
-    *dropped += (int32_t)s_lost;
-    unsigned* ctr = reinterpret_cast<unsigned*>(ws);
-    ctr[0] = 0;
-    ctr[1] = 0;
-  }
+  if (threadIdx.x == 0) *dropped += (int32_t)s_lost;
+  reset_counters(ws);
   return landed;
 }
 
-// The C entry points' checks of the workspace and epoch.
+// The C entry points' checks of the workspace and epoch, for m items in
+// tiles of `tile`.
 inline cudaError_t check_ws(long long m, int dw, const void* ws,
-                            long long ws_words, int epoch) {
+                            long long ws_words, int epoch, int tile = TILE) {
   if (epoch < 1 || epoch >= EPOCH_MAX) return cudaErrorInvalidValue;
-  const long long nb = m > 0 ? (m + TILE - 1) / TILE : 1;
+  const long long nb = m > 0 ? (m + tile - 1) / tile : 1;
   if (ws == nullptr || ws_words < WS_HEAD + nb * dw)
     return cudaErrorInvalidValue;
   return cudaSuccess;

@@ -4,8 +4,10 @@ The port's trimmed copy of the JAX package's ``driver.py``: the
 reference-format transcript (simulator.go:207-255), the explicit-gate
 and estimated-clock notes, the windowed phase-1 loop (one line per poll
 window or round until the overlay quiesces; a static graph quiesces at
-once), the windowed phase-2 loop with its max-rounds liveness bound, and
-the final totals, on one device (``TorchStepper``) or on S shards of it
+once), phase 2 as the JAX package's default run reports it (the
+transcript of its device loop's replay under ``-telemetry on``, its
+windowed loop under ``-telemetry off``, each with its max-rounds bound),
+and the final totals, on one device (``TorchStepper``) or on S shards of it
 (``ShardedStepper``, ``-backend sharded``).  JSONL, traces, checkpoints,
 serving and supervision are not yet ported; a PushSum run's result
 payload (the JAX package's JSONL-only ``pushsum.report``) comes back in
@@ -15,6 +17,7 @@ payload (the JAX package's JSONL-only ``pushsum.report``) comes back in
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 from gossip_simulator_tpu_torch.backends import (ShardedStepper, Stepper,
@@ -93,22 +96,11 @@ def run_simulation(cfg: Config, printer: Optional[ProgressPrinter] = None,
     printer.section("Broadcast one message")
     stepper.seed()
     target = cfg.coverage_target
-    # max_rounds caps simulated time at window granularity: windows of
-    # WINDOW_MS ticks, or of one round in rounds mode.
-    window_rounds = WINDOW_MS if cfg.effective_time_mode == "ticks" else 1
-    max_windows = max(0, -(-cfg.max_rounds // window_rounds))
-    gossip_windows = 0
-    converged = False
-    while gossip_windows < max_windows:
-        stats = stepper.gossip_window()
-        gossip_windows += 1
-        printer.coverage_window(round(stats.coverage * 100.0, 4),
-                                stepper.sim_time_ms())
-        if stats.coverage >= target:
-            converged = True
-            break
-        if getattr(stepper, "exhausted", False):
-            break  # no messages in flight and nothing can change
+    if cfg.telemetry == "on":
+        gossip_windows = _telemetry_windows(cfg, stepper, printer)
+        converged = False
+    else:
+        gossip_windows, converged = _windowed(cfg, stepper, printer)
     coverage_ms = stepper.sim_time_ms()
     stats = stepper.stats()
     converged = converged or stats.coverage >= target
@@ -125,3 +117,60 @@ def run_simulation(cfg: Config, printer: Optional[ProgressPrinter] = None,
                      coverage_ms=coverage_ms, converged=converged,
                      overlay_windows=overlay_windows,
                      gossip_windows=gossip_windows, report=report)
+
+
+def _windowed(cfg: Config, stepper: Stepper,
+              printer: ProgressPrinter) -> tuple[int, bool]:
+    """The windowed loop (the JAX package's under ``-telemetry off``): a
+    window, its coverage line (``Stats.coverage``: the worst rumor's under
+    ``-rumors``), then the target and exhaustion checks; returns (windows,
+    converged)."""
+    # max_rounds caps simulated time at window granularity: windows of
+    # WINDOW_MS ticks, or of one round in rounds mode.
+    window_rounds = WINDOW_MS if cfg.effective_time_mode == "ticks" else 1
+    max_windows = max(0, -(-cfg.max_rounds // window_rounds))
+    windows = 0
+    while windows < max_windows:
+        stats = stepper.gossip_window()
+        windows += 1
+        printer.coverage_window(round(stats.coverage * 100.0, 4),
+                                stepper.sim_time_ms())
+        if stats.coverage >= cfg.coverage_target:
+            return windows, True
+        if getattr(stepper, "exhausted", False):
+            break  # no messages in flight and nothing can change
+    return windows, False
+
+
+def _telemetry_windows(cfg: Config, stepper: Stepper,
+                       printer: ProgressPrinter) -> int:
+    """What the JAX package's default run (``-telemetry on``) prints: its
+    device loop (``run_bounded_to_target``) tests before each window that
+    the target count ``ceil(coverage_target * n)`` is unmet (the worst
+    rumor's count under ``-rumors``), the tick below ``-max-rounds`` and a
+    message in flight (PushSum: or the first batch not yet sent), and its
+    replay (``telemetry.replay_gossip``) prints each window's coverage as
+    ``total_received / n``.  So a broadcast that dies at once prints no
+    window line.  Exhaustion is the final state's empty ring (under
+    ``-rumors``, past tick 0).  Returns the windows run."""
+    from gossip_simulator_tpu_torch.models import event
+
+    target = math.ceil(cfg.coverage_target * cfg.n)
+    first_batch = event.batch_ticks(cfg) if cfg.model == "pushsum" else 0
+    pushpull = cfg.protocol == "pushpull"
+    stats, live = stepper.stats_and_inflight()
+    windows = 0
+    while True:
+        recv = (stats.rumor_min_recv if cfg.multi_rumor
+                else stats.total_received)
+        alive = live or pushpull or stats.round < first_batch
+        if recv >= target or stats.round >= cfg.max_rounds or not alive:
+            break
+        stats = stepper.gossip_window()
+        live = not stepper.exhausted
+        windows += 1
+        pct = (stats.total_received / cfg.n if cfg.n else 0.0) * 100.0
+        printer.coverage_window(round(pct, 4), float(stats.round))
+    stepper.exhausted = (not live and not pushpull
+                         and (not cfg.multi_rumor or stats.round > 0))
+    return windows

@@ -37,9 +37,9 @@ import torch
 from gossip_simulator_tpu_torch.ops import _build
 
 # Window slots of the event ring (and the tick-faithful overlay's ring)
-# that fused_emit and fused_ring_append take: their per-block slot sums
-# live in shared memory (DW_LIMIT of csrc/fused_emit.cu and
-# csrc/fused_ring_append.cu).  Config refuses a deeper ring at parse.
+# that fused_emit, fused_ring_append and fused_recv_land take: their
+# per-block slot sums live in shared memory (DW_LIMIT of
+# csrc/lookback.cuh).  Config refuses a deeper ring at parse.
 RING_SLOTS_MAX = 1024
 
 I32 = torch.int32
@@ -166,22 +166,24 @@ def ring_append_plain(rings, cnt, dropped, payloads, wslot, valid, dw: int,
     return rings, cnt, dropped
 
 
-# The single-pass appends (fused_ring_append, megakernel.fused_recv_land;
-# csrc/lookback.cuh): lanes a block, the workspace's head words (the
-# counters and fused_recv_land's sup sums) and the look-back epochs' range.
+# The single-pass appends (fused_ring_append, megakernel.fused_recv_land and
+# megakernel.fused_emit; csrc/lookback.cuh): lanes a block, the workspace's
+# head words (the counters and 2 * RING_SLOTS_MAX + 1 int32 sums: the
+# kernels' sup, adds and lost) and the look-back epochs' range.
 APPEND_TILE = 2048
-APPEND_WS_HEAD = 1 + RING_SLOTS_MAX // 2
+APPEND_WS_HEAD = RING_SLOTS_MAX + 2
 APPEND_EPOCH_MAX = 1 << 30
-# (card index, raw stream) -> [int64 workspace, last epoch]: both kernels'
-# look-back state and counters, kept across calls on one stream (calls on
-# one stream run in order; two streams never share one).
+# (card index, raw stream) -> [int64 workspace, last epoch]: the three
+# kernels' look-back state and counters, kept across calls on one stream
+# (calls on one stream run in order; two streams never share one).
 _WS: dict = {}
 
 
-def workspace_words(m: int, dw: int) -> int:
-    """int64 words of a single-pass append's workspace for m lanes: the head
-    and one look-back word per (block, slot)."""
-    return APPEND_WS_HEAD + max(1, -(-m // APPEND_TILE)) * dw
+def workspace_words(m: int, dw: int, tile: int = APPEND_TILE) -> int:
+    """int64 words of a single-pass append's workspace for m items in tiles
+    of `tile` (fused_emit's senders: megakernel.EMIT_TILE): the head and
+    one look-back word per (block, slot)."""
+    return APPEND_WS_HEAD + max(1, -(-m // tile)) * dw
 
 
 def workspace(dev, stream: int, words: int):

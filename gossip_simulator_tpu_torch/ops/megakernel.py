@@ -11,15 +11,18 @@ capacity check and the ring write at reserved cells or unique trash lanes
 outside, so the streams are untouched.
 
 On the card the wrapper launches the CUDA kernel ``csrc/fused_emit.cu``
-(three passes: count, scan, write -- deterministic, bit-identical to the
-chain below).  On the CPU it takes the plain version, ``emit_plain``: the
-JAX package's unfused chain (``models/event.py`` append_messages), whose
-layout half ``emit_layout`` the engine's ``-phase2-kernel xla`` path also
-runs.  A tensor on any other device raises.
+(one launch on the single-pass append of ``csrc/lookback.cuh``, shared
+with ``fused_ring_append`` and ``fused_recv_land`` -- deterministic,
+bit-identical to the chain below).  On the CPU it takes the plain
+version, ``emit_plain``: the JAX package's unfused chain
+(``models/event.py`` append_messages), whose layout half ``emit_layout``
+the engine's ``-phase2-kernel xla`` path also runs.  A tensor on any
+other device raises.
 
 ``fused_deposit_both`` (``csrc/fused_deposit_both.cu``) adds, for every
 kept edge, the +1 arrival count and the sender's row of new rumor bits
-(``newbits[i // k]``, read in the kernel) at the shared (slot, dst) cell;
+(``newbits[i // k]``, read in the kernel: one add a set bit) at the shared
+(slot, dst) cell;
 its plain version ``deposit_both_plain`` is the sequential pair of
 ``ops/deliver.py`` plain deposits.  Integer adds commute, so both equal
 the JAX package's unfused pair bit for bit.
@@ -55,7 +58,8 @@ from gossip_simulator_tpu_torch.ops.deliver import (RING_SLOTS_MAX,
 NAME = "fused_emit"
 I32 = torch.int32
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-             + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 6)
+             + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
 def emit_layout(mail_cnt, sf, drop, svalid, wslot, off, *, dw: int,
@@ -123,62 +127,95 @@ def emit_plain(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *,
     return mail_ids, adds, sup, lost
 
 
-def _need(t, name, dtype, shape=None, dev=None):
-    if t.dtype != dtype:
-        raise TypeError(f"{NAME}: {name} must be {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{NAME}: {name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{NAME}: {name} must be contiguous")
-    if dev is not None and t.device != dev:
-        raise ValueError(f"{NAME}: {name} is on {t.device}, not {dev}")
+# Senders a block of the kernel takes (csrc/fused_emit.cu EMIT_TILE).
+EMIT_TILE = 256
 
 
-def _launch(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *, dw, cap,
-            b, tb, strig, sender_ids, flags, received_bit):
-    m, k = sf.shape
-    kw = k + (1 if strig is not None else 0)
+def emit_group(kw: int) -> int:
+    """Threads of the kernel that serve one sender row of kw lanes (the C
+    entry's `group`), by the device times of its forms on the card
+    (PERF.md): a thread a row up to 8 lanes (the event engine's 6 and 7),
+    eight threads past that (kw 33, erdos1m_wide's 38, kw 112)."""
+    return 1 if kw <= 8 else 8
+
+
+def _emit_check(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, dw, cap,
+                flags, strig, sender_ids) -> None:
+    """Raise on what the kernel does not take, in attribute reads (the call
+    is short: its host path is most of its time)."""
+    card = mail_ids.get_device()
     if not 1 <= dw <= RING_SLOTS_MAX:
         raise ValueError(f"{NAME}: dw={dw} outside the kernel's "
                          f"1..{RING_SLOTS_MAX}")
-    dev = mail_ids.device
-    _need(mail_ids, "mail_ids", I32, dev=dev)
-    if mail_ids.dim() != 1 or mail_ids.numel() < dw * cap + m * kw:
-        raise ValueError(f"{NAME}: ring of {mail_ids.numel()} cells cannot "
-                         f"hold dw*cap + m*kw = {dw * cap + m * kw}")
-    _need(mail_cnt, "mail_cnt", I32, (1, dw), dev)
-    _need(sf, "sf", I32, (m, k), dev)
-    _need(drop, "drop", torch.bool, (m, k), dev)
-    for t, nm, dt in ((svalid, "svalid", torch.bool), (wslot, "wslot", I32),
-                      (off, "off", I32)):
-        _need(t, nm, dt, (m,), dev)
-    if flags is not None:
-        _need(flags, "flags", torch.uint8, dev=dev)
+    if sf.dtype is not I32 or sf.ndim != 2:
+        raise TypeError(f"{NAME}: sf must be 2-D int32, got {sf.dtype} "
+                        f"{tuple(sf.shape)}")
+    m, k = sf.shape
+    kw = k + (strig is not None)
+    if mail_ids.dtype is not I32 or mail_ids.ndim != 1 \
+            or mail_ids.shape[0] < dw * cap + m * kw:
+        raise ValueError(f"{NAME}: mail_ids must be 1-D int32 of at least "
+                         f"dw*cap + m*kw = {dw * cap + m * kw} cells, got "
+                         f"{mail_ids.dtype} {tuple(mail_ids.shape)}")
+    if mail_cnt.dtype is not I32 or mail_cnt.shape != (1, dw):
+        raise ValueError(f"{NAME}: mail_cnt must be int32 (1, {dw}), got "
+                         f"{mail_cnt.dtype} {tuple(mail_cnt.shape)}")
+    rows = [(drop, "drop", torch.bool, (m, k)),
+            (svalid, "svalid", torch.bool, (m,)),
+            (wslot, "wslot", I32, (m,)), (off, "off", I32, (m,))]
     if strig is not None:
-        _need(strig, "strig", torch.bool, (m,), dev)
-        _need(sender_ids, "sender_ids", I32, (m,), dev)
-    fn = _build.function(NAME, "gossip_fused_emit", _ARGTYPES)
-    nb = (m + 255) // 256
-    # One scratch buffer (kept-lane masks, ceil(kw / 32) words a row, then
-    # per-block slot sums) and one zeroed output buffer (adds, sup, lost):
-    # two allocations per call.
-    masks = max(m, 1) * ((kw + 31) // 32)
-    scratch = torch.empty(masks + max(nb, 1) * dw, dtype=I32, device=dev)
-    outs = torch.zeros(2 * dw + 1, dtype=I32, device=dev)
-    emask, block_sums = scratch[:masks], scratch[masks:]
-    adds, sup, lost = outs[:dw], outs[dw:2 * dw], outs[2 * dw]
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    stream = torch.cuda.current_stream(dev).cuda_stream
+        rows += [(strig, "strig", torch.bool, (m,)),
+                 (sender_ids, "sender_ids", I32, (m,))]
+    for t, nm, dt, shape in rows:
+        if t.dtype is not dt or t.shape != shape:
+            raise ValueError(f"{NAME}: {nm} must be {dt} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if flags is not None and (flags.dtype is not torch.uint8
+                              or flags.ndim != 1):
+        raise TypeError(f"{NAME}: flags must be 1-D uint8, got "
+                        f"{flags.dtype} {tuple(flags.shape)}")
+    for t in (mail_ids, mail_cnt, sf, drop, svalid, wslot, off, flags,
+              strig, sender_ids):
+        if t is not None and (t.get_device() != card
+                              or not t.is_contiguous()):
+            raise ValueError(f"{NAME}: every tensor must be contiguous on "
+                             f"{mail_ids.device}, got one on {t.device}")
+
+
+@functools.cache
+def _emit_fn():
+    """fused_emit's typed C entry point, held once it is built."""
+    return _build.function(NAME, "gossip_fused_emit", _ARGTYPES)
+
+
+def _launch(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *, dw, cap,
+            b, tb, strig, sender_ids, flags, received_bit, group=None):
+    """One launch on the (card, stream) workspace of the single-pass
+    appends; the outputs (adds, sup, lost) come from one torch.empty, the
+    call's only allocation.  `group` overrides emit_group (the card's
+    measurements of the three forms)."""
+    _emit_check(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, dw, cap,
+                flags, strig, sender_ids)
+    m, k = sf.shape
+    dev = mail_ids.device
+    stream = deliver._stream(dev.index)
+    ws, epoch = deliver.workspace(dev, stream,
+                                  deliver.workspace_words(m, dw, EMIT_TILE))
+    out = torch.empty(2 * dw + 1, dtype=I32, device=dev)
+    if group is None:
+        group = emit_group(k + (strig is not None))
+    fn = _emit_fn()
     _build.count_launch(NAME)
     rc = fn(mail_ids.data_ptr(), mail_cnt.data_ptr(), sf.data_ptr(),
             drop.data_ptr(), svalid.data_ptr(), wslot.data_ptr(),
-            off.data_ptr(), ptr(flags), int(received_bit), ptr(strig),
-            ptr(sender_ids), int(tb) if tb is not None else 0, m, k, dw,
-            cap, b, emask.data_ptr(), block_sums.data_ptr(),
-            adds.data_ptr(), sup.data_ptr(), lost.data_ptr(), stream)
-    _build.check(rc, NAME)
-    return mail_ids, adds, sup, lost
+            off.data_ptr(), None if flags is None else flags.data_ptr(),
+            received_bit, None if strig is None else strig.data_ptr(),
+            None if strig is None else sender_ids.data_ptr(),
+            0 if tb is None else tb, m, k, dw, cap, b, group,
+            out.data_ptr(), ws.data_ptr(), ws.numel(), epoch, stream)
+    if rc:
+        _build.check(rc, NAME)
+    return mail_ids, out[:dw], out[dw:2 * dw], out[2 * dw]
 
 
 def fused_emit(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *,
@@ -274,7 +311,7 @@ def _both_launch(pending, pending_rumors, dst, slots, valid, newbits, k):
             raise ValueError(f"{BOTH}: {nm} must be contiguous")
     b, n = pending.shape
     fn = _build.function(BOTH, "gossip_fused_deposit_both", BOTH_ARGTYPES)
-    stream = torch.cuda.current_stream(pending.device).cuda_stream
+    stream = deliver._stream(pending.get_device())
     _build.count_launch(BOTH)
     rc = fn(pending.data_ptr(), pending_rumors.data_ptr(), slots.data_ptr(),
             dst.data_ptr(), valid.data_ptr(), newbits.data_ptr(),

@@ -46,16 +46,28 @@ def _emit_inputs(seed, *, m=48, k=6, n=60, dw=3, cap=400, b=10, dup=False,
     return d, kwargs
 
 
-def _emit(d, kw, dev):
+def _emit(d, kw, dev, group=None, sync=True):
+    """One fused_emit call (the card's `group` of threads a row, when
+    given); its ring and outputs on the CPU (on `dev` without `sync`)."""
     ring = T(d["ring"].copy()).to(dev)
-    out = megakernel.fused_emit(
-        ring, *(T(d[x]).to(dev) for x in ("cnt", "sf", "drop", "svalid",
-                                           "wslot", "off")),
-        strig=T(d["strig"]).to(dev) if "strig" in d else None,
-        sender_ids=T(d["sids"]).to(dev) if "sids" in d else None,
-        flags=T(d["flags"]).to(dev) if "flags" in d else None,
-        received_bit=tevent.RECEIVED, **kw)
-    return [x.cpu() for x in out]
+    args = [T(d[x]).to(dev) for x in ("cnt", "sf", "drop", "svalid",
+                                      "wslot", "off")]
+    opt = dict(strig=T(d["strig"]).to(dev) if "strig" in d else None,
+               sender_ids=T(d["sids"]).to(dev) if "sids" in d else None,
+               flags=T(d["flags"]).to(dev) if "flags" in d else None,
+               received_bit=tevent.RECEIVED, **kw)
+    if group is None:
+        out = megakernel.fused_emit(ring, *args, **opt)
+    else:
+        out = megakernel._launch(ring, *args, group=group,
+                                 **dict(opt, tb=opt.get("tb")))
+    return [x.cpu() for x in out] if sync else list(out)
+
+
+def _same_emit(want, got):
+    assert torch.equal(want[0], got[0])  # the ring
+    assert torch.equal(want[1], got[1]) and torch.equal(want[2], got[2])
+    assert int(want[3]) == int(got[3])
 
 
 EMIT_CASES = {
@@ -74,7 +86,25 @@ EMIT_CASES = {
     "dw40_kw112_dup": dict(dw=40, k=111, sir=True, dup=True, m=1000,
                            n=3000, cap=5000, pad=0.5),
     "dw1024": dict(dw=1024, m=20_000, n=5000, cap=60),
+    # The single-pass kernel's tiles (EMIT_TILE = 256 senders a block): one
+    # sender either side of a tile, many blocks, none; every row dead; one
+    # ring slot; slots that fill in the middle of a block (a long suffix of
+    # lost senders).
+    "m255": dict(m=255, n=3000, cap=3000),
+    "m256_sir": dict(m=256, n=3000, cap=3000, sir=True),
+    "m257_dup": dict(m=257, n=3000, cap=3000, dup=True),
+    "m65_kw65_sir": dict(m=65, k=64, sir=True, n=3000, cap=9000),
+    "m0": dict(m=0),
+    "many_blocks_sir_dup": dict(m=150_000, n=200_000, cap=400_000,
+                                sir=True, dup=True),
+    "all_dead": dict(m=3000, dead=1.0),
+    "dw1": dict(dw=1, m=3000, cap=9000),
+    "overflow_mid_block": dict(m=4000, cap=5000, base_hi=4000),
 }
+# The kernel's two forms (threads a row): each at the widths it would not
+# be chosen for as well.
+FORM_CASES = ("si", "sir_dup", "overflow_mid_block", "kw33_sir", "kw112_sir",
+              "dw40_kw112_dup", "m257_dup", "m65_kw65_sir", "dw1024")
 
 
 def _ring_inputs(seed, *, m=300, dw=3, cap=200, base_hi=None, rings=2,
@@ -354,11 +384,81 @@ def _card():
 def test_fused_emit_kernel_matches_plain_on_card(case, seed):
     dev = _card()
     d, kw = _emit_inputs(seed, **EMIT_CASES[case])
-    want = _emit(d, kw, torch.device("cpu"))
-    got = _emit(d, kw, dev)
-    assert torch.equal(want[0], got[0])  # the ring
-    assert torch.equal(want[1], got[1]) and torch.equal(want[2], got[2])
-    assert int(want[3]) == int(got[3])
+    _same_emit(_emit(d, kw, torch.device("cpu")), _emit(d, kw, dev))
+    if case == "overflow_mid_block":
+        assert int(_emit(d, kw, torch.device("cpu"))[3]) > 0
+
+
+@pytest.mark.parametrize("group", (1, 8))
+@pytest.mark.parametrize("case", FORM_CASES)
+def test_fused_emit_every_form_matches_plain_on_card(case, group):
+    """A thread a row and eight threads a row: one result."""
+    dev = _card()
+    d, kw = _emit_inputs(9, **EMIT_CASES[case])
+    _same_emit(_emit(d, kw, torch.device("cpu")),
+               _emit(d, kw, dev, group=group))
+
+
+def test_fused_emit_epoch_wrap_matches_plain_on_card(monkeypatch):
+    """With APPEND_EPOCH_MAX lowered to 3, every second call wraps: the
+    workspace is zeroed and the epoch starts at 1 again, so look-back
+    words left by the last cycle (published, wrong counts) are never read
+    as the new call's."""
+    dev = _card()
+    monkeypatch.setattr(deliver, "APPEND_EPOCH_MAX", 3)
+    card = torch.device("cuda", torch.cuda.current_device())
+    stream = deliver._stream(card.index)
+    ws, _ = deliver.workspace(card, stream, deliver.workspace_words(
+        20_000, 40, megakernel.EMIT_TILE))
+    stale = ((1 << 2 | 2) << 32) | 12345  # epoch 1, flag P, count 12345
+    ws.fill_(stale)
+    ws[:deliver.APPEND_WS_HEAD] = 0  # the head as every call leaves it
+    deliver._WS[card.index, stream][1] = 2
+    epochs = []
+    for seed in range(5):
+        d, kw = _emit_inputs(60 + seed, **EMIT_CASES["dw40"])
+        _same_emit(_emit(d, kw, torch.device("cpu")), _emit(d, kw, card))
+        epochs.append(deliver._WS[card.index, stream][1])
+    assert epochs == [1, 2, 1, 2, 1]
+
+
+def test_emit_ring_append_and_recv_land_interleaved_match_plain_on_card():
+    """fused_emit, fused_ring_append and fused_recv_land take one
+    workspace per stream: calls of all three, interleaved on one stream
+    with no synchronise between them, each against its plain version."""
+    dev = _card()
+    emits = [_emit_inputs(seed, **EMIT_CASES[case]) for seed, case in (
+        (71, "many_blocks_sir_dup"), (72, "overflow_mid_block"),
+        (73, "dw40_kw112_dup"))]
+    rings = [_ring_inputs(seed, m=25_000, cap=10_000,
+                          width=12 if seed % 2 else None)
+             for seed in (74, 75, 76)]
+    recvs = [_recv_inputs(seed, sources=8, rcap=3000, fill=2500, cap=8000)
+             for seed in (77, 78, 79)]
+    ring_args = [_on_card(d, dev) for d, _ in rings]
+    recv_args = [dict(ring=T(d["ring"].copy()).to(dev),
+                      cnt=T(d["cnt"].copy()).to(dev),
+                      dropped=torch.tensor(3, dtype=torch.int32, device=dev),
+                      recv=T(d["recv"]).to(dev)) for d, _ in recvs]
+    torch.cuda.synchronize()
+    outs = []
+    for (de, kwe), (d, kw), a, (dr, kwr), b in zip(emits, rings, ring_args,
+                                                   recvs, recv_args):
+        outs.append((_emit(de, kwe, dev, sync=False),
+                     megakernel.fused_recv_land(b["ring"], b["cnt"],
+                                                b["dropped"], b["recv"],
+                                                **kwr)))
+        deliver.fused_ring_append(*a, **kw)
+    torch.cuda.synchronize()
+    for (de, kwe), (d, kw), a, (dr, kwr), (emitted, landed) in zip(
+            emits, rings, ring_args, recvs, outs):
+        _same_emit(_emit(de, kwe, torch.device("cpu")),
+                   [x.cpu() for x in emitted])
+        _same_as_plain(d, kw, a)
+        want = _recv_land(megakernel.recv_land_plain, dr, kwr,
+                          torch.device("cpu"))
+        for x, y in zip(want, landed):
+            assert torch.equal(x, y.cpu())
 
 
 def test_fused_unique_set_kernel_matches_plain_on_card():
@@ -745,6 +845,12 @@ DEPOSIT_CASES = {
     "r16_slots_out": dict(r=16, slots_out=0.3),
     "r12_all_out": dict(r=12, valid=0.0, slots_out=1.0),
     "r12_wrap": dict(r=12, vals_hi=2**31 - 1),
+    # fused_deposit_both's bit rows: every lane kept (16-byte pieces), 40
+    # rumors (two 32-column masks, bytes), a wide batch of one sender a
+    # lane.
+    "r16_all_kept": dict(r=16, n=700, k=6, valid=1.0),
+    "r40": dict(r=40, n=500, k=5),
+    "r32_one_lane_a_sender": dict(b=5, n=20_000, k=1, rows=40_000, r=32),
 }
 DEPOSIT_FNS = {
     "add": (deliver.deposit_add_plain, deliver.fused_deposit_add),
@@ -784,6 +890,25 @@ def test_fused_deposit_rows_unaligned_vals_match_plain_on_card():
             T(d["prum"].copy()).to(dev), T(d["slots"]).to(dev),
             T(d["dst_n"]).to(dev), vals)
         assert torch.equal(want[0], got.cpu())
+
+
+def test_fused_deposit_both_unaligned_bits_match_plain_on_card():
+    """Bit rows that start off a 16-byte boundary (a contiguous view one
+    byte into its storage) are read a byte at a time."""
+    dev = _card()
+    d = _deposit_inputs(29, r=16, n=700, k=6)
+    rows = d["newbits"].shape[0]
+    flat = torch.zeros(rows * 16 + 1, dtype=torch.bool, device=dev)
+    bits = flat[1:].view(rows, 16)
+    bits.copy_(T(d["newbits"]))
+    want = _deposit("both", megakernel.deposit_both_plain, d,
+                    torch.device("cpu"))
+    t = lambda x: T(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    got = megakernel.fused_deposit_both(
+        t(d["pending"].copy()), t(d["prum"].copy()), t(d["dst"]),
+        t(d["slots"]), t(d["valid"]), bits)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g.cpu())
 
 
 RECV_CASES = {

@@ -93,6 +93,15 @@ EMIT_CASES = {
     "dw40": dict(dw=40),
     "kw33_sir": dict(k=32, sir=True),
     "kw112_sir_dup": dict(k=111, sir=True, dup=True, pad=0.5, m=16),
+    # Where the kernel's branches split (ops/megakernel.py emit_group: a
+    # thread a row up to kw 8, eight threads past it; the kept masks up to
+    # kw 32), past eight ring slots, and a reservation that straddles cap
+    # (test below).
+    "kw8": dict(k=8),
+    "kw9_sir_dup": dict(k=8, sir=True, dup=True),
+    "kw32": dict(k=32, m=24),
+    "dw9": dict(dw=9, m=64),
+    "straddle": dict(k=8, cap=40, base_hi=30, pad=0.0, dead=0.0),
 }
 
 
@@ -106,6 +115,14 @@ def test_fused_emit_plain_matches_pallas(case, seed):
         assert np.array_equal(np.asarray(w), np.asarray(g))
     if case == "overflow":
         assert want[3] > 0  # the corner is actually exercised
+    if case == "straddle":
+        # Some sender's reservation starts below cap and ends past it (no
+        # padding, no dead row: a row's kept lanes are its undropped ones).
+        start, straddles = d["cnt"][0].astype(np.int64), 0
+        for s, ec in zip(d["wslot"], (~d["drop"]).sum(axis=1)):
+            straddles += start[s] < kw["cap"] < start[s] + ec
+            start[s] += ec
+        assert want[3] > 0 and straddles
     # The unfused layout + index_put_ (-phase2-kernel xla) is the same
     # function.
     got2 = _port_emit(d, kw, fn=megakernel.emit_plain)
@@ -421,6 +438,8 @@ def _source_defines(name):
 def test_drain_and_recv_constants_match_the_sources():
     """The wrappers size the scratch, workspace and partitions the C entry
     points lay out (they refuse a smaller one): hold the constants."""
+    import os
+
     d = _source_defines("fused_drain_sum")
     assert megakernel.DRAIN_PART_MAX == d["PART_MAX"]
     assert megakernel.DRAIN_STAGE_MAX == d["STAGE_MAX"]
@@ -430,15 +449,24 @@ def test_drain_and_recv_constants_match_the_sources():
         <= megakernel.DRAIN_STAGE_MAX
     r = _source_defines("lookback.cuh")
     assert deliver.APPEND_TILE == r["THREADS"] * r["ITEMS"]
-    assert deliver.APPEND_WS_HEAD == 1 + r["DW_LIMIT"] // 2
+    # The head: the counters' word, then 2 * DW_LIMIT + 1 int32 sums.
+    assert deliver.APPEND_WS_HEAD == r["DW_LIMIT"] + 2
+    assert "#define WS_HEAD (DW_LIMIT + 2)" in open(
+        os.path.join(_build.CSRC, "lookback.cuh")).read()
     assert deliver.APPEND_EPOCH_MAX == r["EPOCH_MAX"]
     assert r["DW_LIMIT"] == deliver.RING_SLOTS_MAX
-    # Both single-pass appends take the shared header's layout, and define
-    # none of their own.
-    for name in ("fused_recv_land", "fused_ring_append"):
+    e = _source_defines("fused_emit")
+    assert megakernel.EMIT_TILE == r["THREADS"] * e["EMIT_ITEMS"]
+    # The three single-pass appends take the shared header's layout, and
+    # define none of their own.
+    for name in ("fused_recv_land", "fused_ring_append", "fused_emit"):
         src = open(_build._target(name)[0]).read()
         assert '#include "lookback.cuh"' in src
         assert not set(_source_defines(name)) & set(r), name
+    # Both deposits of rows list their lanes through one header.
+    for name in ("fused_deposit_rows", "fused_deposit_both"):
+        src = open(_build._target(name)[0]).read()
+        assert '#include "lanes.cuh"' in src and "listing::lanes(" in src
 
 
 def test_dynamic_shared_memory_goes_through_one_allow_smem():
@@ -453,7 +481,8 @@ def test_dynamic_shared_memory_goes_through_one_allow_smem():
     with open(os.path.join(_build.CSRC, "lookback.cuh")) as f:
         hdr = f.read()
     assert '#include "smem.cuh"' in hdr and "cudaFuncSetAttribute" not in hdr
-    for name in ("fused_drain_sum", "fused_recv_land", "fused_ring_append"):
+    for name in ("fused_drain_sum", "fused_recv_land", "fused_ring_append",
+                 "fused_emit"):
         with open(_build._target(name)[0]) as f:
             src = f.read()
         assert "allow_smem((const void*)" in src, name
@@ -706,6 +735,85 @@ def test_ring_launch_shares_the_workspace_and_allocates_nothing(
     assert a[14] == 1 and int(ws.abs().sum()) == 0
     assert deliver._build.LAUNCHES[deliver.RING] == 4
     assert [k for k, _ in calls] == ["ring", "ring", "recv", "ring", "ring"]
+
+
+@pytest.mark.parametrize("m,dw,blocks", (
+    (0, 3, 1), (256, 3, 1), (257, 3, 2), (131_072, 3, 512),
+    (65_536, 40, 256)))
+def test_emit_workspace_words_cover_the_look_back(m, dw, blocks):
+    """fused_emit runs ceil(m / EMIT_TILE) blocks of senders (one for m =
+    0) on the appends' workspace: 512 at the main path's batch."""
+    assert deliver.workspace_words(m, dw, megakernel.EMIT_TILE) == (
+        deliver.APPEND_WS_HEAD + blocks * dw)
+
+
+def test_emit_launch_shares_the_workspace_and_allocates_its_outputs_only(
+        monkeypatch):
+    """fused_emit's launch path is one C call a call on the (card, stream)
+    workspace that the ring appends use (a new epoch each call, whichever
+    kernel made the last one), sized for EMIT_TILE senders a block; its
+    only allocation is the torch.empty of its 2 * dw + 1 outputs, which
+    it returns as views (adds, sup, lost); the group of threads a row
+    follows kw.  CPU tensors, the C entry points replaced by recorders."""
+    calls = []
+
+    def entry(kind):
+        def fn(*args):
+            calls.append((kind, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(megakernel, "_emit_fn", lambda: entry("emit"))
+    monkeypatch.setattr(deliver, "_ring_fn", lambda: entry("ring"))
+    monkeypatch.setattr(deliver._build, "LAUNCHES", dict(_build.LAUNCHES))
+    monkeypatch.setattr(deliver, "_WS", {})
+    monkeypatch.setattr(deliver, "_stream", lambda index: 9)
+    allocs = []
+    for name in ("empty", "zeros", "full", "zeros_like", "empty_like"):
+        def record(*a, _real=getattr(torch, name), _name=name, **kw):
+            allocs.append((_name, a))
+            return _real(*a, **kw)
+        monkeypatch.setattr(torch, name, record)
+
+    def emit_call(**case):
+        d, kw = _emit_inputs(4, **case)
+        args = [T(d["ring"].copy()), T(d["cnt"]), T(d["sf"]),
+                T(d["drop"]), T(d["svalid"]), T(d["wslot"]), T(d["off"])]
+        out = megakernel._launch(
+            *args, strig=T(d["strig"]) if "strig" in d else None,
+            sender_ids=T(d["sids"]) if "sids" in d else None, flags=None,
+            received_bit=1, tb=kw.pop("tb", None), **kw)
+        return out, calls[-1][1]
+
+    (_, adds, sup, lost), a = emit_call(m=600)  # makes the workspace
+    assert [x[0] for x in allocs] == ["zeros", "empty"]
+    assert allocs[1][1] == (7,)  # the outputs: 2 * dw + 1
+    ws = deliver._WS[None, 9][0]
+    assert ws.numel() >= deliver.workspace_words(600, 3,
+                                                 megakernel.EMIT_TILE)
+    assert (a[19], a[20], a[21], a[22]) == (ws.data_ptr(), ws.numel(), 1, 9)
+    assert a[18] == adds.data_ptr() and a[17] == 1  # group: kw 6
+    assert (adds.shape, sup.shape, lost.shape) == ((3,), (3,), ())
+    assert sup.data_ptr() == adds.data_ptr() + 12
+    allocs.clear()
+    a = emit_call(k=37, sir=True, m=100)[1]
+    assert a[17] == 8 and a[21] == 2 and len(allocs) == 1
+    d, kw = _ring_inputs(3, m=300)
+    deliver._ring_launch(tuple(T(r.copy()) for r in d["rings"]),
+                         T(d["cnt"].copy()), torch.tensor(0, dtype=torch.int32),
+                         tuple(T(p) for p in d["pays"]), T(d["wslot"]),
+                         T(d["valid"]), kw["dw"], kw["cap"])
+    assert calls[-1][1][14] == 3  # the ring append took the next epoch
+    assert emit_call(m=0)[1][21] == 4
+    assert deliver._build.LAUNCHES[megakernel.NAME] == 3
+    assert [k for k, _ in calls] == ["emit", "emit", "ring", "emit"]
+
+
+def test_emit_group_follows_the_row_width():
+    """A thread serves a row of up to eight lanes (the main path's 6 and
+    7), eight threads a wider one."""
+    assert [megakernel.emit_group(kw) for kw in (1, 6, 7, 8, 9, 33, 38, 112)] \
+        == [1, 1, 1, 1, 8, 8, 8, 8]
 
 
 def test_unported_inputs_raise():

@@ -4,8 +4,9 @@ only) at n = 2000, for two seeds and ``-pushsum-dim`` 1, 2 and 8, and the
 port's ``report()`` must equal the reference's ``pushsum.report``, which
 the reference writes only to its JSONL result record (``-log-jsonl``).
 
-The reference runs its windowed loop (``-telemetry off``), the loop the
-port has.  Its kernel gates cannot run on hosts where its interpret-mode
+Both packages run their windowed loops (``-telemetry off``); the default
+transcript is twinned in test_torch_telemetry_cli.py.  The reference's
+kernel gates cannot run on hosts where its interpret-mode
 probes fail (ROADMAP §C) and it pins them bit-identical to its xla gates,
 so the port's runs under the default gates (fused_drain_sum and the wide
 fused_ring_append), ``-phase2-kernel xla`` (the chunked drain through
@@ -81,7 +82,8 @@ def test_cli_twin_byte_identical(name, jax_runs):
     assert jrc == 0, jerr
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = torch_main([*TWINS[name], "-device", "cpu"])
+        rc = torch_main([*TWINS[name], "-telemetry", "off", "-device",
+                         "cpu"])
     assert rc == jrc
     assert out.getvalue().count("\n") > 8
     assert out.getvalue() == jout
@@ -92,7 +94,7 @@ def test_cli_twin_byte_identical(name, jax_runs):
 def test_every_gate_gives_the_reference_run_and_report(name, gate, jax_runs):
     _, jout, jerr, jreport = jax_runs[name]
     assert jreport is not None, jerr
-    cfg, _ = parse_cli(TWINS[name] + GATES[gate])
+    cfg, _ = parse_cli(TWINS[name] + GATES[gate] + ["-telemetry", "off"])
     buf = io.StringIO()
     res = run_simulation(cfg, printer=ProgressPrinter(out=buf),
                          stepper=TorchStepper(cfg, device="cpu"))

@@ -11,10 +11,10 @@ to its xla gates, so the port's multi-rumor runs under the default gates
 fused_deposit_rows) and all-xla are held to the reference's transcripts
 of the same flags, which run its xla chains.
 
-The reference runs its windowed loop (``-telemetry off``), the loop the
-port has: under ``-rumors`` its telemetry fast path replays per-window
-coverage from total_received where the windowed loop prints the worst
-rumor's coverage (ROADMAP §C)."""
+Both packages run their windowed loops (``-telemetry off``), which print
+the worst rumor's coverage under ``-rumors``; the default (``-telemetry
+on``) transcripts, which print total_received / n there, are twinned in
+test_torch_telemetry_cli.py."""
 
 import contextlib
 import io
@@ -68,9 +68,10 @@ def jax_transcripts():
 
 
 def _port_cli(argv):
+    """The port's windowed loop: -telemetry off."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = torch_main([*argv, "-device", "cpu"])
+        rc = torch_main([*argv, "-telemetry", "off", "-device", "cpu"])
     return rc, out.getvalue()
 
 

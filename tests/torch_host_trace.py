@@ -1,6 +1,6 @@
-"""Where one call of fused_ring_append and of fused_deposit_rows spends its
-host time, at the full-size paths' shapes: one torch.profiler session (CPU
-and CUDA activities) a case.
+"""Where one call of fused_ring_append, fused_emit, fused_deposit_rows and
+fused_deposit_both spends its host time, at the full-size paths' shapes:
+one torch.profiler session (CPU and CUDA activities) a case.
 
     python tests/torch_host_trace.py [--calls 3] [--seed 0]
 
@@ -9,9 +9,11 @@ copy placed in another tree (an unpacked `git archive` of an earlier
 commit) traces that tree's wrappers.  Cases: fused_ring_append at the 10M
 default run's emission chunk into its two rings (main, and a small cap
 that overflows) and at pushsum10m's window (6e7 lanes into the id ring and
-the 12-limb mass ring); fused_deposit_rows at the multi-rumor 1M run's
-deposit (6e6 lanes x 16, a fifth of the rows sending) and at PushSum's
-drain chunk (524,288 lanes x 12).  Prints the card's name and power limit,
+the 12-limb mass ring); fused_emit at the kout 10M run's batch (131,072
+senders, 6 friends, 3 ring slots; SI, and SIR with the duplicate filter);
+fused_deposit_rows at the multi-rumor 1M run's deposit (6e6 lanes x 16, a
+fifth of the rows sending) and at PushSum's drain chunk (524,288 lanes x
+12); fused_deposit_both at the multi-rumor deposit.  Prints the card's name and power limit,
 then a line a case: the enqueue (the host clock around the wrapper call,
 the profiler's own costs in), the CUDA runtime calls inside the call's
 range (count and host us by name), its aten ops (self host us, the six
@@ -33,9 +35,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from gossip_simulator_tpu_torch.config import Config, parse_cli  # noqa: E402
+from gossip_simulator_tpu_torch.models import event  # noqa: E402
 from gossip_simulator_tpu_torch.models import overlay_ticks as ot  # noqa: E402
 from gossip_simulator_tpu_torch.models import pushsum as ps  # noqa: E402
-from gossip_simulator_tpu_torch.ops import deliver  # noqa: E402
+from gossip_simulator_tpu_torch.ops import deliver, megakernel  # noqa: E402
 
 ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_sync_all_streams",
                "num_alloc_retries", "allocation.all.allocated")
@@ -130,6 +133,31 @@ def ring_cases(dev, gen, calls: int) -> None:
     torch.cuda.empty_cache()
 
 
+def emit_cases(dev, gen, calls: int) -> None:
+    ri = lambda lo, hi, shape: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+    cfg = Config(n=10_000_000, fanout=6, graph="kout").validate()
+    n, k, b = cfg.n, cfg.fanout, event.batch_ticks(cfg)
+    dw, cap = event.ring_windows(cfg), event.slot_cap(cfg)
+    m = event.sender_compaction_cap(cfg, event.drain_chunk(cfg))
+    ring = torch.zeros(dw * cap + event.ring_tail(cfg), dtype=torch.int32,
+                       device=dev)
+    svalid = torch.arange(m, device=dev) < m - m // 10
+    args = (ri(0, cap // 2, (1, dw)), ri(0, n, (m, k)),
+            torch.rand((m, k), generator=gen, device=dev) < 0.1, svalid,
+            ri(0, dw, (m,)), ri(0, b, (m,)))
+    sir = dict(tb=(n + 1) * b, strig=svalid, sender_ids=ri(0, n, (m,)),
+               flags=(torch.rand(n + 1, generator=gen, device=dev) < 0.5
+                      ).to(torch.uint8))
+    for name, kw in (("si", {}), ("sir_dup", sir)):
+        host_trace(f"fused_emit[{name}]",
+                   lambda: megakernel.fused_emit(  # noqa: B023
+                       ring, *args, dw=dw, cap=cap, b=b, **kw),  # noqa: B023
+                   lambda: None, calls)
+    del ring
+    torch.cuda.empty_cache()
+
+
 def deposit_cases(dev, gen, calls: int) -> None:
     ri = lambda lo, hi, shape: torch.randint(  # noqa: E731
         lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
@@ -145,7 +173,13 @@ def deposit_cases(dev, gen, calls: int) -> None:
     host_trace("fused_deposit_rows",
                lambda: deliver.fused_deposit_rows(pend, slots, dst, vals),
                lambda: None, calls)
-    del pend
+    count = ri(0, 4, (b, n))
+    newbits = vals[::k] != 0
+    host_trace("fused_deposit_both",
+               lambda: megakernel.fused_deposit_both(
+                   count, pend, dst, slots, sending, newbits),
+               lambda: None, calls)
+    del pend, count
     cfg, _ = parse_cli(PUSHSUM_ARGV)
     n, c, m = cfg.n, ps.mass_cols(cfg), ps.drain_chunk(cfg)
     slots, dst = ri(0, 1, (m,)), ri(0, n, (m,))
@@ -173,6 +207,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     ring_cases(dev, gen, args.calls)
+    emit_cases(dev, gen, args.calls)
     deposit_cases(dev, gen, args.calls)
     return 0
 
