@@ -26,10 +26,15 @@ Phases, each printing its own line:
               rank-major: an 8,388,608-lane burst chunk, the scap + 1-lane
               re-delivery chunk, and a small spill that fills),
               fused_negotiate (n = 1e7 and a ragged n, both kinds),
-              fused_request_round (n = 1e7), fused_hosted_chunk ((8,
-              1e8) and (1, 1e8)), fused_deposit_add (the rounds-mode
-              dense deposit, 2 x 1e7 ring, 6e7 lanes; a compacted ticks
-              chunk, 20 x 1e7 ring, 468,750 lanes), fused_deposit_rows
+              fused_request_round (n = 1e7; its bound by the 32-byte
+              sectors its scattered stores write), fused_hosted_chunk ((8,
+              1e8) and (1, 1e8)), fused_deposit_add with the lanes' mask
+              in both forms (the wrapper's first, then the other) at the
+              rounds-mode deposit (2 x 1e7 ring, 6e7 lanes: the dense
+              form), a compacted ticks chunk (20 x 1e7 ring, 468,750
+              lanes) and the multi-rumor run's deposit (20 x 1e6 ring,
+              6e6 lanes), each with the dense form's overflow count,
+              fused_deposit_rows
               and fused_deposit_both (20 x 1e6 x 16 rings, 6e6 lanes);
               and PushSum's shapes at n = 1e7, fanout 6, dim 2 (C = 12
               limb columns, dw = 3, cap 7e7): fused_drain_sum over one
@@ -61,8 +66,10 @@ Phases, each printing its own line:
               idle card is printed ("host" lines, with index_put_'s and
               the parts of the unique_set wrapper, and those of the
               fused_ring_append (main, wide), fused_emit (overlay, si),
-              fused_deposit_rows (rumors) and fused_deposit_both
-              wrappers), and fused_emit's two forms (a thread and eight
+              fused_deposit_add (each shape, in its form),
+              fused_deposit_rows (rumors), fused_deposit_both and
+              erdos_pallas (lam 8 and 60) wrappers), and fused_emit's two
+              forms (a thread and eight
               threads a sender row) are profiled at each shape
               ("forms" lines, device ms per call: ops/megakernel.py
               emit_group's measurement);
@@ -99,10 +106,12 @@ Phases, each printing its own line:
               minutes and as a pair at 4e7 otherwise; the 1e8 run also
               prints its rounds, spill peak, phase seconds and peak memory;
               then the ring engine: -time-mode rounds at n = 1e7 (the
-              rounds overlay, then ring rounds with 6e7-lane deposits) and
-              -engine ring -graph kout -fanout 6 at n = 1e7, each under
-              both gate settings; -protocol pushpull -fanout 23 at n = 1e7
-              (pushpull_10m_logn, no kernel: once); and -engine ring
+              rounds overlay, then ring rounds with 6e7-lane deposits,
+              which must take fused_deposit_add's dense form) and
+              -engine ring -graph kout -fanout 6 at n = 1e7 (its direct
+              form only), each under both gate settings; -protocol
+              pushpull -fanout 23 at n = 1e7 (pushpull_10m_logn, no
+              kernel: once); and -engine ring
               -rumors 16 -crashrate 0 -coverage-target 0.95 at n = 1e6
               (multirumor_1m_r16) under the default gates
               (fused_deposit_both), -phase2-kernel xla (fused_deposit_add,
@@ -173,6 +182,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -196,12 +206,12 @@ DISPATCH_OPS_PER_S = 128 * 132 * 1.98e9
 # Instructions (all, ALU-only) of the generator kernels' pieces: a
 # threefry2x32 block is 20 rounds of add, funnel-shift rotate and xor plus
 # the key injections; a 32-bit unsigned remainder by a loop-invariant
-# divisor is the IMAD.HI, IMAD and two compare-and-subtract steps nvcc 12.8
-# emits for sm_90a once the reciprocal is hoisted (17 with it); an IEEE
-# float32 division is MUFU.RCP, FCHK and five FFMAs on its fast path.
+# divisor is a multiply-high, a subtract, two shifts, an add and a
+# multiply-subtract (erdos_pallas's magic-number form; kout_pallas's is
+# nvcc's IMAD.HI, IMAD and two compare-and-subtract steps once the
+# reciprocal is hoisted, 17 with it).
 THREEFRY_OPS = (72, 40)
 UREM32_OPS = (6, 2)
-FDIV32_OPS = 7
 REPS = 25  # CUDA-event timings per median
 TWIN_N = 20_000  # cuda-vs-cpu twins
 FULL_N = 10_000_000  # the main path's full size (the jax_10m shape)
@@ -211,6 +221,7 @@ PHASE1_KERNELS = ("fused_ring_append", "fused_chunk_step", "fused_negotiate")
 ROUNDS_KERNELS = ("fused_chunk_step", "fused_negotiate", "fused_emit")
 SPILL = "fused_chunk_step:spill"  # the spill form's own count
 DEPOSIT = "fused_deposit_add"
+DEPOSIT_DENSE = "fused_deposit_add:dense"  # the dense form's own count
 # -time-mode rounds: the rounds overlay (staggered bootstrap), then the
 # ring engine's rounds.
 RING_ROUNDS_KERNELS = ("fused_chunk_step", "fused_negotiate",
@@ -282,6 +293,8 @@ def time_ms(fn, reps: int, setup=None) -> float:
 # Device ms per call of each case of phase 3, from torch.profiler.
 DEVICE: dict = {}
 DEVICE_REPS = 3  # calls profiled per case
+# Lanes fused_deposit_add's dense form sent past a full bucket, by full run.
+DEPOSIT_OVERFLOW: dict = {}
 
 
 def _kernel_name(key: str) -> str:
@@ -930,20 +943,30 @@ def request_parity(dev, gen, reps: int) -> dict:
         lambda: [fr0.clone(), cnt0.clone()],
         lambda fn, st: fn(*st, w, fanout=fanout)[2:], restore, reps)
     under = int(out[3])
-    # cnt and w in, em out, for every row; an under row writes one
-    # friends cell and its count.
-    bnd, by = bound_ms(n * 12 + under * 8, n * 10)
+    # cnt and w read and em written for every row; an under row writes one
+    # friends cell and its count, each a 4-byte store into a 32-byte
+    # sector: the distinct sectors written, each friends sector only
+    # written (the lower bound, the row's) or also read (a partial
+    # sector's read-modify-write; cnt's sectors are read in full anyway).
+    rows_u = torch.nonzero(cnt0 < fanout).flatten()
+    cells = rows_u * k + torch.clamp_max(cnt0[rows_u], k - 1).long()
+    f_sec = int(torch.unique(cells // 8).numel())
+    c_sec = int(torch.unique(rows_u // 8).numel())
+    reads, writes = n * 8, n * 4 + (f_sec + c_sec) * 32
+    bnd, by = bound_ms(reads + writes, n * 10)
+    rw, _ = bound_ms(reads + writes + f_sec * 32, n * 10)
     say(f"fused_request_round: bit-exact (n {n}, {under} rows under "
-        f"fanout); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-        f"{bnd:.5f} ms ({by})")
-    del fr0, cnt0, w, out
+        f"fanout: {f_sec} friends and {c_sec} cnt sectors written); kernel "
+        f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd:.5f} ms ({by}; "
+        f"{rw:.5f} ms if each written sector is also read)")
+    del fr0, cnt0, w, out, rows_u, cells
     torch.cuda.empty_cache()
     return dict(route="cuda",
                 source="gossip_simulator_tpu_torch/csrc/fused_request_round.cu",
                 replaces="gossip_simulator_tpu/ops/pallas_overlay_kernel.py"
                          ":260",
                 max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, read_write_bound_ms=rw)
 
 
 def hosted_parity(dev, gen, reps: int) -> dict:
@@ -1089,15 +1112,16 @@ def _deposit_lanes(gen, dev, b, n, rows, k, valid, per_row_slot=True):
 
 
 def _touched(flat, ok, cols=None):
-    """Distinct cells the in-range lanes touch (flat * width + column for
-    the nonzero entries of `cols`), each read and written once."""
+    """Distinct 32-byte sectors the in-range lanes touch (cells flat *
+    width + column for the nonzero entries of `cols`), each read and
+    written once: a 4-byte scattered add moves a whole sector."""
     cells = flat[ok]
     if cols is not None:
         v = cols[ok]
         w = v.shape[1]
         idx = (cells[:, None] * w + torch.arange(w, device=flat.device))
         cells = idx[v != 0]
-    return int(torch.unique(cells).numel())
+    return int(torch.unique(cells // 8).numel())
 
 
 def deposit_host(label, pend, slots, dst, vals) -> None:
@@ -1139,55 +1163,140 @@ def both_host(st, dst, slots, valid, newbits) -> None:
         "ctypes call": lambda: fn(*head)})
 
 
+def add_host(label, pend, slots, dst, valid) -> None:
+    """The host time to enqueue one fused_deposit_add call with the mask
+    (as models/epidemic.deposit_local makes it), and its parts: the checks,
+    the dense form's workspace (where the call takes that form) and the
+    ctypes call (on the direct form's arguments: a repeated dense call
+    would add into cursors its partition blocks had not yet zeroed)."""
+    from gossip_simulator_tpu_torch.ops import deliver
+
+    b, n = pend.shape
+    m = slots.shape[0]
+    stream = deliver._stream(pend.get_device())
+    bits = deliver.deposit_part_bits(m, b * n)
+    parts = {
+        "wrapper": lambda: deliver.fused_deposit_add(pend, slots, dst,
+                                                     valid),
+        "checks": lambda: deliver._add_check(pend, slots, dst, valid)}
+    if bits:
+        cells = (b * n + (1 << bits) - 1) >> bits
+        elems = cells * deliver.deposit_bucket_cap(m, cells)
+        parts["workspace"] = lambda: deliver.deposit_workspace(
+            pend.device, stream, elems)
+    else:
+        fn = deliver._add_fn()
+        head = (pend.data_ptr(), slots.data_ptr(), dst.data_ptr(),
+                valid.data_ptr(), m, b, n, 0, None, None, 0, stream)
+        parts["ctypes call"] = lambda: fn(*head)
+    host_split(f"{label} ({'dense' if bits else 'direct'} form)", parts)
+
+
+def deposit_add_parity(dev, gen, reps: int) -> dict:
+    """fused_deposit_add as the ring engine calls it (the lanes and their
+    mask: models/epidemic.deposit_local) at the full-size runs' three
+    shapes: ring_rounds10m's rounds deposit (b = 2, n = 1e7, m = n * 6
+    lanes, all into one slot, 35 % kept), ring_kout10m's compacted ticks
+    chunk (b = 20, n = 1e7, 78,125 sender rows * 6, 90 % kept) and
+    rumors1m_p2_xla's dense deposit (b = 20, n = 1e6, 6e6 lanes, a fifth
+    of the rows sending, 90 % of their lanes kept).  At each, both forms
+    (the wrapper's, then the other, forced through DEPOSIT_DENSE_MIN) are
+    bit-exact to deposit_add_plain and timed, beside index_put_ with
+    accumulate on the kept lanes and the bound: every lane's slot, dst and
+    valid byte read once, and each touched 32-byte sector of the ring read
+    and written once; the direct form's atomic floor is printed too.
+    Returns the fused_deposit_add row (the rounds shape; chunk_* and
+    rumors_* columns)."""
+    from gossip_simulator_tpu_torch.ops import deliver
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    row, err = {}, 0
+    keep_min = deliver.DEPOSIT_DENSE_MIN
+    for name, b, n, rows, keep, sending, per_row in (
+            ("rounds", 2, RING_N, RING_N, 0.35, 1.0, False),
+            ("chunk", 20, RING_N, RING_N // 128, 0.9, 1.0, True),
+            ("rumors", 20, RUMOR_N, RUMOR_N, 0.9, 0.2, True)):
+        slots, dst, ok, _ = _deposit_lanes(gen, dev, b, n, rows, 6, keep,
+                                           per_row)
+        if sending < 1.0:
+            ok &= (torch.rand(rows, generator=gen, device=dev)
+                   < sending).repeat_interleave(6)
+        pend0 = torch.randint(0, 4, (b, n), generator=gen, **i32)
+        m = slots.numel()
+        bits = deliver.deposit_part_bits(m, b * n)
+        forms = ("dense", "direct") if bits else ("direct", "dense")
+        cols = {}
+        for form in forms:
+            deliver.DEPOSIT_DENSE_MIN = (keep_min if form == forms[0] else
+                                         0.0 if form == "dense" else
+                                         float("inf"))
+            lost0 = deliver.deposit_overflow(dev)
+            try:
+                out, e, t_k, t_p = check_and_time(
+                    f"fused_deposit_add[{name}"
+                    + ("" if form == forms[0] else f", {form}") + "]",
+                    deliver.deposit_add_plain, deliver.fused_deposit_add,
+                    lambda: [pend0.clone()],  # noqa: B023
+                    lambda fn, st: [fn(st[0], slots, dst,  # noqa: B023
+                                       ok)][1:],  # noqa: B023
+                    lambda st: None, reps)
+                lost = deliver.deposit_overflow(dev) - lost0
+                if form == forms[0]:
+                    add_host(f"fused_deposit_add[{name}]", out[0], slots,
+                             dst, ok)
+            finally:
+                deliver.DEPOSIT_DENSE_MIN = keep_min
+            err = max(err, e)
+            cols[form] = (t_k, t_p, lost)
+            del out
+        flat = slots.long() * n + dst.long()
+        flat_ok = flat[ok]
+        kept = int(flat_ok.numel())
+        one = torch.ones(kept, **i32)
+        pv = pend0.clone().view(-1)
+        t_l = time_ms(lambda: pv.index_put_((flat_ok,),  # noqa: B023
+                                            one, accumulate=True),  # noqa
+                      reps)
+        sectors = _touched(flat, ok)
+        bnd, by = bound_ms(m * 9 + sectors * 64, m * 4)
+        t_k, t_p, lost = cols[forms[0]]
+        other = cols[forms[1]]
+        say(f"fused_deposit_add[{name}]: both forms bit-exact over {m} "
+            f"lanes ({b} x {n} ring, {kept} kept, {sectors} sectors "
+            f"touched, {m / (b * n):.4f} lanes a cell); the wrapper's "
+            f"{forms[0]} form {t_k:.4f} ms ({lost} lanes past a full "
+            f"bucket), the {forms[1]} form {other[0]:.4f} ms ({other[2]}); "
+            f"plain {t_p:.4f} ms, index_put_ {t_l:.4f} ms, bound "
+            f"{bnd:.5f} ms ({by}); {kept} adds are "
+            f"{kept / L2_ATOMICS_PER_S * 1e3:.5f} ms at the L2 atomic rate")
+        c = dict(ms=t_k, plain_ms=t_p, bound_ms=bnd, bound_by=by,
+                 library_ms=t_l, form=forms[0], other_form_ms=other[0],
+                 overflow=lost)
+        if name == "rounds":
+            row.update(c)
+        else:
+            row.update({f"{name}_{k}": v for k, v in c.items()})
+        del slots, dst, ok, pend0, flat, flat_ok, one, pv
+        torch.cuda.empty_cache()
+    return dict(route="cuda", source="gossip_simulator_tpu_torch/csrc/"
+                "fused_deposit_add.cu",
+                replaces="gossip_simulator_tpu/ops/pallas_deliver.py:291",
+                max_abs_err=err, **row)
+
+
 def deposit_parity(dev, gen, reps: int) -> dict:
     """The ring engine's three deposit kernels at the full-size runs'
     shapes, each bit-exact to its plain version and timed beside it, the
     one PyTorch call computing the same adds (index_put_ with accumulate
     on the in-range lanes, the mask taken outside the timed span) and the
-    bound: fused_deposit_add at the rounds-mode dense deposit (b = 2, n =
-    1e7, m = n * 6 lanes, one slot, 35 % kept) and at one compacted
-    ticks-mode chunk (b = 20, n = 1e7, 78,125 sender rows * 6, 90 %
-    kept); fused_deposit_rows and fused_deposit_both at the multi-rumor
-    1M run's dense deposit (b = 20, n = 1e6, R = 16, m = 6e6, 20 % of the
-    rows sending, their new-bit rows 25 % set)."""
+    bound: fused_deposit_add at its three shapes (deposit_add_parity);
+    fused_deposit_rows and fused_deposit_both at the multi-rumor 1M run's
+    dense deposit (b = 20, n = 1e6, R = 16, m = 6e6, 20 % of the rows
+    sending, their new-bit rows 25 % set)."""
     from gossip_simulator_tpu_torch.ops import deliver, megakernel
 
     i32 = dict(dtype=torch.int32, device=dev)
-    rows_out = {}
-    add_row, add_err = None, 0
-    for name, b, n, rows, valid, per_row in (
-            ("rounds", 2, RING_N, RING_N, 0.35, False),
-            ("chunk", 20, RING_N, RING_N // 128, 0.9, True)):
-        slots, dst, ok, dst_n = _deposit_lanes(gen, dev, b, n, rows, 6,
-                                               valid, per_row)
-        pend0 = torch.randint(0, 4, (b, n), generator=gen, **i32)
-        out, e, t_k, t_p = check_and_time(
-            f"fused_deposit_add[{name}]", deliver.deposit_add_plain,
-            deliver.fused_deposit_add, lambda: [pend0.clone()],
-            lambda fn, st: [fn(st[0], slots, dst_n)][1:],  # noqa: B023
-            lambda st: None, reps)
-        add_err = max(add_err, e)
-        flat = slots.long() * n + dst_n.long()
-        flat_ok, one = flat[ok], torch.ones(int(ok.sum()), **i32)
-        pv = out[0].view(-1)
-        t_l = time_ms(lambda: pv.index_put_((flat_ok,), one,  # noqa: B023
-                                            accumulate=True), reps)
-        m = slots.numel()
-        bnd, by = bound_ms(m * 8 + _touched(flat, ok) * 8, m * 4)
-        say(f"fused_deposit_add[{name}]: bit-exact over {m} lanes ({b} x {n} "
-            f"ring, {int(ok.sum())} kept); kernel {t_k:.4f} ms, plain "
-            f"{t_p:.4f} ms, index_put_ {t_l:.4f} ms, bound {bnd:.5f} ms "
-            f"({by})")
-        if name == "rounds":
-            add_row = dict(ms=t_k, plain_ms=t_p, bound_ms=bnd, bound_by=by,
-                           library_ms=t_l)
-        del slots, dst, ok, dst_n, pend0, out, flat, flat_ok, one, pv
-        torch.cuda.empty_cache()
-    rows_out["fused_deposit_add"] = dict(
-        route="cuda", source="gossip_simulator_tpu_torch/csrc/"
-        "fused_deposit_add.cu",
-        replaces="gossip_simulator_tpu/ops/pallas_deliver.py:291",
-        max_abs_err=add_err, **add_row)
+    rows_out = {"fused_deposit_add": deposit_add_parity(dev, gen, reps)}
 
     b, n, r, k, rows = 20, RUMOR_N, 16, 6, RUMOR_N
     slots, dst, ok, dst_n = _deposit_lanes(gen, dev, b, n, rows, k, 1.0)
@@ -1216,9 +1325,9 @@ def deposit_parity(dev, gen, reps: int) -> dict:
                                         accumulate=True), reps)
     kept = int(ok.sum())
     # Every lane's slot and dst; the value row of an in-range lane only.
-    bnd, by = bound_ms(m * 8 + kept * r * 4 + touched_r * 8, kept * r)
+    bnd, by = bound_ms(m * 8 + kept * r * 4 + touched_r * 64, kept * r)
     say(f"fused_deposit_rows: bit-exact over {m} lanes x {r} ({kept} "
-        f"kept, {touched_r} cells touched); kernel {t_k:.4f} ms, plain "
+        f"kept, {touched_r} sectors touched); kernel {t_k:.4f} ms, plain "
         f"{t_p:.4f} ms, index_put_ {t_l:.4f} ms, bound {bnd:.5f} ms ({by})")
     rows_out["fused_deposit_rows"] = dict(
         route="cuda", source="gossip_simulator_tpu_torch/csrc/"
@@ -1247,8 +1356,8 @@ def deposit_parity(dev, gen, reps: int) -> dict:
     # Every lane's valid byte; slot and dst of a valid lane; the bit row
     # of a sender with a valid lane, once.
     senders = int(ok.view(rows, k).any(dim=1).sum())
-    bnd, by = bound_ms(m + kept * 8 + senders * r + touched * 8
-                       + touched_r * 8, kept * (r + 1))
+    bnd, by = bound_ms(m + kept * 8 + senders * r + touched * 64
+                       + touched_r * 64, kept * (r + 1))
     # The adds through L2 atomics: one a kept lane's count, one a set bit;
     # and the 32-byte sectors they fall in, each read and written once
     # from device memory (a random 4-byte add moves a whole sector).
@@ -1428,9 +1537,9 @@ def pushsum_rows_parity(dev, gen, reps: int) -> dict:
                   reps)
     ok = torch.ones(ccap, dtype=torch.bool, device=dev)
     touched = _touched(flat, ok, vals)
-    bnd, by = bound_ms(ccap * 8 + ccap * c * 4 + touched * 8, ccap * c)
+    bnd, by = bound_ms(ccap * 8 + ccap * c * 4 + touched * 64, ccap * c)
     say(f"fused_deposit_rows[pushsum]: bit-exact over {ccap} lanes x {c} "
-        f"(1 x {n} accumulator, {touched} cells touched); kernel "
+        f"(1 x {n} accumulator, {touched} sectors touched); kernel "
         f"{t_k:.4f} ms, plain {t_p:.4f} ms, index_put_ {t_l:.4f} ms, bound "
         f"{bnd:.5f} ms ({by})")
     del out, pv, acc0, slots, dst, vals, flat
@@ -1573,16 +1682,41 @@ def kout_ops(rows: int, k: int) -> tuple[float, float]:
 
 def erdos_ops(rows: int, cap: int, live: int) -> tuple[float, float]:
     """(all, ALU-only) instructions erdos_pallas needs in the default
-    layout: once, the stream key (one threefry block) and the cap-long
-    cdf table (an IEEE division, an add, a multiply and a conversion a
-    step); a row derives its key and draws word 0 (two blocks), converts
-    it (~3) and compares with the table (a compare and an add a step:
-    2 * cap); a cell compares with the degree and stores (~3); a live cell
-    draws one block, takes a remainder by n and patches (~3 more, 2 on
-    the ALU)."""
+    layout: once, the stream key (one threefry block); a row derives its
+    key and draws word 0 (two blocks), converts it (~3) and finds its
+    degree in the nondecreasing cdf table (a compare, a select and two
+    adds a step of a binary search: 4 * ceil(log2(cap + 1))); a cell is
+    stored (~1); a live cell draws one block, takes a remainder by n and
+    patches (~3 more, 2 on the ALU)."""
     a, u = _ops(threefry=1 + 2 * rows + live, urem=live)
-    return (a + cap * (FDIV32_OPS + 3) + rows * (3 + 2 * cap)
-            + 3 * rows * cap + 3 * live, u + 2 * live)
+    steps = max(1, math.ceil(math.log2(cap + 1)))
+    return (a + rows * (3 + 4 * steps) + rows * cap + 3 * live,
+            u + 2 * live)
+
+
+def erdos_host(label, n, lam, key) -> None:
+    """The host time to enqueue one erdos_pallas call of all n rows, and
+    its parts: the two outputs' torch.empty, the cdf table's lookup (built
+    once per lam) and the ctypes call (no device-to-host read)."""
+    from gossip_simulator_tpu_torch.config import er_cap
+    from gossip_simulator_tpu_torch.ops import deliver, graph
+
+    dev = key.device
+    cap = er_cap(lam)
+    f = torch.empty((n, cap), dtype=torch.int32, device=dev)
+    d = torch.empty(n, dtype=torch.int32, device=dev)
+    fn = graph._erdos_fn()
+    head = (f.data_ptr(), d.data_ptr(), key.data_ptr(),
+            graph.erdos_cdf_param(lam, cap), n, cap, 0, n,
+            int(graph._rng.partitionable()), deliver._stream(dev.index))
+    host_split(label, {
+        "wrapper": lambda: graph.erdos_pallas(n, lam, 0, n, key),
+        "outputs": lambda: (torch.empty((n, cap), dtype=torch.int32,
+                                        device=dev),
+                            torch.empty(n, dtype=torch.int32, device=dev)),
+        "cdf table": lambda: graph.erdos_cdf_param(lam, cap),
+        "ctypes call": lambda: fn(*head)})
+    del f, d
 
 
 def _blocks(n: int, step: int):
@@ -1647,6 +1781,7 @@ def graph_parity(dev) -> dict:
                      lambda: graph.erdos_pallas(n, lam, 0, n, key))  # noqa
         t_p = time_ms(lambda: [graph.erdos_plain(n, lam, r0, nr, key)  # noqa
                                for r0, nr in _blocks(n, step)], 2)  # noqa
+        erdos_host(f"erdos_pallas[{name}]", n, lam, key)
         bnd, by = bound_ms(n * (cap + 1) * 4, *erdos_ops(n, cap, live))
         say(f"erdos_pallas[{name}]: bit-exact over {n} rows x cap {cap} "
             f"({live} live cells, row blocks of {step}); kernel {t_k:.4f} "
@@ -2076,14 +2211,31 @@ def phase_ring(n: int, n_rumor: int) -> dict:
     (fused_deposit_both), -phase2-kernel xla (fused_deposit_add and
     fused_deposit_rows) and all-xla, which must give one transcript.
     Returns the launches of each run by name."""
+    from gossip_simulator_tpu_torch.ops import deliver
+
     runs = {}
+    dev = torch.device("cuda", 0)
     rounds = ["-time-mode", "rounds", "-n", str(n), "-seed", "0", *OVERLAY]
+    lost0 = deliver.deposit_overflow(dev)
     runs["ring_rounds10m"], runs["ring_rounds10m_xla"], _ = gate_pair(
         "ring_rounds10m", n, rounds, RING_ROUNDS_KERNELS)
+    # Lanes the dense form sent past a full bucket to global adds (the
+    # xla twin launches no kernel): the bucket sizing on real traffic.
+    DEPOSIT_OVERFLOW["ring_rounds10m"] = (deliver.deposit_overflow(dev)
+                                          - lost0)
     kout = ["-engine", "ring", "-graph", "kout", "-fanout", "6", "-n",
             str(n), "-seed", "0"]
     runs["ring_kout10m"], runs["ring_kout10m_xla"], _ = gate_pair(
         "ring_kout10m", n, kout, (DEPOSIT,))
+    # The rounds deposit (6 lanes a cell of its two-slot ring) takes the
+    # dense form, the compacted ticks chunks the direct one.
+    dense = {r: runs[r][DEPOSIT_DENSE] for r in ("ring_rounds10m",
+                                                  "ring_kout10m")}
+    if dense["ring_rounds10m"] <= 0 or dense["ring_kout10m"] != 0:
+        fail(f"full ring: fused_deposit_add's dense form launches {dense}, "
+             "expected the rounds run's deposits only")
+    say(f"full ring: fused_deposit_add's dense form launched {dense}; "
+        f"lanes past a full bucket {DEPOSIT_OVERFLOW}")
     pp = ["-protocol", "pushpull", "-graph", "kout", "-fanout", "23", "-n",
           str(n), "-seed", "0"]
     _, _, st, runs["pushpull10m"], _ = full_run("pushpull10m", n, pp)
@@ -2569,7 +2721,7 @@ PROFILE_KERNELS = (
     ("fused_negotiate", ("negotiate",)),
     ("fused_request_round", ("request_round",)),
     ("fused_hosted_chunk", ("occupancy",)),
-    ("fused_deposit_add", ("deposit_add",)),
+    ("fused_deposit_add", ("deposit_add", "part_list", "part_apply")),
     ("fused_deposit_rows", ("deposit_rows",)),
     ("fused_deposit_both", ("deposit_both",)),
     (DRAIN, ("drain_sum", "part_hist", "part_scan", "part_scatter",
@@ -2661,6 +2813,11 @@ def kernel_rows(kernels: dict, runs: dict) -> list:
         if "spill_ms" in row:
             out["spill_launches"] = sum(c.get(SPILL, 0)
                                         for c in runs.values())
+        if name == DEPOSIT:
+            out["dense_launches_by_run"] = {
+                run: c[DEPOSIT_DENSE] for run, c in runs.items()
+                if c.get(DEPOSIT_DENSE)}
+            out["dense_overflow_by_run"] = dict(DEPOSIT_OVERFLOW)
         # Device ms per call of each case of phase 3 (torch.profiler).
         out["device_ms"] = {lbl: round(ms, 5) for lbl, ms in DEVICE.items()
                             if lbl.split("[")[0] == name}

@@ -101,6 +101,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "scan.cuh"
+
 #define THREADS 256
 #define WARPS (THREADS / 32)
 #define ITEMS 16
@@ -137,34 +139,6 @@ __device__ __forceinline__ unsigned digit_peers(bool valid, int d, int bits) {
     peers &= bit ? on : ~on;
   }
   return peers;
-}
-
-// Block-wide exclusive scan of one value per thread (any multiple of 32
-// threads up to 1024); *total gets the block sum.  warp_tot: int[33] in
-// shared memory; the caller syncs before reusing it.
-__device__ int block_exclusive(int x, int* warp_tot, int* total) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int incl = x;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL_MASK, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) warp_tot[wid] = incl;
-  __syncthreads();
-  if (wid == 0) {
-    const int t = lane < nw ? warp_tot[lane] : 0;
-    int z = t;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL_MASK, z, o);
-      if (lane >= o) z += y;
-    }
-    if (lane < nw) warp_tot[lane] = z - t;
-    if (lane == 31) warp_tot[32] = z;
-  }
-  __syncthreads();
-  *total = warp_tot[32];
-  return warp_tot[wid] + incl - x;
 }
 
 // Block-wide inclusive max-scan of one value per thread; wmax: int[32].
@@ -277,7 +251,7 @@ radix_scan(int32_t* __restrict__ hist, int tiles, int32_t* __restrict__ dtot) {
   int local = 0;
   for (int t = lo; t < hi; ++t) local += row[t];
   int total;
-  int run = block_exclusive(local, warp_tot, &total);
+  int run = scan::block_excl<THREADS>(local, warp_tot, &total);
   for (int t = lo; t < hi; ++t) {
     const int c = row[t];
     row[t] = run;
@@ -302,7 +276,7 @@ __device__ int digit_scan(int radix, F v, int* out, int* warp_tot) {
     local += x[q];
   }
   int total;
-  int run = block_exclusive(local, warp_tot, &total);
+  int run = scan::block_excl<THREADS>(local, warp_tot, &total);
 #pragma unroll
   for (int q = 0; q < PER_MAX; ++q) {
     const int d = threadIdx.x * per + q;
@@ -548,7 +522,7 @@ __global__ void scan_tiles(const int32_t* __restrict__ a, int len,
   for (int j = 0; j < SCAN_ITEMS; ++j)
     if (base + j < len) x += a[base + j];
   int total;
-  block_exclusive(x, warp_tot, &total);
+  scan::block_excl<SCAN_THREADS>(x, warp_tot, &total);
   if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
 }
 
@@ -561,7 +535,7 @@ __global__ void scan_sums(int32_t* __restrict__ tile_sums, int tiles) {
   int local = 0;
   for (int j = lo; j < hi; ++j) local += tile_sums[j];
   int total;
-  int run = block_exclusive(local, warp_tot, &total);
+  int run = scan::block_excl<SCAN_THREADS>(local, warp_tot, &total);
   for (int j = lo; j < hi; ++j) {
     const int t = tile_sums[j];
     tile_sums[j] = run;
@@ -583,7 +557,7 @@ __global__ void scan_apply(int32_t* __restrict__ a, int len,
     x += v[j];
   }
   int total;
-  int run = tile_sums[blockIdx.x] + block_exclusive(x, warp_tot, &total);
+  int run = tile_sums[blockIdx.x] + scan::block_excl<SCAN_THREADS>(x, warp_tot, &total);
 #pragma unroll
   for (int j = 0; j < SCAN_ITEMS; ++j) {
     run += v[j];

@@ -76,6 +76,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "scan.cuh"
 #include "smem.cuh"
 
 #define THREADS 256
@@ -160,30 +161,6 @@ part_hist(const int32_t* __restrict__ ids, const int32_t* __restrict__ cnt,
     if (h[p]) atomicAdd(&counts[p], h[p]);
 }
 
-// Exclusive scan of x over one block of SCAN_THREADS threads (each the sum
-// of a run of consecutive bins); returns the threads' sums before it.
-__device__ int block_excl(int x, int* warp_tot) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  int y = x;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int z = __shfl_up_sync(0xffffffffu, y, o);
-    if (lane >= o) y += z;
-  }
-  if (lane == 31) warp_tot[wid] = y;
-  __syncthreads();
-  if (wid == 0) {
-    const int w = warp_tot[lane];
-    int z = w;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, z, o);
-      if (lane >= o) z += u;
-    }
-    warp_tot[lane] = z - w;
-  }
-  __syncthreads();
-  return warp_tot[wid] + y - x;
-}
-
 // offs[p] = the segment start of partition p, offs[parts] = the total;
 // cur = offs (the cursors the scatter advances).  With groups > 0 (two
 // passes), also each group's cursor ccur[g] = offs[g * group] and the
@@ -199,7 +176,7 @@ __global__ void part_scan(const int32_t* __restrict__ counts,
   const int lo = min(t * per, parts), hi = min(lo + per, parts);
   int x = 0;
   for (int p = lo; p < hi; ++p) x += counts[p];
-  int run = block_excl(x, warp_tot);
+  int run = scan::block_excl<SCAN_THREADS>(x, warp_tot);
   for (int p = lo; p < hi; ++p) {
     offs[p] = cur[p] = run;
     run += counts[p];
@@ -214,7 +191,7 @@ __global__ void part_scan(const int32_t* __restrict__ counts,
     chunks = (s1 - s0 + PART_TILE - 1) / PART_TILE;
   }
   __syncthreads();  // warp_tot is reused
-  const int first = block_excl(chunks, warp_tot);
+  const int first = scan::block_excl<SCAN_THREADS>(chunks, warp_tot);
   if (t < groups) cst[t] = first;
   if (t == SCAN_THREADS - 1) cst[groups] = first + chunks;
 }

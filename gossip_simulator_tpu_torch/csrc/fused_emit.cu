@@ -138,6 +138,7 @@ emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws,
   const long long blk = lookback::ticket(ws, sl, dw, &s_nok);
   const long long tile0 = blk * EMIT_TILE;
 
+  // STAGE 1
   // Masks and counts: G threads a row, neighbouring lanes, U passes of
   // the block's rows at a time.
   for (int p0 = 0; p0 < PASSES; p0 += U) {
@@ -180,6 +181,7 @@ emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws,
   }
   __syncthreads();
 
+  // STAGE 2
   // Weighted ranks, a thread a row: warp wid takes the tile's rows [wid *
   // 32 * EMIT_ITEMS, (wid + 1) * 32 * EMIT_ITEMS) in rounds of 32.
   const int row0 = wid * (32 * EMIT_ITEMS) + lane;
@@ -197,8 +199,10 @@ emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws,
   int* s_adds = sl.warp;  // free after the ranks
   for (int j = t; j < dw; j += THREADS) s_adds[j] = 0;
   if (t == 0) s_lost = 0;
+  // STAGE 3
   lookback::look_back(ws, blk, dw, epoch, sl);
 
+  // STAGE 4
   // Starts and verdicts: an okr row's first cell, adds and lost.
   int lost = 0;
 #pragma unroll
@@ -226,6 +230,7 @@ emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws,
     if (s_adds[j]) atomicAdd(&acc[DW_LIMIT + j], s_adds[j]);
   if (t == 0 && s_lost) atomicAdd(&acc[2 * DW_LIMIT], s_lost);
 
+  // STAGE 5
   // Ring stores: a kept lane of an okr row at its column (its kept rank in
   // the row), every other lane at its trash lane.  Rows of up to 32 lanes
   // go in the tile's (row, lane) order, a thread a lane, their kept lanes
@@ -293,6 +298,7 @@ emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws,
     }
   }
 
+  // STAGE 6
   // The last block to finish: the outputs, the head's sums, the counters.
   if (!lookback::last_to_finish(ws)) return;
   volatile int* sums = acc;

@@ -319,11 +319,12 @@ def compact_gather(cfg: Config, friends, friend_cnt, dslot, delay_key,
 
 def deposit_local(pending, dst, slots, valid, kernel: str = "xla"):
     """Scatter-add one arrival per valid lane into the ring, in place:
-    ``pallas`` is the fused_deposit_add kernel (its plain version on the
-    CPU), ``xla`` the unfused chain (the plain version's ops)."""
-    d = torch.where(valid, dst, pending.shape[1])  # out of range: no add
+    ``pallas`` is the fused_deposit_add kernel, which takes the mask itself
+    (its plain version on the CPU), ``xla`` the unfused chain (the plain
+    version's ops: invalid lanes moved to dst = n, out of range)."""
     if kernel == "pallas":
-        return deliver.fused_deposit_add(pending, slots, d)
+        return deliver.fused_deposit_add(pending, slots, dst, valid)
+    d = torch.where(valid, dst, pending.shape[1])  # out of range: no add
     return deliver.deposit_add_plain(pending, slots, d)
 
 

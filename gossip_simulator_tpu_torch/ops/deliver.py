@@ -18,9 +18,13 @@
 * ``fused_deposit_add`` / ``fused_deposit_rows`` -- the ring engine's
   deposits, ``pending[slot, dst] += 1`` and ``pending[slot, dst, :] +=
   vals[i]`` for lanes whose slot and dst lie in range (the Pallas
-  kernel's rule; other lanes add nothing); plain versions
+  kernel's rule; other lanes add nothing), fused_deposit_add optionally
+  of the lanes a ``valid`` mask keeps; plain versions
   ``deposit_add_plain`` and ``deposit_rows_plain``, one ``index_add_``
-  each, which the ``xla`` gate runs too.
+  each, which the ``xla`` gate runs too.  fused_deposit_add has two
+  forms, picked from the shape (``deposit_part_bits``): a direct pass of
+  global atomics for sparse calls, and a dense one that adds by ring
+  partitions in shared memory.
 
 On the card each wrapper launches its CUDA kernel (``csrc/<name>.cu``);
 on the CPU it takes the plain version.  A tensor on any other device
@@ -459,13 +463,77 @@ def fused_chunk_step(mbox, count, dropped, key, s, nk: int, cap: int,
 # --- fused_deposit_add / fused_deposit_rows ----------------------------------
 
 DEPOSIT = "fused_deposit_add"
+# The dense form's own launch count, beside the kernel's count of both.
+DEPOSIT_DENSE = "fused_deposit_add:dense"
 DEPOSIT_ROWS = "fused_deposit_rows"
-DEPOSIT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_longlong,
-                                            ctypes.c_void_p]
+DEPOSIT_ARGTYPES = ([ctypes.c_void_p] * 4
+                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_void_p])
 ROWS_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                          ctypes.c_longlong, ctypes.c_int,
                                          ctypes.c_void_p]
+# fused_deposit_add's dense form (csrc/fused_deposit_add.cu): the ring's
+# b*n cells in partitions of 2**DEPOSIT_PART_BITS cells (a 128 KB
+# shared-memory tile; a lane's offset in its partition is 16 bits), at
+# most DEPOSIT_PART_MAX of them (b*n up to 2.7e8), each with a bucket of
+# offsets sized from m.  The wrapper takes it when a call has at least
+# DEPOSIT_DENSE_MIN lanes a ring cell, the direct form below that.  Both
+# measured on the card (tests/torch_deposit_crossover.py: the dense form
+# faster from 0.75 lanes a cell in both lane layouts, the direct one at
+# 0.5 in one of them; tests/torch_kernel_variants.py; PERF.md): 2**15-cell
+# partitions listed faster than 2**14 (half the bucket claims).
+DEPOSIT_PART_BITS = 15
+DEPOSIT_PART_MAX = 8192
+DEPOSIT_DENSE_MIN = 0.75
+# (card index, raw stream) -> [int32 cursors + overflow word, uint16
+# buckets]: the dense form's workspace, kept across calls on one stream.
+_DEP_WS: dict = {}
+
+
+def deposit_part_bits(m: int, cells: int) -> int:
+    """log2 of the cells a partition of the dense form holds, or 0 for the
+    direct form: 0 below DEPOSIT_DENSE_MIN lanes a ring cell or where the
+    partitions would number more than DEPOSIT_PART_MAX, else
+    DEPOSIT_PART_BITS.  Shapes alone: no host read."""
+    bits = DEPOSIT_PART_BITS
+    if cells <= 0 or m < DEPOSIT_DENSE_MIN * cells \
+            or (cells + (1 << bits) - 1) >> bits > DEPOSIT_PART_MAX:
+        return 0
+    return bits
+
+
+def deposit_bucket_cap(m: int, parts: int) -> int:
+    """Offsets a partition's bucket holds: ceil(m / parts) rounded up to 16
+    (a bucket starts 32-byte aligned), so the buckets take about 2 bytes a
+    lane.  A partition that receives more lanes adds the rest with global
+    atomics (counted in the workspace's overflow word): with uniform
+    destinations all in one slot of a two-slot ring, as the rounds deposit
+    sends them, that begins where more than about half the lanes are
+    valid."""
+    return -(-max(1, -(-m // parts)) // 16) * 16
+
+
+def deposit_overflow(dev) -> int:
+    """The lanes the dense form has sent past a full bucket to global adds
+    on card `dev`'s current stream, summed over its calls there (a host
+    read, for reports and tests; 0 before the first dense call)."""
+    ws = _DEP_WS.get((dev.index, _stream(dev.index)))
+    return 0 if ws is None else int(ws[0][DEPOSIT_PART_MAX])
+
+
+def deposit_workspace(dev, stream: int, bucket_elems: int):
+    """The dense form's (cursors + overflow word, buckets) on (card,
+    stream): the cursors zeroed once (each call's partition blocks zero
+    theirs), the buckets grown to `bucket_elems` offsets."""
+    ws = _DEP_WS.get((dev.index, stream))
+    if ws is None:
+        ws = _DEP_WS[dev.index, stream] = [
+            torch.zeros(DEPOSIT_PART_MAX + 1, dtype=I32, device=dev), None]
+    if ws[1] is None or ws[1].numel() < bucket_elems:
+        ws[1] = None
+        ws[1] = torch.empty(bucket_elems, dtype=torch.int16, device=dev)
+    return ws[0], ws[1]
 
 
 def deposit_index(pending: torch.Tensor, slots: torch.Tensor,
@@ -485,9 +553,12 @@ def deposit_index(pending: torch.Tensor, slots: torch.Tensor,
 
 
 def deposit_add_plain(pending: torch.Tensor, slots: torch.Tensor,
-                      dst: torch.Tensor) -> torch.Tensor:
-    """Plain version: the flat in-range index, then one ``index_add_`` of
-    the mask on ``pending.view(-1)``.  In place."""
+                      dst: torch.Tensor, valid=None) -> torch.Tensor:
+    """Plain version: the lanes `valid` drops (where given) moved to dst =
+    n, the flat in-range index, then one ``index_add_`` of the mask on
+    ``pending.view(-1)``.  In place."""
+    if valid is not None:
+        dst = torch.where(valid, dst, pending.shape[1])
     flat, ok = deposit_index(pending, slots, dst)
     pending.view(-1).index_add_(0, flat, ok.to(pending.dtype))
     return pending
@@ -526,33 +597,99 @@ def _deposit_check(name, pending, slots, dst, vals=None) -> None:
                              f"{t.device} and {dev}")
 
 
-def _deposit_launch(name, symbol, argtypes, pending, slots, dst, vals=None):
+def _rows_launch(pending, slots, dst, vals):
     if not pending.is_contiguous():
-        raise ValueError(f"{name}: pending must be contiguous")
-    b, n = pending.shape[0], pending.shape[1]
-    fn = _build.function(name, symbol, argtypes)
-    tail = () if vals is None else (vals.data_ptr(),)
-    width = () if vals is None else (pending.shape[2],)
-    _build.count_launch(name)
-    rc = fn(pending.data_ptr(), slots.data_ptr(), dst.data_ptr(), *tail,
-            slots.shape[0], b, n, *width, _stream(pending.device.index))
-    _build.check(rc, name)
+        raise ValueError(f"{DEPOSIT_ROWS}: pending must be contiguous")
+    b, n, w = pending.shape
+    fn = _build.function(DEPOSIT_ROWS, "gossip_fused_deposit_rows",
+                         ROWS_ARGTYPES)
+    _build.count_launch(DEPOSIT_ROWS)
+    rc = fn(pending.data_ptr(), slots.data_ptr(), dst.data_ptr(),
+            vals.data_ptr(), slots.shape[0], b, n, w,
+            _stream(pending.device.index))
+    _build.check(rc, DEPOSIT_ROWS)
+    return pending
+
+
+def _add_check(pending, slots, dst, valid) -> None:
+    """Raise on what the kernel does not take, in attribute reads (the
+    chunk-shaped call is short: its host path is most of its time)."""
+    card = pending.get_device()
+    if pending.dtype is not I32 or pending.ndim != 2 \
+            or not pending.is_contiguous():
+        raise ValueError(f"{DEPOSIT}: pending must be contiguous int32 "
+                         f"2-D, got {pending.dtype} {tuple(pending.shape)}")
+    m = slots.shape[0] if slots.ndim == 1 else -1
+    if slots.dtype is not I32 or dst.dtype is not I32 or m < 0 \
+            or dst.ndim != 1 or dst.shape[0] != m:
+        raise ValueError(f"{DEPOSIT}: slots and dst must be int32 (m,), got "
+                         f"{slots.dtype} {tuple(slots.shape)}, {dst.dtype} "
+                         f"{tuple(dst.shape)}")
+    if valid is not None and (valid.dtype is not torch.bool
+                              or valid.ndim != 1 or valid.shape[0] != m
+                              or valid.get_device() != card):
+        raise ValueError(f"{DEPOSIT}: valid must be bool ({m},) on "
+                         f"{pending.device}, got {valid.dtype} "
+                         f"{tuple(valid.shape)} on {valid.device}")
+    if slots.get_device() != card or dst.get_device() != card:
+        raise ValueError(f"{DEPOSIT}: tensors on different devices "
+                         f"{pending.device}, {slots.device}, {dst.device}")
+
+
+@functools.cache
+def _add_fn():
+    """fused_deposit_add's typed C entry point, held once it is built."""
+    return _build.function(DEPOSIT, "gossip_fused_deposit_add",
+                           DEPOSIT_ARGTYPES)
+
+
+def _add_launch(pending, slots, dst, valid):
+    _add_check(pending, slots, dst, valid)
+    if not slots.is_contiguous():
+        slots = slots.contiguous()
+    if not dst.is_contiguous():
+        dst = dst.contiguous()
+    if valid is not None and not valid.is_contiguous():
+        valid = valid.contiguous()
+    b, n = pending.shape
+    m = slots.shape[0]
+    stream = _stream(pending.device.index)
+    bits = deposit_part_bits(m, b * n)
+    ws = bucket = None
+    bcap = 0
+    if bits:
+        parts = (b * n + (1 << bits) - 1) >> bits
+        bcap = deposit_bucket_cap(m, parts)
+        ws, bucket = deposit_workspace(pending.device, stream, parts * bcap)
+        _build.count_launch(DEPOSIT_DENSE)
+    fn = _add_fn()
+    _build.count_launch(DEPOSIT)
+    rc = fn(pending.data_ptr(), slots.data_ptr(), dst.data_ptr(),
+            None if valid is None else valid.data_ptr(), m, b, n, bits,
+            None if ws is None else ws.data_ptr(),
+            None if bucket is None else bucket.data_ptr(), bcap, stream)
+    if rc:
+        _build.check(rc, DEPOSIT)
     return pending
 
 
 def fused_deposit_add(pending: torch.Tensor, slots: torch.Tensor,
-                      dst: torch.Tensor) -> torch.Tensor:
-    """``pending[slots, dst] += 1`` for the in-range lanes, in place;
-    returns `pending` (int32[b, n]).  Callers put invalid lanes at dst =
-    n."""
-    _deposit_check(DEPOSIT, pending, slots, dst)
+                      dst: torch.Tensor, valid=None) -> torch.Tensor:
+    """``pending[slots, dst] += 1`` for the in-range lanes that `valid`
+    keeps (every lane when it is None), in place; returns `pending`
+    (int32[b, n]).  Without `valid`, callers put invalid lanes at dst =
+    n, as the TPU kernel takes them."""
     dev = pending.device
-    if dev.type == "cpu":
-        return deposit_add_plain(pending, slots, dst)
     if dev.type == "cuda":
-        return _deposit_launch(DEPOSIT, "gossip_fused_deposit_add",
-                               DEPOSIT_ARGTYPES, pending, slots.contiguous(),
-                               dst.contiguous())
+        return _add_launch(pending, slots, dst, valid)
+    _deposit_check(DEPOSIT, pending, slots, dst)
+    if valid is not None and (valid.dtype != torch.bool
+                              or tuple(valid.shape) != tuple(slots.shape)):
+        raise ValueError(f"{DEPOSIT}: valid must be bool "
+                         f"{tuple(slots.shape)}, got {valid.dtype} "
+                         f"{tuple(valid.shape)}")
+    if dev.type == "cpu":
+        return deposit_add_plain(pending, slots, dst, valid)
     raise ValueError(f"{DEPOSIT}: no kernel for device {dev}")
 
 
@@ -566,7 +703,6 @@ def fused_deposit_rows(pending: torch.Tensor, slots: torch.Tensor,
     if dev.type == "cpu":
         return deposit_rows_plain(pending, slots, dst, vals)
     if dev.type == "cuda":
-        return _deposit_launch(DEPOSIT_ROWS, "gossip_fused_deposit_rows",
-                               ROWS_ARGTYPES, pending, slots.contiguous(),
-                               dst.contiguous(), vals.contiguous())
+        return _rows_launch(pending, slots.contiguous(), dst.contiguous(),
+                            vals.contiguous())
     raise ValueError(f"{DEPOSIT_ROWS}: no kernel for device {dev}")

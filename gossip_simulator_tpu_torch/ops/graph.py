@@ -37,13 +37,14 @@ counter layouts of ``utils/rng.py`` are followed.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
 import torch
 
 from gossip_simulator_tpu_torch.config import er_cap
-from gossip_simulator_tpu_torch.ops import _build
+from gossip_simulator_tpu_torch.ops import _build, deliver
 from gossip_simulator_tpu_torch.utils import rng as _rng
 
 KOUT = "kout_pallas"
@@ -55,9 +56,10 @@ I32 = torch.int32
 # The C entry points' parameter types (csrc/<name>.cu).
 KOUT_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 4
                  + [ctypes.c_uint32] * 3 + [ctypes.c_int, ctypes.c_void_p])
-ERDOS_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                  + [ctypes.c_float] * 2 + [ctypes.c_uint32] * 2
-                  + [ctypes.c_int, ctypes.c_void_p])
+ERDOS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p])
+UREM_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_void_p])
 
 
 def _gids(row0: int, rows: int, device) -> torch.Tensor:
@@ -113,8 +115,7 @@ def _launch_kout(n, k, row0, rows, key):
     k0, k1 = _key_words(key)
     _build.count_launch(KOUT)
     rc = fn(out.data_ptr(), n, k, row0, rows, k0, k1, randint_mult(n),
-            int(_rng.partitionable()),
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(_rng.partitionable()), deliver._stream(dev.index))
     _build.check(rc, KOUT)
     return out
 
@@ -201,6 +202,19 @@ def erdos_plain(n: int, lam: float, row0: int, rows: int, key: torch.Tensor):
     return erdos_table(erdos_bits(n, lam, row0, rows, key), n, lam, row0)
 
 
+@functools.lru_cache(maxsize=16)
+def erdos_cdf_param(lam: float, cap: int):
+    """``erdos_cdf(lam, cap)`` as the C float array the launch copies into
+    its parameters, built once per (lam, cap)."""
+    return (ctypes.c_float * cap)(*erdos_cdf(lam, cap).tolist())
+
+
+@functools.cache
+def _erdos_fn():
+    """erdos_pallas's typed C entry point, held once it is built."""
+    return _build.function(ERDOS, "gossip_erdos_pallas", ERDOS_ARGTYPES)
+
+
 def _launch_erdos(n, lam, row0, rows, key):
     dev = key.device
     cap = er_cap(lam)
@@ -208,15 +222,32 @@ def _launch_erdos(n, lam, row0, rows, key):
     deg = torch.empty(rows, dtype=I32, device=dev)
     if rows == 0:
         return friends, deg
-    fn = _build.function(ERDOS, "gossip_erdos_pallas", ERDOS_ARGTYPES)
-    k0, k1 = _key_words(key)  # the kernel folds in ER_STREAM
+    # The kernel reads the key's two words on the card (no host read) and
+    # folds in ER_STREAM.
+    key = key.reshape(2)
+    if not key.is_contiguous():
+        key = key.contiguous()
+    fn = _erdos_fn()
     _build.count_launch(ERDOS)
-    rc = fn(friends.data_ptr(), deg.data_ptr(), n, cap, row0, rows,
-            float(np.float32(lam)), erdos_pmf0(lam), k0, k1,
-            int(_rng.partitionable()),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, ERDOS)
+    rc = fn(friends.data_ptr(), deg.data_ptr(), key.data_ptr(),
+            erdos_cdf_param(lam, cap), n, cap, row0, rows,
+            int(_rng.partitionable()), deliver._stream(dev.index))
+    if rc:
+        _build.check(rc, ERDOS)
     return friends, deg
+
+
+def erdos_urem(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x % n of uint32 words (int32 storage, on the card) by the remainder
+    erdos_pallas takes: a multiply-high with a magic number fixed for n
+    (for the tests; no launch count)."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    fn = _build.function(ERDOS, "gossip_erdos_urem", UREM_ARGTYPES)
+    rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), n,
+            deliver._stream(x.device.index))
+    _build.check(rc, ERDOS)
+    return out
 
 
 def erdos_pallas(n: int, lam: float, row0: int, rows: int,

@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from gossip_simulator_tpu_torch.ops import _build
+from gossip_simulator_tpu_torch.ops import _build, deliver
 
 NAME = "fused_negotiate"
 I32 = torch.int32
@@ -99,7 +99,7 @@ def _launch(friends, cnt, src, has, draw, kind, limit):
             raise ValueError(f"{NAME}: {nm} must be contiguous")
     fn = _build.function(NAME, "gossip_fused_negotiate", ARGTYPES)
     reply = torch.empty(n, dtype=I32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = deliver._stream(dev.index)
     _build.count_launch(NAME)
     rc = fn(friends.data_ptr(), cnt.data_ptr(), src.data_ptr(),
             has.data_ptr(), draw.data_ptr(), reply.data_ptr(), n, k,
@@ -161,7 +161,7 @@ def _request_launch(friends, cnt, w, fanout):
                          REQUEST_ARGTYPES)
     em = torch.empty(n, dtype=I32, device=dev)
     total = torch.zeros((), dtype=I32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = deliver._stream(dev.index)
     _build.count_launch(REQUEST)
     rc = fn(friends.data_ptr(), cnt.data_ptr(), w.data_ptr(), em.data_ptr(),
             total.data_ptr(), n, k, int(fanout), stream)
@@ -202,7 +202,7 @@ def _hosted_launch(mat):
     fn = _build.function(HOSTED, "gossip_fused_hosted_chunk",
                          HOSTED_ARGTYPES)
     occ = torch.zeros(r, dtype=I32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = deliver._stream(dev.index)
     _build.count_launch(HOSTED)
     rc = fn(mat.data_ptr(), r, m, occ.data_ptr(), stream)
     _build.check(rc, HOSTED)

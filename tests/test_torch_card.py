@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from gossip_simulator_tpu_torch import config as tcfg
 from gossip_simulator_tpu_torch.models import event as tevent
 from gossip_simulator_tpu_torch.ops import (deliver, graph, megakernel,
                                             overlay_kernel)
@@ -874,6 +875,108 @@ def test_fused_deposit_kernels_match_plain_on_card(case, kind):
         assert torch.equal(w, g)
 
 
+# fused_deposit_add in each form (the wrapper's crossover forced): (b, n,
+# m, layout) with lanes drawn by _deposit_add_inputs; R cells a
+# partition.
+R_CELLS = 1 << deliver.DEPOSIT_PART_BITS
+DEPOSIT_ADD_CASES = {
+    "empty": (3, 20_000, 0, "random"),
+    "all_out_of_range": (3, 20_000, 5_000, "out"),
+    # All lanes in partition 0: its bucket (ceil(m / P) offsets) overflows
+    # into the direct adds.
+    "one_partition": (3, 20_000, 50_000, "one"),
+    # Cells R - 1, R, R + 1, 2R - 1, 2R and the ring's last cells; b * n =
+    # 90,000 is not a multiple of R.
+    "edges": (3, 30_000, 30_000, "edges"),
+    "both_slots": (2, 30_000, 90_000, "random"),
+    "rounds_like": (2, 30_000, 180_000, "slot1"),
+    "ragged_tail": (5, 9_999, 77_777, "random"),
+}
+
+
+def _deposit_add_inputs(seed, b, n, m, layout):
+    """Numpy lanes of one fused_deposit_add call: slots, dst, a valid mask
+    (70 % kept), dst_n (the invalid lanes at n) and a random ring."""
+    rng = np.random.default_rng(seed)
+    slots = rng.integers(0, b, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    if layout == "out":
+        slots = np.where(rng.random(m) < 0.5, -1, b).astype(np.int32)
+    elif layout == "one":
+        slots[:] = 0
+        dst = rng.integers(0, min(n, R_CELLS), m).astype(np.int32)
+    elif layout == "slot1":
+        slots[:] = 1
+    elif layout == "edges":
+        cells = np.array([R_CELLS - 1, R_CELLS, R_CELLS + 1,
+                          2 * R_CELLS - 1, 2 * R_CELLS, b * n - 2,
+                          b * n - 1, 0], dtype=np.int64)
+        pick = cells[rng.integers(0, cells.size, m)]
+        slots, dst = (pick // n).astype(np.int32), (pick % n).astype(np.int32)
+    valid = rng.random(m) < 0.7
+    return dict(pending=rng.integers(0, 5, (b, n)).astype(np.int32),
+                slots=slots, dst=dst, valid=valid,
+                dst_n=np.where(valid, dst, n).astype(np.int32))
+
+
+@pytest.mark.parametrize("masked", (False, True), ids=("dst_n", "valid"))
+@pytest.mark.parametrize("form", ("direct", "dense"))
+@pytest.mark.parametrize("case", sorted(DEPOSIT_ADD_CASES))
+def test_fused_deposit_add_forms_match_plain_on_card(case, form, masked,
+                                                     monkeypatch):
+    """fused_deposit_add in the form forced by the crossover (0 lanes a
+    cell: dense; none: direct) against deposit_add_plain, given the mask
+    or the dst = n lanes; the dense form's overflow word counts the lanes
+    a full bucket sent to the direct adds."""
+    dev = _card()
+    b, n, m, layout = DEPOSIT_ADD_CASES[case]
+    d = _deposit_add_inputs(31, b, n, m, layout)
+    monkeypatch.setattr(deliver, "DEPOSIT_DENSE_MIN",
+                        0.0 if form == "dense" else float("inf"))
+    assert (deliver.deposit_part_bits(m, b * n) > 0) == (form == "dense")
+    t = lambda x: T(np.ascontiguousarray(x))  # noqa: E731
+    args = ((t(d["dst"]), t(d["valid"])) if masked else (t(d["dst_n"]),
+                                                         None))
+    want = deliver.deposit_add_plain(t(d["pending"].copy()), t(d["slots"]),
+                                     *args)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    before = deliver.deposit_overflow(dev)
+    got = deliver.fused_deposit_add(
+        t(d["pending"].copy()).to(dev), t(d["slots"]).to(dev),
+        *(None if a is None else a.to(dev) for a in args))
+    assert torch.equal(want, got.cpu())
+    lost = deliver.deposit_overflow(dev) - before
+    if form == "dense" and layout == "one" and m:
+        assert lost > 0
+    elif form == "dense" and layout == "random":
+        assert lost == 0
+
+
+def test_fused_deposit_add_dense_calls_in_a_row_match_plain_on_card(
+        monkeypatch):
+    """The dense form's cursors are zeroed by the blocks that drain them:
+    calls of other shapes in a row, on one stream and on a second, each
+    bit-exact (a cursor left over would misplace the next call's
+    lanes)."""
+    dev = _card()
+    monkeypatch.setattr(deliver, "DEPOSIT_DENSE_MIN", 0.0)
+    side = torch.cuda.Stream()
+    for i, case in enumerate(("rounds_like", "edges", "both_slots",
+                              "one_partition", "ragged_tail",
+                              "rounds_like")):
+        d = _deposit_add_inputs(40 + i, *DEPOSIT_ADD_CASES[case])
+        want = deliver.deposit_add_plain(
+            T(d["pending"].copy()), T(d["slots"]), T(d["dst"]),
+            T(d["valid"]))
+        with torch.cuda.stream(side if i % 2 else
+                               torch.cuda.current_stream()):
+            got = deliver.fused_deposit_add(
+                T(d["pending"].copy()).to(dev), T(d["slots"]).to(dev),
+                T(d["dst"]).to(dev), T(d["valid"]).to(dev))
+            torch.cuda.synchronize()
+        assert torch.equal(want, got.cpu()), case
+
+
 def test_fused_deposit_rows_unaligned_vals_match_plain_on_card():
     """Value rows that start off a 16-byte boundary (a contiguous view one
     word into its storage) take the word path at w = 12 and 16."""
@@ -1107,6 +1210,67 @@ def test_kout_pallas_kernel_matches_plain_on_card(layout, n, k, row0, rows):
     want = graph.kout_pallas(n, k, row0, rows, key)
     got = graph.kout_pallas(n, k, row0, rows, key.to(dev))
     assert torch.equal(want, got.cpu())
+
+
+@pytest.mark.parametrize("n,lam,row0,rows", (
+    (100_003, 8.0, 517, 70_001), (100_003, 8.0, 0, 255),
+    (100_003, 8.0, 5, 256), (100_003, 8.0, 9_000, 257),
+    (50_000, 60.0, 777, 9_000), (50_000, 60.0, 1, 71),
+    (50_000, 60.0, 3, 72), (50_000, 60.0, 40_000, 73),
+    (2**31 - 1, 8.0, 2**31 - 600, 599)))
+def test_erdos_pallas_tile_edges_match_plain_on_card(layout, n, lam, row0,
+                                                     rows):
+    """erdos_pallas at lam 8 (256 rows a tile) and lam 60 (72 rows a
+    tile), across tile edges and with row0 > 0, and near n = 2**31."""
+    dev = _card()
+    key = trng.tick_key(trng.base_key(6), 0, trng.OP_GRAPH)
+    wf, wd = graph.erdos_pallas(n, lam, row0, rows, key)
+    gf, gd = graph.erdos_pallas(n, lam, row0, rows, key.to(dev))
+    assert torch.equal(wd, gd.cpu())
+    assert torch.equal(wf, gf.cpu())
+
+
+@pytest.mark.parametrize("lam", (8.0, 60.0))
+def test_erdos_pallas_degree_zero_and_cap_match_plain_on_card(
+        layout, lam, monkeypatch):
+    """Rows of degree 0, cap - 1 and cap: both sides take the table from
+    graph.erdos_cdf, here one that sends u < 0.3 to degree 0 and u > 0.7
+    to degree cap."""
+    dev = _card()
+    cap = tcfg.er_cap(lam)
+    table = np.full(cap, 0.3, dtype=np.float32)
+    table[-1] = 0.7
+    monkeypatch.setattr(graph, "erdos_cdf", lambda lam_, cap_: table)
+    graph.erdos_cdf_param.cache_clear()
+    try:
+        key = trng.tick_key(trng.base_key(8), 0, trng.OP_GRAPH)
+        wf, wd = graph.erdos_pallas(30_000, lam, 11, 5_000, key)
+        gf, gd = graph.erdos_pallas(30_000, lam, 11, 5_000, key.to(dev))
+    finally:
+        graph.erdos_cdf_param.cache_clear()
+    assert set(np.unique(wd.numpy()).tolist()) == {0, cap - 1, cap}
+    assert torch.equal(wd, gd.cpu())
+    assert torch.equal(wf, gf.cpu())
+
+
+@pytest.mark.parametrize("n", (2, 3, 7, 2**16 - 1, 2**16, 2**16 + 1,
+                               10_000_000, 2**31 - 1))
+def test_erdos_remainder_is_the_remainder_on_card(n):
+    """The kernel's multiply-high remainder by an invariant n against %,
+    over edge dividends (0, 2**32 - 1, multiples of n and their
+    neighbours, powers of two and theirs) and random words."""
+    dev = _card()
+    rng = np.random.default_rng(n)
+    mult = np.arange(0, 2**32, n, dtype=np.uint64)[::max(1, 2**32 // n
+                                                         // 4096)]
+    pw = np.array([1 << i for i in range(32)], dtype=np.uint64)
+    x = np.concatenate([mult, mult + 1, mult - 1, pw, pw - 1, pw + 1,
+                        np.array([0, 2**32 - 1], np.uint64),
+                        rng.integers(0, 2**32, 1 << 20, dtype=np.uint64)])
+    x = x[x < 2**32]
+    got = graph.erdos_urem(T(x.astype(np.uint32).view(np.int32)).to(dev),
+                           n).cpu().numpy().view(np.uint32)
+    assert np.array_equal(got.astype(np.uint64), x % np.uint64(n))
 
 
 @pytest.mark.parametrize("n,lam,row0,rows", ((1000, 0.5, 0, 1000),

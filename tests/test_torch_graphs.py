@@ -285,6 +285,66 @@ def test_pallas_routing_and_fallback(own_layout):
     assert not any(_build.LAUNCHES.values())
 
 
+def test_erdos_launch_reads_no_key_and_passes_the_table(monkeypatch):
+    """erdos_pallas's launch path makes no device-to-host read: the key
+    goes to the kernel as a device pointer (here a meta tensor, which has
+    no values to read), the cdf table as erdos_cdf's float32 values, and
+    the stream through deliver._stream; one count a call.  The C entry
+    point is replaced by a recorder."""
+    import ctypes
+
+    from gossip_simulator_tpu_torch.ops import deliver
+
+    calls = []
+    monkeypatch.setattr(tgraph, "_erdos_fn",
+                        lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(tgraph._build, "LAUNCHES", dict(_build.LAUNCHES))
+    monkeypatch.setattr(deliver, "_stream", lambda index: 9)
+    key = torch.empty(2, dtype=torch.int64, device="meta")
+    for lam in (8.0, 60.0):
+        f, d = tgraph._launch_erdos(1000, lam, 17, 300, key)
+        cap = tcfg.er_cap(lam)
+        assert f.shape == (300, cap) and d.shape == (300,)
+        a = calls[-1]
+        assert a[2] == key.data_ptr() and a[4:8] == (1000, cap, 17, 300)
+        table = np.ctypeslib.as_array(
+            ctypes.cast(a[3], ctypes.POINTER(ctypes.c_float)), (cap,))
+        assert np.array_equal(table, tgraph.erdos_cdf(lam, cap))
+        assert a[9] == 9
+    assert tgraph._build.LAUNCHES[tgraph.ERDOS] == 2
+
+
+def _magic_urem(x: np.ndarray, d: int) -> np.ndarray:
+    """csrc/erdos_pallas.cu's remainder by an invariant d in [2, 2**31)
+    (Granlund-Montgomery, round-up magic) in uint64 numpy arithmetic."""
+    ell = (d - 1).bit_length()
+    magic = ((((1 << ell) - d) << 32) // d) + 1
+    assert magic < 2**32
+    x = x.astype(np.uint64)
+    t = (x * np.uint64(magic)) >> np.uint64(32)
+    q = (t + ((x - t) >> np.uint64(1))) >> np.uint64(ell - 1)
+    return x - q * np.uint64(d)
+
+
+@pytest.mark.parametrize("d", (2, 3, 7, 10, 2**16 - 1, 2**16, 2**16 + 1,
+                               1_000_000, 10_000_000, 100_000_000,
+                               2**30 + 1, 2**31 - 1))
+def test_invariant_division_is_the_remainder(d):
+    """The kernel's multiply-high remainder equals x % d at the edge
+    dividends (0, 2**32 - 1, multiples of d and their neighbours, powers
+    of two and theirs) and on random words (tests/test_torch_card.py runs
+    the kernel's own on the card)."""
+    rng = np.random.default_rng(d)
+    mult = np.arange(0, 2**32, d, dtype=np.uint64)[::max(1, 2**32 // d
+                                                         // 4096)]
+    pw = np.array([1 << i for i in range(32)], dtype=np.uint64)
+    x = np.concatenate([mult, mult + 1, mult - 1, pw, pw - 1, pw + 1,
+                        np.array([0, 2**32 - 1, 2**32 - d], np.uint64),
+                        rng.integers(0, 2**32, 200_000, dtype=np.uint64)])
+    x = x[(x < 2**32)].astype(np.uint64)
+    assert np.array_equal(_magic_urem(x, d), x % np.uint64(d))
+
+
 def test_erdos_pallas_rows_match_full_generation(own_layout):
     key = tgraphs.graph_key(tcfg.Config(seed=2))
     full, fdeg = tgraph.erdos_pallas(5000, 12.0, 0, 5000, key)

@@ -482,11 +482,139 @@ def test_dynamic_shared_memory_goes_through_one_allow_smem():
         hdr = f.read()
     assert '#include "smem.cuh"' in hdr and "cudaFuncSetAttribute" not in hdr
     for name in ("fused_drain_sum", "fused_recv_land", "fused_ring_append",
-                 "fused_emit"):
+                 "fused_emit", "fused_deposit_add", "erdos_pallas"):
         with open(_build._target(name)[0]) as f:
             src = f.read()
         assert "allow_smem((const void*)" in src, name
         assert "cudaFuncSetAttribute" not in src, name
+
+
+def test_block_scans_go_through_one_scan_header():
+    """The block-wide exclusive sum is csrc/scan.cuh's block_excl, templated
+    on the block's threads: the kernels that scan across a block include it
+    and keep no scan of their own."""
+    import os
+
+    with open(os.path.join(_build.CSRC, "scan.cuh")) as f:
+        assert "__shfl_up_sync" in f.read()
+    for name in ("fused_chunk_step", "fused_drain_sum", "fused_deposit_add",
+                 "erdos_pallas"):
+        with open(_build._target(name)[0]) as f:
+            src = f.read()
+        assert '#include "scan.cuh"' in src, name
+        assert "scan::block_excl<" in src, name
+        assert "__device__ int block_excl" not in src, name
+        assert "block_exclusive" not in src, name
+
+
+def test_deposit_and_erdos_constants_match_the_sources():
+    """fused_deposit_add's partition limit and offset width, and the erdos
+    kernel's lane tile, held to the C sources."""
+    d = _source_defines("fused_deposit_add")
+    assert deliver.DEPOSIT_PART_MAX == d["PART_MAX"]
+    assert deliver.DEPOSIT_PART_BITS <= d["BITS_MAX"] == 16
+    # A partition's tile fits the card's shared memory (227 KB a block).
+    assert 4 << deliver.DEPOSIT_PART_BITS <= 227 << 10
+    e = _source_defines("erdos_pallas")
+    assert graph.LANES == e["CAP_MAX"]
+
+
+def test_erdos_urem_signature_matches_the_source():
+    path = _build._target("erdos_pallas")[0]
+    assert _c_params(path, "gossip_erdos_urem") == graph.UREM_ARGTYPES
+
+
+@pytest.mark.parametrize("cells", (1, 1 << 15, 2 * 10**7, 6 * 10**7,
+                                   2 * 10**8, (1 << 15) * 8192,
+                                   (1 << 15) * 8192 + 1))
+def test_deposit_form_follows_the_lanes_a_cell(cells, monkeypatch):
+    """deposit_part_bits: the direct form (0) below DEPOSIT_DENSE_MIN lanes
+    a ring cell, else DEPOSIT_PART_BITS while the partitions number at
+    most DEPOSIT_PART_MAX, and the direct form again past that; the
+    shapes alone decide."""
+    lim = deliver.DEPOSIT_DENSE_MIN
+    bits = deliver.DEPOSIT_PART_BITS
+    below = max(0, int(lim * cells) - 1)
+    assert deliver.deposit_part_bits(below, cells) == 0
+    m = int(lim * cells) + 1
+    fits = -(-cells // (1 << bits)) <= deliver.DEPOSIT_PART_MAX
+    assert deliver.deposit_part_bits(m, cells) == (bits if fits else 0)
+    monkeypatch.setattr(deliver, "DEPOSIT_DENSE_MIN", 1e9)
+    assert deliver.deposit_part_bits(m, cells) == 0
+    assert deliver.deposit_part_bits(0, 0) == 0
+
+
+def test_deposit_takes_its_measured_form_at_the_full_runs_shapes():
+    """With the wrapper's own crossover: the rounds-mode deposit of
+    ring_rounds10m (6e7 lanes over 2 x 1e7 cells) takes the dense form;
+    ring_kout10m's compacted chunk (468,750 lanes over 20 x 1e7) and
+    rumors1m's dense deposit (6e6 lanes over 20 x 1e6) the direct one."""
+    assert deliver.deposit_part_bits(6 * 10**7, 2 * 10**7) == 15
+    assert deliver.deposit_part_bits(468_750, 2 * 10**8) == 0
+    assert deliver.deposit_part_bits(6 * 10**6, 2 * 10**7) == 0
+
+
+@pytest.mark.parametrize("m", (1, 15, 16, 17, 1000, 6 * 10**7))
+@pytest.mark.parametrize("parts", (1, 3, 611, 6104, 8192))
+def test_deposit_buckets_take_about_two_bytes_a_lane(m, parts):
+    """Each bucket holds ceil(m / P) offsets rounded up to 16 (32-byte
+    aligned starts): all buckets together at most m + 16 P offsets, and
+    every lane fits when the lanes spread evenly."""
+    bcap = deliver.deposit_bucket_cap(m, parts)
+    assert bcap % 16 == 0 and bcap >= 16
+    assert bcap * parts >= m
+    assert bcap * parts < m + 16 * parts + parts
+
+
+def test_deposit_launch_picks_its_form_and_keeps_a_workspace(monkeypatch):
+    """fused_deposit_add's launch path: the direct form passes no
+    workspace, allocates nothing and counts one launch of the kernel; the
+    dense form passes its partition bits, the (card, stream) workspace --
+    cursors and the overflow word zeroed once, buckets grown to P * bcap
+    offsets and then kept -- and counts the dense form too; `valid` goes
+    through as a pointer or null.  CPU tensors, the C entry point replaced
+    by a recorder."""
+    calls, allocs = [], []
+    monkeypatch.setattr(deliver, "_add_fn",
+                        lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(deliver._build, "LAUNCHES", dict(_build.LAUNCHES))
+    monkeypatch.setattr(deliver, "_DEP_WS", {})
+    monkeypatch.setattr(deliver, "_stream", lambda index: 5)
+    for name in ("empty", "zeros", "full"):
+        def record(*a, _real=getattr(torch, name), **kw):
+            t = _real(*a, **kw)
+            allocs.append(t.numel())
+            return t
+        monkeypatch.setattr(torch, name, record)
+    b, n = 2, 40_000
+    i32 = dict(dtype=torch.int32)
+    pending = torch.zeros((b, n), **i32)
+    few = torch.zeros(100, **i32)
+    allocs.clear()
+    deliver._add_launch(pending, few, few, None)
+    a = calls[-1]
+    assert allocs == [] and a[3] is None and a[7:11] == (0, None, None, 0)
+    assert a[4:7] == (100, b, n) and a[11] == 5
+    many = torch.zeros(3 * b * n, **i32)
+    valid = torch.ones(3 * b * n, dtype=torch.bool)
+    allocs.clear()
+    deliver._add_launch(pending, many, many, valid)
+    a = calls[-1]
+    parts = -(-(b * n) // (1 << 15))
+    bcap = deliver.deposit_bucket_cap(3 * b * n, parts)
+    ws, bucket = deliver._DEP_WS[None, 5]
+    assert a[3] == valid.data_ptr() and a[7] == 15 and a[10] == bcap
+    assert a[8] == ws.data_ptr() and a[9] == bucket.data_ptr()
+    assert ws.numel() == deliver.DEPOSIT_PART_MAX + 1
+    assert int(ws.abs().sum()) == 0 and bucket.dtype == torch.int16
+    assert bucket.numel() >= parts * bcap
+    assert allocs == [deliver.DEPOSIT_PART_MAX + 1, bucket.numel()]
+    allocs.clear()
+    deliver._add_launch(pending, many, many, valid)
+    assert allocs == [] and calls[-1][8:10] == (ws.data_ptr(),
+                                               bucket.data_ptr())
+    assert deliver._build.LAUNCHES[deliver.DEPOSIT] == 3
+    assert deliver._build.LAUNCHES[deliver.DEPOSIT_DENSE] == 2
 
 
 @pytest.mark.parametrize("c", (8, 12, 36))

@@ -110,6 +110,28 @@ def test_deposit_plain_matches_pallas_and_xla(case, kind):
             assert np.array_equal(np.asarray(w), g.numpy()), (kind, pallas)
 
 
+@pytest.mark.parametrize("case", sorted(DEPOSIT_CASES))
+def test_deposit_add_plain_with_valid_matches_jax(case):
+    """deposit_add_plain given the mask itself (as fused_deposit_add takes
+    it on the kernel path, without the caller's dst = n pass) against the
+    JAX package's deposit_local chain and its Pallas kernel on the dst = n
+    lanes (generic interpreter), and against the wrapper on the CPU."""
+    d = _deposit_inputs(9, **DEPOSIT_CASES[case])
+    got = deliver.deposit_add_plain(T(d["pending"].copy()), T(d["slots"]),
+                                    T(d["dst"]), T(d["valid"]))
+    wrapped = deliver.fused_deposit_add(T(d["pending"].copy()),
+                                        T(d["slots"]), T(d["dst"]),
+                                        T(d["valid"]))
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    chain = jepi.deposit_local(j["pending"], j["dst"], j["slots"],
+                               j["valid"])
+    kernel = jdeliver.fused_deposit_add(j["pending"], j["slots"],
+                                        j["dst_n"], interpret=True)
+    assert torch.equal(got, wrapped)
+    assert np.array_equal(np.asarray(chain), got.numpy())
+    assert np.array_equal(np.asarray(kernel), got.numpy())
+
+
 @pytest.mark.parametrize("kernel", ("pallas", "xla"))
 @pytest.mark.parametrize("r", (16, 33))
 def test_engine_deposits_match_jax(r, kernel):

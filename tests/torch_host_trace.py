@@ -13,8 +13,11 @@ the 12-limb mass ring); fused_emit at the kout 10M run's batch (131,072
 senders, 6 friends, 3 ring slots; SI, and SIR with the duplicate filter);
 fused_deposit_rows at the multi-rumor 1M run's deposit (6e6 lanes x 16, a
 fifth of the rows sending) and at PushSum's drain chunk (524,288 lanes x
-12); fused_deposit_both at the multi-rumor deposit.  Prints the card's name and power limit,
-then a line a case: the enqueue (the host clock around the wrapper call,
+12); fused_deposit_both at the multi-rumor deposit; fused_deposit_add as
+the ring engine calls it (models/epidemic.deposit_local, pallas gate) at
+ring_kout10m's compacted chunk (468,750 lanes over 20 x 1e7) and at
+ring_rounds10m's rounds deposit (6e7 lanes over 2 x 1e7).  Prints the
+card's name and power limit, then a line a case: the enqueue (the host clock around the wrapper call,
 the profiler's own costs in), the CUDA runtime calls inside the call's
 range (count and host us by name), its aten ops (self host us, the six
 largest) and the caching allocator's counters around the call (device
@@ -35,7 +38,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from gossip_simulator_tpu_torch.config import Config, parse_cli  # noqa: E402
-from gossip_simulator_tpu_torch.models import event  # noqa: E402
+from gossip_simulator_tpu_torch.models import epidemic, event  # noqa: E402
 from gossip_simulator_tpu_torch.models import overlay_ticks as ot  # noqa: E402
 from gossip_simulator_tpu_torch.models import pushsum as ps  # noqa: E402
 from gossip_simulator_tpu_torch.ops import deliver, megakernel  # noqa: E402
@@ -180,6 +183,20 @@ def deposit_cases(dev, gen, calls: int) -> None:
                    count, pend, dst, slots, sending, newbits),
                lambda: None, calls)
     del pend, count
+    for name, b, n, rows, per_row, keep in (
+            ("chunk", 20, 10_000_000, 78_125, True, 0.9),
+            ("rounds", 2, 10_000_000, 10_000_000, False, 0.35)):
+        m = rows * k
+        slots = (ri(0, b, (rows,)).repeat_interleave(k) if per_row
+                 else torch.ones(m, dtype=torch.int32, device=dev))
+        dst = ri(0, n, (m,))
+        valid = torch.rand(m, generator=gen, device=dev) < keep
+        pend = ri(0, 4, (b, n))
+        host_trace(f"fused_deposit_add[{name}]",
+                   lambda: epidemic.deposit_local(  # noqa: B023
+                       pend, dst, slots, valid, kernel="pallas"),  # noqa
+                   lambda: None, calls)
+        del slots, dst, valid, pend
     cfg, _ = parse_cli(PUSHSUM_ARGV)
     n, c, m = cfg.n, ps.mass_cols(cfg), ps.drain_chunk(cfg)
     slots, dst = ri(0, 1, (m,)), ri(0, n, (m,))
