@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases pushsum        # the PushSum runs alone
     python3 chip_smoke.py --phases graphs         # static graph generation
     python3 chip_smoke.py --phases sharded        # the sharded backend
+    python3 chip_smoke.py --phases faults         # fault scenarios, healing
 
 Phases, each printing its own line:
 
@@ -47,7 +48,14 @@ Phases, each printing its own line:
               C1): fused_negotiate at k = 20 and 200 (1e6 rows),
               fused_emit at dw = 40, kw = 33 and kw = 112 (131,072
               senders) and at erdos1m_wide's batch (38 lanes a sender),
-              fused_ring_append at dw = 40; and the
+              fused_ring_append at dw = 40; the partition mask
+              (fused_emit at the kout shape with half of its lanes
+              blocked, the blocked count held too) and rings past 1024
+              window slots (the appends' global form: fused_emit,
+              fused_ring_append at 262,144 lanes and fused_recv_land at
+              sharded_10m's batch, each at dw 1536 and 4096), and
+              fused_deposit_add at the ring engine's heal deposit (6e7
+              lanes over a 20 x 1e7 ring, 0.25 % valid); and the
               generators: kout_pallas at 1e8 rows x 3 (headline_jax) and
               erdos_pallas at 1e7 rows, lam 8 (sir_10m_erdos) and 1e6 rows,
               lam 60, held to their plain versions in row blocks;
@@ -156,9 +164,28 @@ Phases, each printing its own line:
               pushsum10m with -backend sharded (mass conserved, nothing
               dropped), and config 5 at n = 1e8 with its wall seconds,
               peak memory and the host seconds spent in the
-              fused_recv_land wrapper.
+              fused_recv_land wrapper;
+9. faults  -- fault scenarios and overlay healing under bench.py's
+              CHURN_SCENARIO (2 groups, 60 ms reboots, churn 0-150 at
+              2.0, a 0.3 crash wave in group 1 at 30, a partition 20-60)
+              on -graph kout -fanout 6 -crashrate 0, seed 0: cuda-vs-cpu
+              twins at n = 20,000 of the runs below; at n = 1e7
+              churn10m_heal (-overlay-heal on -coverage-target 0.99
+              -max-rounds 2000: scen_crashed >= 0.2 n, heal_repaired > 0,
+              fused_emit with the partition mask and the heal's
+              fused_ring_append launched) and churn10m_noheal (not
+              converged, nothing repaired); at n = 1e6, the JAX package's
+              acceptance pair (bench.py's churn_1m rows): churn1m_heal
+              and its -phase2-kernel xla -deliver-kernel xla twin (one
+              transcript and Stats, no kernel) and churn1m_noheal (not
+              converged, coverage < 0.97, nothing repaired; heal on
+              converged or above it); at 1e7 ring_churn10m_heal (-engine
+              ring: fused_deposit_add) and pushsum_churn10m (-model
+              pushsum, heal on: Sigma x and Sigma w exactly the initial
+              totals); each printing its wall, peak memory and fault
+              counters.
 
-The twins' runs, on the card and on the CPU (phases 4 and 8), and the
+The twins' runs, on the card and on the CPU (phases 4, 8 and 9), and the
 CPU's erdos rows (phase 7, before its full runs) run in WORKERS spawned
 worker processes, which have ended before any full run is timed; "time
 <phase>" lines say where the script's time goes.
@@ -494,11 +521,11 @@ def emit_host(label, ring, args, kw) -> None:
     words = deliver.workspace_words(m, dw, megakernel.EMIT_TILE)
     ws, _ = deliver.workspace(dev, stream, words)
     entry = deliver._WS[dev.index, stream]
-    out = torch.empty(2 * dw + 1, dtype=torch.int32, device=dev)
+    out = torch.empty(2 * dw + 2, dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     head = (ring.data_ptr(), mail_cnt.data_ptr(), sf.data_ptr(),
             drop.data_ptr(), svalid.data_ptr(), wslot.data_ptr(),
-            off.data_ptr(), ptr(flags), 1, ptr(strig), ptr(sids),
+            off.data_ptr(), ptr(flags), 1, ptr(strig), ptr(sids), None,
             kw.get("tb") or 0, m, k, dw, cap, b,
             megakernel.emit_group(k + (strig is not None)), out.data_ptr(),
             ws.data_ptr(), ws.numel())
@@ -506,14 +533,14 @@ def emit_host(label, ring, args, kw) -> None:
 
     def call():
         entry[1] += 1
-        return fn(*head, entry[1], stream)
+        return fn(*head, entry[1], None, 0, stream)
 
     host_split(label, {
         "wrapper": lambda: megakernel.fused_emit(ring, *args, **kw),
         "checks": lambda: megakernel._emit_check(ring, *args, dw, cap, flags,
                                                  strig, sids),
         "workspace": lambda: deliver.workspace(dev, stream, words),
-        "outputs": lambda: torch.empty(2 * dw + 1, dtype=torch.int32,
+        "outputs": lambda: torch.empty(2 * dw + 2, dtype=torch.int32,
                                        device=dev),
         "ctypes call": call})
 
@@ -575,9 +602,11 @@ def phase_parity(dev, reps: int) -> dict:
         args = [case[x] for x in ("mail_cnt", "sf", "drop", "svalid",
                                   "wslot", "off")]
         ring_p = ring0.clone()
-        _, adds_p, sup_p, lost_p = megakernel.emit_plain(ring_p, *args, **kw)
+        _, adds_p, sup_p, lost_p, _ = megakernel.emit_plain(ring_p, *args,
+                                                            **kw)
         ring_k = ring0.clone()
-        _, adds_k, sup_k, lost_k = megakernel.fused_emit(ring_k, *args, **kw)
+        _, adds_k, sup_k, lost_k, _ = megakernel.fused_emit(ring_k, *args,
+                                                            **kw)
         torch.cuda.synchronize()
         err = int((ring_p.to(torch.int64) - ring_k.to(torch.int64)).abs()
                   .max())
@@ -2326,6 +2355,170 @@ def phase_pushsum(n: int) -> dict:
     return runs
 
 
+# bench.py's CHURN_SCENARIO (the JAX package's coverage-under-churn
+# acceptance timeline): 2 groups, 60 ms reboots, churn at 2.0 a simulated
+# second over [0, 150), a 0.3 crash wave in group 1 at 30, a partition of
+# the two groups over [20, 60).
+CHURN = ('{"groups": 2, "downtime": 60, "events": ['
+         '{"type": "churn", "start": 0, "end": 150, "rate": 2.0},'
+         '{"type": "crash", "at": 30, "frac": 0.3, "group": 1},'
+         '{"type": "partition", "start": 20, "end": 60}]}')
+HEAL_ON = ["-overlay-heal", "on", "-coverage-target", "0.99",
+           "-max-rounds", "2000"]
+HEAL_OFF = ["-coverage-target", "0.99", "-max-rounds", "2000"]
+PMASK = "fused_emit:pmask"  # fused_emit's launches with a partition mask
+# The JAX package's heal on/off acceptance pair runs at 1M (bench.py
+# capture_churn_healing); at 1e7 the wave outlasts the churn and heal-off
+# ends above 0.97 (PERF.md section 6, PR 13), so the pair and the gate
+# twin run here, the full-size runs at FULL_N.
+FAULT_PAIR_N = 1_000_000
+
+
+def churn_argv(n: int, *extra) -> list:
+    """The kout graph (fanout 6, crash rate 0, seed 0) under CHURN."""
+    return ["-graph", "kout", "-n", str(n), "-fanout", "6", "-crashrate",
+            "0", "-seed", "0", "-scenario", CHURN, *extra]
+
+
+def fault_run(name, n, argv):
+    """One full-size fault-scenario run through the user entry points with
+    every launch count set to 0 just before it (converged or not); prints
+    its wall, peak memory and counters.  Returns (transcript, RunResult,
+    stepper, launches)."""
+    from gossip_simulator_tpu_torch.ops import _build
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    out, res, st, wall = run_port(argv, "cuda")
+    counts = dict(_build.LAUNCHES)
+    s = res.stats
+    say(f"faults {name}: n={n} {res.gossip_windows} windows "
+        f"({res.coverage_ms:g} simulated ms), coverage {s.coverage:.6f}, "
+        f"converged={res.converged}; wall {wall:.3f} s; total_message "
+        f"{s.total_message}; scen_crashed {s.scen_crashed}, scen_recovered "
+        f"{s.scen_recovered}, part_dropped {s.part_dropped}, heal_repaired "
+        f"{s.heal_repaired}, mailbox_dropped {s.mailbox_dropped}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+        f"launches {counts}")
+    return out, res, st, counts
+
+
+def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
+    """The thirteenth slice's path, fault scenarios and overlay healing:
+    first cuda-vs-cpu twins at twin_n of the runs below; then, under
+    CHURN: churn10m_heal at n (the event engine, -overlay-heal on, to 0.99
+    or -max-rounds 2000: scen_crashed >= 0.2 n, heal_repaired > 0,
+    fused_emit with the partition mask and the heal's fused_ring_append
+    launched) and churn10m_noheal at n (not converged, nothing
+    repaired); at n_pair the JAX package's acceptance pair, churn1m_heal
+    (with its -phase2-kernel xla -deliver-kernel xla twin: one
+    transcript, one Stats, no kernel) and churn1m_noheal (not converged,
+    coverage < 0.97, nothing repaired; heal on converges or ends above
+    it); ring_churn10m_heal at n (-engine ring: fused_deposit_add) and
+    pushsum_churn10m at n (-model pushsum, heal on: Sigma x and Sigma w,
+    parked mass included, exactly the initial totals).  Returns the
+    launches of each full-size run by name."""
+    ps = pushsum_argv(twin_n, seed=1) + ["-scenario", CHURN,
+                                         "-overlay-heal", "on"]
+    cases = [
+        ("churn_heal", churn_argv(twin_n, *HEAL_ON),
+         ("fused_emit", PMASK, "fused_ring_append")),
+        ("churn_noheal", churn_argv(twin_n, *HEAL_OFF),
+         ("fused_emit", PMASK)),
+        ("ring_churn_heal", churn_argv(twin_n, "-engine", "ring",
+                                       *HEAL_ON), (DEPOSIT,)),
+        ("pushsum_churn", ps, (DRAIN, "fused_ring_append"))]
+
+    def checker(name, kernels):
+        def check(launches, res_g):
+            if any(launches[k] <= 0 for k in kernels):
+                fail(f"twin {name}: a kernel of {kernels} was never "
+                     f"launched ({launches})")
+            if res_g.stats.scen_crashed <= 0:
+                fail(f"twin {name}: no scenario crash")
+        return check
+
+    run_twins([(f"twin {name}", argv, (), checker(name, kernels))
+               for name, argv, kernels in cases])
+    runs = {}
+    _, res_h, st, runs["churn10m_heal"] = fault_run(
+        "churn10m_heal", n, churn_argv(n, *HEAL_ON))
+    del st
+    sh = res_h.stats
+    if sh.scen_crashed < 0.2 * n or sh.heal_repaired <= 0:
+        fail(f"faults churn10m_heal: scen_crashed {sh.scen_crashed}, "
+             f"heal_repaired {sh.heal_repaired}")
+    for k in ("fused_emit", PMASK, "fused_ring_append"):
+        if runs["churn10m_heal"][k] <= 0:
+            fail(f"faults churn10m_heal: {k} was never launched "
+                 f"({runs['churn10m_heal']})")
+    _, res_n, st, runs["churn10m_noheal"] = fault_run(
+        "churn10m_noheal", n, churn_argv(n, *HEAL_OFF))
+    del st
+    if res_n.converged or res_n.stats.heal_repaired != 0:
+        fail(f"faults churn10m_noheal: converged={res_n.converged}, "
+             f"heal_repaired {res_n.stats.heal_repaired}")
+    end = "converged" if res_h.converged else "stopped"
+    say(f"faults at n={n}: heal on {end} at coverage {sh.coverage:.6f}, "
+        f"heal off at {res_n.stats.coverage:.6f}")
+    # The acceptance pair and the gate twin at n_pair.
+    tag = f"churn{n_pair // 1_000_000}m"
+    out_h, res_h, st, runs[f"{tag}_heal"] = fault_run(
+        f"{tag}_heal", n_pair, churn_argv(n_pair, *HEAL_ON))
+    del st
+    out_x, res_x, st, runs[f"{tag}_heal_xla"] = fault_run(
+        f"{tag}_heal_xla", n_pair, churn_argv(
+            n_pair, *HEAL_ON, "-phase2-kernel", "xla", "-deliver-kernel",
+            "xla"))
+    del st
+    if any(gated(runs[f"{tag}_heal_xla"]).values()):
+        fail(f"faults {tag}_heal_xla launched a kernel "
+             f"({runs[f'{tag}_heal_xla']})")
+    if strip_notes(out_h) != strip_notes(out_x) or \
+            res_h.stats.to_dict() != res_x.stats.to_dict():
+        fail(f"faults {tag}_heal: default and xla-gate transcripts or "
+             "Stats differ")
+    _, res_n, st, runs[f"{tag}_noheal"] = fault_run(
+        f"{tag}_noheal", n_pair, churn_argv(n_pair, *HEAL_OFF))
+    del st
+    sh, sn = res_h.stats, res_n.stats
+    if res_n.converged or sn.coverage >= 0.97 or sn.heal_repaired != 0:
+        fail(f"faults {tag}_noheal: converged={res_n.converged}, coverage "
+             f"{sn.coverage}, heal_repaired {sn.heal_repaired}")
+    if sh.scen_crashed < 0.2 * n_pair or sh.heal_repaired <= 0 or not (
+            res_h.converged or sh.coverage > sn.coverage):
+        fail(f"faults {tag}_heal: converged={res_h.converged}, coverage "
+             f"{sh.coverage} (heal off {sn.coverage}), scen_crashed "
+             f"{sh.scen_crashed}, heal_repaired {sh.heal_repaired}")
+    say(f"faults {tag}: default and xla-gate transcripts and Stats "
+        f"identical; heal on {'converged' if res_h.converged else 'stopped'}"
+        f" at coverage {sh.coverage:.6f}, heal off at {sn.coverage:.6f}")
+    _, res_r, st, runs["ring_churn10m_heal"] = fault_run(
+        "ring_churn10m_heal", n, churn_argv(n, "-engine", "ring", *HEAL_ON))
+    del st
+    if runs["ring_churn10m_heal"][DEPOSIT] <= 0 or \
+            res_r.stats.heal_repaired <= 0:
+        fail(f"faults ring_churn10m_heal: launches "
+             f"{runs['ring_churn10m_heal']}, heal_repaired "
+             f"{res_r.stats.heal_repaired}")
+    _, res_p, st, runs["pushsum_churn10m"] = fault_run(
+        "pushsum_churn10m", n, pushsum_argv(n) + ["-scenario", CHURN,
+                                                 "-overlay-heal", "on"])
+    totals = _mass_totals(st.state, st.cfg)
+    if totals != st.initial_totals or res_p.stats.mailbox_dropped:
+        fail(f"faults pushsum_churn10m: mass {totals} after, "
+             f"{st.initial_totals} before, mail_dropped "
+             f"{res_p.stats.mailbox_dropped}")
+    if runs["pushsum_churn10m"][DRAIN] <= 0 or \
+            res_p.stats.scen_crashed <= 0:
+        fail(f"faults pushsum_churn10m: launches {runs['pushsum_churn10m']}")
+    say(f"faults pushsum_churn10m: mass conserved (Sigma x, Sigma w = "
+        f"{totals}, parked mass included); report {res_p.report}")
+    del st
+    return runs
+
+
 def _transcript(name, out) -> None:
     for line in out.splitlines():
         say(f"  {name} | {line}")
@@ -2587,6 +2780,178 @@ def recv_parity(dev, gen, reps: int) -> dict:
     return row
 
 
+# The ring depths past the shared form's 1024 slots (ROADMAP C1): the
+# global form of the three single-pass appends.
+DEEP_DW = (1536, 4096)
+
+
+def fault_parity(dev, gen, reps: int) -> dict:
+    """The tenth slice's kernel cases: fused_emit with the scenario's
+    partition mask (half of the lanes blocked) at the kout main shape
+    (131,072 senders, 6 lanes, dw 3), held to emit_plain (blocked count
+    included); and the three single-pass appends past 1024 ring slots (dw
+    1536 and 4096: the global form), each held to its plain version and
+    timed: fused_emit (131,072 senders, 6 lanes), fused_ring_append
+    (262,144 lanes, two flat rings: the overlay's chunk) and
+    fused_recv_land (sharded_10m's batch, 8 x 25,831 lanes).  Returns the
+    columns of each kernel's row by kernel name."""
+    from gossip_simulator_tpu_torch.config import Config
+    from gossip_simulator_tpu_torch.ops import deliver, megakernel
+
+    cols = {"fused_emit": {}, "fused_ring_append": {}, RECV: {}}
+    kcfg = Config(n=FULL_N, fanout=6, graph="kout").validate()
+    n, k, b, dw, cap, m, ring_len = emit_shapes(kcfg, 6)
+    i32 = dict(dtype=torch.int32, device=dev)
+    for label, ddw, dcap, pm in (("pmask", dw, cap, 0.5),
+                                 *((f"dw{d}", d, 300, None)
+                                   for d in DEEP_DW)):
+        rlen = ring_len if ddw == dw else ddw * dcap + m * k
+        case, kw = emit_case(gen, dev, n, m, k, ddw, dcap, b, rlen,
+                             dup=False, sir=False, base_hi=dcap // 2)
+        if pm is not None:
+            kw["pmask"] = torch.rand((m, k), generator=gen,
+                                     device=dev) < pm
+        ring0 = case.pop("mail_ids")
+        args = [case[x] for x in ("mail_cnt", "sf", "drop", "svalid",
+                                  "wslot", "off")]
+        ring_p, ring_k = ring0.clone(), ring0.clone()
+        out_p = megakernel.emit_plain(ring_p, *args, **kw)
+        out_k = megakernel.fused_emit(ring_k, *args, **kw)
+        torch.cuda.synchronize()
+        err = max_err([ring_p], [ring_k])
+        same = all(torch.equal(a, c) for a, c in zip(out_p[1:3], out_k[1:3]))
+        if not (err == 0 and same and int(out_p[3]) == int(out_k[3])
+                and int(out_p[4]) == int(out_k[4])):
+            fail(f"fused_emit[{label}] differs from its plain version (ring "
+                 f"err {err}; lost {int(out_p[3])} vs {int(out_k[3])}, "
+                 f"blocked {int(out_p[4])} vs {int(out_k[4])})")
+        t_k = time_ms(lambda: megakernel.fused_emit(ring_k, *args, **kw),
+                      reps)
+        t_p = time_ms(lambda: megakernel.emit_plain(ring_p, *args, **kw),
+                      reps)
+        device_split(f"fused_emit[{label}]",
+                     lambda: megakernel.fused_emit(ring_k, *args, **kw))
+        nbytes, nops = emit_bytes(m, k, k, False, False)
+        if pm is not None:
+            nbytes += m * k  # one mask byte a lane
+        bnd, by = bound_ms(nbytes, nops)
+        say(f"fused_emit[{label}]: bit-exact (dw {ddw}, cap {dcap}, blocked "
+            f"{int(out_k[4])} of {m * k} lanes, lost {int(out_k[3])}); "
+            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd:.5f} ms "
+            f"({by})")
+        cols["fused_emit"].update({
+            f"{label}_max_abs_err": err, f"{label}_ms": t_k,
+            f"{label}_plain_ms": t_p, f"{label}_bound_ms": bnd,
+            f"{label}_bound_by": by})
+        del ring0, ring_p, ring_k, case, args, kw
+        torch.cuda.empty_cache()
+    rm = 262_144
+    for ddw in DEEP_DW:
+        dcap = 2 * rm // ddw
+        rings0 = [torch.randint(0, 2**30, (ddw * dcap + 1,), generator=gen,
+                                **i32) for _ in range(2)]
+        cnt0 = torch.randint(0, dcap // 2, (1, ddw), generator=gen, **i32)
+        pays = (torch.randint(0, FULL_N, (rm,), generator=gen, **i32),
+                torch.randint(0, 2**30, (rm,), generator=gen, **i32))
+        wslot = torch.randint(0, ddw, (rm,), generator=gen, **i32)
+        valid = torch.rand(rm, generator=gen, device=dev) < 0.9
+        out, err, t_k, t_p = check_and_time(
+            f"fused_ring_append[dw{ddw}]", deliver.ring_append_plain,
+            deliver.fused_ring_append,
+            lambda: [r.clone() for r in rings0] + [  # noqa: B023
+                cnt0.clone(), torch.zeros((), **i32)],  # noqa: B023
+            lambda fn, st: fn(st[:2], st[2], st[3], pays,  # noqa: B023
+                              wslot, valid, ddw, dcap) and None,  # noqa: B023
+            lambda st: (st[2].copy_(cnt0), st[3].zero_()),  # noqa: B023
+            reps)
+        ok = int(valid.sum()) - int(out[3])
+        bnd, by = bound_ms(rm * 13 + ok * 8 + 8 * ddw, rm * 40)
+        say(f"fused_ring_append[dw{ddw}]: bit-exact over {rm} lanes (cap "
+            f"{dcap}, dropped {int(out[3])}); kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms, bound {bnd:.5f} ms ({by})")
+        cols["fused_ring_append"].update({
+            f"dw{ddw}_max_abs_err": err, f"dw{ddw}_ms": t_k,
+            f"dw{ddw}_plain_ms": t_p, f"dw{ddw}_bound_ms": bnd,
+            f"dw{ddw}_bound_by": by})
+        del rings0, out, pays, wslot, valid
+        torch.cuda.empty_cache()
+    ev = recv_shapes(sharded_argv(SHARDED_N), SHARDS)
+    for ddw in DEEP_DW:
+        dcap = 2 * SHARDS * ev["rcap"] // ddw
+        # Rows whose wire words d * (dw * b) + w * b + o fit in int32.
+        nl = min(ev["n_local"], (2**31 - 1) // (ddw * ev["b"]))
+        recv, _ = _wire(gen, dev, SHARDS, ev["rcap"], ev["fill"], nl, ddw,
+                        ev["b"])
+        cnt0 = torch.randint(0, dcap // 2, (1, ddw), generator=gen, **i32)
+        kw = dict(dw=ddw, cap=dcap, b=ev["b"])
+        out, err, t_k, t_p = check_and_time(
+            f"{RECV}[dw{ddw}]", megakernel.recv_land_plain,
+            megakernel.fused_recv_land,
+            lambda: [torch.zeros(ddw * dcap + 1, **i32),  # noqa: B023
+                     cnt0.clone(), torch.zeros((), **i32)],  # noqa: B023
+            lambda fn, st: [fn(st[0], st[1], st[2], recv,  # noqa: B023
+                               **kw)[3]],  # noqa: B023
+            lambda st: (st[1].copy_(cnt0), st[2].zero_()),  # noqa: B023
+            reps)
+        rmm = recv.numel()
+        landed = int((out[1] - cnt0).sum())
+        bnd, by = bound_ms(rmm * 4 + landed * 4, rmm * 30)
+        say(f"{RECV}[dw{ddw}]: bit-exact over {rmm} lanes ({landed} landed, "
+            f"{int(out[2])} dropped; cap {dcap}, rows {nl}); kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd:.5f} ms ({by})")
+        cols[RECV].update({
+            f"dw{ddw}_max_abs_err": err, f"dw{ddw}_ms": t_k,
+            f"dw{ddw}_plain_ms": t_p, f"dw{ddw}_bound_ms": bnd,
+            f"dw{ddw}_bound_by": by})
+        del recv, out
+        torch.cuda.empty_cache()
+    cols[DEPOSIT] = heal_deposit_parity(dev, gen, reps)
+    return cols
+
+
+def heal_deposit_parity(dev, gen, reps: int) -> dict:
+    """fused_deposit_add at the ring engine's heal deposit
+    (ring_churn10m_heal: n * k = 6e7 lanes, one slot a healer row of the
+    20 x 1e7 ring, a quarter of a percent of the lanes valid, about one
+    heal's re-sends): 0.3 lanes a ring cell, so the wrapper takes the
+    direct form.  Bit-exact to its plain version, timed beside it, the
+    one index_put_ call and the bound.  Returns the heal_* columns of
+    the fused_deposit_add row."""
+    from gossip_simulator_tpu_torch.ops import deliver
+
+    b, n, k = 20, RING_N, 6
+    slots, dst, ok, _ = _deposit_lanes(gen, dev, b, n, n, k, 0.0025)
+    pend0 = torch.randint(0, 4, (b, n), generator=gen, dtype=torch.int32,
+                          device=dev)
+    m = slots.numel()
+    form = "dense" if deliver.deposit_part_bits(m, b * n) else "direct"
+    out, err, t_k, t_p = check_and_time(
+        "fused_deposit_add[heal]", deliver.deposit_add_plain,
+        deliver.fused_deposit_add, lambda: [pend0.clone()],
+        lambda fn, st: [fn(st[0], slots, dst, ok)][1:], lambda st: None,
+        reps)
+    flat = slots.long() * n + dst.long()
+    flat_ok = flat[ok]
+    one = torch.ones(flat_ok.numel(), dtype=torch.int32, device=dev)
+    pv = out[0].view(-1)
+    t_l = time_ms(lambda: pv.index_put_((flat_ok,), one, accumulate=True),
+                  reps)
+    sectors = _touched(flat, ok)
+    # The function reads every lane's valid byte, and slot and dst of the
+    # valid lanes only (0.25 % of them here), and each touched sector once.
+    kept = int(ok.sum())
+    bnd, by = bound_ms(m + kept * 8 + sectors * 64, m * 4)
+    say(f"fused_deposit_add[heal]: bit-exact over {m} lanes ({b} x {n} "
+        f"ring, {kept} kept, {sectors} sectors, {m / (b * n):.4f} lanes a "
+        f"cell: the {form} form); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"index_put_ {t_l:.4f} ms, bound {bnd:.5f} ms ({by})")
+    del slots, dst, ok, pend0, out, flat, flat_ok, one, pv
+    torch.cuda.empty_cache()
+    return dict(heal_max_abs_err=err, heal_ms=t_k, heal_plain_ms=t_p,
+                heal_library_ms=t_l, heal_bound_ms=bnd, heal_bound_by=by,
+                heal_form=form)
+
+
 def sharded_twins(n: int) -> None:
     """cuda-vs-cpu twins of the sharded backend at n on 2 and 8 shards:
     identical transcripts and final state leaves, and fused_recv_land
@@ -2792,7 +3157,7 @@ def phase_profile(n: int, out_path: str, run: str = "default") -> None:
 
 
 PHASES = ("parity", "twins", "full", "rounds", "ring", "pushsum", "graphs",
-          "sharded")
+          "sharded", "faults")
 
 
 def kernel_rows(kernels: dict, runs: dict) -> list:
@@ -2892,6 +3257,12 @@ def main() -> int:
         gen = torch.Generator(device=dev)
         gen.manual_seed(7)
         kernels[RECV] = recv_parity(dev, gen, REPS)
+    if "parity" in phases:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(13)
+        for name, cols in fault_parity(dev, gen, REPS).items():
+            if name in kernels:
+                kernels[name].update(cols)
     lap("parity")
 
     # 4. twins
@@ -2909,7 +3280,9 @@ def main() -> int:
             ("graphs", lambda: phase_graphs(KOUT_N, ERDOS_N,
                                             ERDOS_WIDE_N)),
             ("sharded", lambda: phase_sharded(SHARDED_N, PUSHSUM_N,
-                                              SHARDED_BIG_N))):
+                                              SHARDED_BIG_N)),
+            ("faults", lambda: phase_faults(FULL_N, FAULT_PAIR_N,
+                                            TWIN_N))):
         if name in phases:
             runs.update(phase())
             lap(name)

@@ -9,8 +9,10 @@ once.  Phase 2 runs the event engine (``models/event.py``) or the ring
 engine (``models/epidemic.py``: ``-time-mode rounds``, ``-engine ring``,
 ``-compact``, ``-protocol pushpull``), as ``Config.engine_resolved``
 picks, or PushSum (``models/pushsum.py``, ``-model pushsum``); one
-``gossip_window()`` runs 10 simulated ms (one round in rounds mode) and
-reads the counters back once.  The JAX package's bounded
+``gossip_window()`` runs 10 simulated ms (one round in rounds mode), and
+with ``-overlay-heal on`` one healing pass after it (the engine's
+``make_window_fn``), and reads the counters back once, the fault
+counters into ``Stats``.  The JAX package's bounded
 device-side fast paths (``run_to_target``, ``overlay_run_to_quiescence``)
 are not yet ported (ROADMAP A6); the driver runs the windowed loop, whose
 transcript the JAX package pins equal to its fast path's.
@@ -197,8 +199,11 @@ class TorchStepper(Stepper):
         self._window_fn(self.state, self.key)
         stats, live = self.stats_and_inflight()
         # Push-pull draws fresh peers every round: nothing is ever "in
-        # flight", and its wave never dies in the ring.
-        self.exhausted = not live and self.cfg.protocol != "pushpull"
+        # flight", and its wave never dies in the ring.  Healing can revive
+        # an empty ring (a pending dead-friend detection re-sends from an
+        # infected healer), so heal-on runs never report exhaustion.
+        self.exhausted = (not live and self.cfg.protocol != "pushpull"
+                          and not self.cfg.overlay_heal_resolved)
         stats.exhausted = self.exhausted
         return stats
 

@@ -8,7 +8,9 @@ on its friends table), static graphs (``-graph kout``, ``erdos`` or
 ``ring``, and ``-pallas``'s generators), and the ring engine
 (``-time-mode rounds``, ``-engine ring``, ``-compact``, ``-protocol
 pushpull``, ``-engine ring -rumors R``), SI or SIR, and PushSum numeric
-gossip (``-model pushsum``) on one device.  Flag spellings, defaults
+gossip (``-model pushsum``) on one device, each under fault scenarios
+and overlay healing (``-scenario``, ``-overlay-heal``,
+``-heal-detect-ms``; ``scenario.py``).  Flag spellings, defaults
 and the reference-format parameter dump are the JAX package's, so a
 run's transcript matches it byte for byte.
 
@@ -29,8 +31,6 @@ import argparse
 import dataclasses
 import math
 from typing import Optional
-
-from gossip_simulator_tpu_torch.ops.deliver import RING_SLOTS_MAX
 
 BACKENDS = ("native", "cpp", "jax", "sharded")
 PROTOCOLS = ("si", "pushpull", "sir")
@@ -155,6 +155,10 @@ class Config:
     progress: bool = True
     distributed: bool = False
     supervise: bool = False
+    # Fault scenario (scenario.py): "off", a path to a JSON timeline, or
+    # the JSON inline; overlay self-healing in phase 2 (every poll window,
+    # live nodes replace friends dead >= heal_detect_ms with a fresh peer
+    # and infected healers re-send over the repaired edge).
     scenario: str = "off"
     overlay_heal: str = "off"
     rumors: int = 1
@@ -272,11 +276,36 @@ class Config:
         return "ring"
 
     @property
+    def scenario_resolved(self):
+        """The parsed fault Scenario (scenario.OFF when "off"), cached by
+        spec."""
+        from gossip_simulator_tpu_torch import scenario as _scen
+
+        return _scen.parse(self.scenario)
+
+    @property
+    def overlay_heal_resolved(self) -> bool:
+        return self.overlay_heal == "on"
+
+    @property
+    def faults_enabled(self) -> bool:
+        """Whether phase 2 carries the fault machinery (the per-node crash
+        clock down_since and the window's fault pass): scenario crash,
+        churn or recovery events, or healing, whose dead-friend detection
+        reads the same clock."""
+        return (self.scenario_resolved.has_faults
+                or self.overlay_heal_resolved)
+
+    @property
     def dup_suppress_resolved(self) -> bool:
         """Append-side duplicate suppression: only sound at an effective
-        crash rate of 0, and never with a rumor axis (an infected node can
-        still gain new rumor bits)."""
+        crash rate of 0, never under scenario faults (a scenario crash can
+        black-hole a destination before its window drains), and never
+        with a rumor axis (an infected node can still gain new rumor
+        bits)."""
         if self.dup_suppress == "off" or self.multi_rumor:
+            return False
+        if self.scenario_resolved.has_faults:
             return False
         return self.crashrate_eff == 0.0
 
@@ -443,6 +472,7 @@ class Config:
                 "engine=event supports protocol=si|sir in ticks mode only")
         self._validate_rumors()
         self._validate_pushsum()
+        self._validate_faults()
         self._reject_unported()
         return self
 
@@ -471,6 +501,11 @@ class Config:
                     "-dup-suppress on is unsound with a rumor axis: an "
                     "already-infected destination can still gain new rumor "
                     "bits, so 'guaranteed duplicate' edges carry information")
+            if (self.engine_resolved == "ring"
+                    and self.overlay_heal_resolved):
+                raise ValueError(
+                    "-overlay-heal with -rumors > 1 requires the event "
+                    "engine (ring-engine heal re-sends are single-rumor)")
         if self.traffic == "stream" and self.engine_resolved != "event":
             raise ValueError(
                 "-traffic stream requires the event engine (the jitted "
@@ -536,6 +571,45 @@ class Config:
             raise ValueError(
                 f"pushsum_eps must be > 0, got {self.pushsum_eps}")
 
+    def _validate_faults(self) -> None:
+        """The JAX package's fault-scenario and healing rules, as written
+        there."""
+        scen = self.scenario_resolved  # raises ValueError on a bad spec
+        if scen.active:
+            if self.backend not in ("jax", "sharded"):
+                raise ValueError(
+                    "-scenario requires backend=jax or sharded (the "
+                    "discrete-event oracles have no fault timeline)")
+            if self.protocol == "pushpull":
+                raise ValueError(
+                    "-scenario supports protocol=si|sir (push-pull has "
+                    "no send-time wave for the partition mask to filter)")
+            if scen.groups > self.n:
+                raise ValueError(
+                    f"scenario groups ({scen.groups}) cannot exceed n "
+                    f"({self.n})")
+            if self.dup_suppress == "on" and scen.has_faults:
+                raise ValueError(
+                    "-dup-suppress on is unsound under scenario faults: "
+                    "a banked duplicate credit assumes delivery to a "
+                    "live node, but a scenario crash can black-hole the "
+                    "destination before its window drains")
+        if self.overlay_heal not in ("on", "off"):
+            raise ValueError(
+                f"overlay_heal must be on|off, got {self.overlay_heal!r}")
+        if self.overlay_heal_resolved:
+            if self.backend not in ("jax", "sharded"):
+                raise ValueError(
+                    "-overlay-heal requires backend=jax or sharded")
+            if self.protocol == "pushpull":
+                raise ValueError(
+                    "-overlay-heal is meaningless for push-pull (fresh "
+                    "random peers every round; there is no friends table "
+                    "to repair)")
+        if self.heal_detect_ms < 0:
+            raise ValueError(
+                f"heal_detect_ms must be >= 0, got {self.heal_detect_ms}")
+
     def _reject_unported(self) -> None:
         """Name every flag value outside the ported slices."""
         if self.backend in ("native", "cpp"):
@@ -549,6 +623,10 @@ class Config:
             raise NotYetPorted(
                 "-backend sharded with -graph overlay, -engine ring, "
                 "-time-mode rounds or -protocol pushpull", "A13")
+        if self.backend == "sharded" and (self.scenario_resolved.active
+                                          or self.overlay_heal_resolved):
+            raise NotYetPorted(
+                "-backend sharded with -scenario or -overlay-heal", "A13")
         if self.graph == "overlay":
             self._reject_unported_overlay()
         if self.traffic != "oneshot" or (
@@ -560,14 +638,6 @@ class Config:
             value = getattr(self, name)
             if value != getattr(defaults, name):
                 raise NotYetPorted(f"{flag} {value}", item)
-        rings = (self.engine_resolved == "event" or self.model == "pushsum"
-                 or (self.graph == "overlay"
-                     and self.overlay_mode_resolved == "ticks"))
-        if rings and self.ring_windows > RING_SLOTS_MAX:
-            raise NotYetPorted(
-                f"a mail ring of {self.ring_windows} window slots "
-                f"(-delayhigh {self.delayhigh}; the kernels take "
-                f"{RING_SLOTS_MAX})", "C1")
 
     def _reject_unported_overlay(self) -> None:
         """Ported: the rounds overlay's three bands and the tick-faithful
@@ -611,9 +681,6 @@ class Config:
 # Fields whose value away from the default is not yet ported: the flag's
 # spelling and the ROADMAP item that ports it.
 UNPORTED_FLAGS = {
-    "scenario": ("-scenario", "A10"),
-    "overlay_heal": ("-overlay-heal", "A10"),
-    "heal_detect_ms": ("-heal-detect-ms", "A10"),
     "stream_rate": ("-stream-rate", "A11"),
     "arrivals": ("-arrivals", "A11"),
     "telemetry_spatial": ("-telemetry-spatial", "A6"),

@@ -2,6 +2,9 @@
 // down, for one batch of m senders with k friend columns each:
 //
 //   edge mask      v[i] & !drop[i,kk] & sf[i,kk] >= 0
+//   partition      (pmask != null) an edge whose pmask[i,kk] is set is
+//                  blocked (cleared) and counted in blocked, before the
+//                  duplicate filter
 //   dup filter     (flags != null) an edge whose destination already has
 //                  the RECEIVED bit is suppressed and counted in sup[slot]
 //   SIR trigger    (strig != null) one more lane right after the kept edges
@@ -46,9 +49,14 @@
 //     order, a thread a lane, so a warp's stores fall on the runs of a few
 //     rows and on one stretch of trash lanes; wider rows by groups again,
 //     their lanes computed again from the (cached) rows.
-// adds, sup and lost are integer sums: each block adds its own into the
-// workspace's head, and the last block to finish writes them out whole
-// and zeroes them.
+// adds, sup, lost and blocked are integer sums: each block adds its own
+// into the workspace's head (the second part's sums past DW_LIMIT slots),
+// and the last block to finish writes them out whole and zeroes them.
+// The partition mask (the scenario's send-time partition_blocked, computed
+// by the caller as the JAX package computes it outside its kernel) is one
+// more byte a lane, read only when given.  Past DW_LIMIT (1024) window
+// slots the per-slot tables move to global memory (lookback.cuh's global
+// form).
 //
 // Plain C interface (built with nvcc, loaded with ctypes): returns the
 // cudaError_t of the launch.
@@ -73,33 +81,39 @@ struct Emit {
   const uint8_t* flags;
   const uint8_t* strig;
   const int32_t* sids;
+  const uint8_t* pmask;
   long long m;
   long long cap;
   int rbit, tb, k, kw, dw, b;
 };
 
 // Lane kk of U rows (row i[u], in range in[u], valid v[u]): e[u] whether
-// it is a kept lane, dup[u] an edge the duplicate filter suppressed, f[u]
-// the friend.  Every row's loads are issued before the first is used (the
-// friends and drops, then the flags they name).
-template <int U>
+// it is a kept lane, bl[u] an edge the partition mask blocked, dup[u] an
+// edge the duplicate filter suppressed, f[u] the friend.  Every row's loads
+// are issued before the first is used (the friends, drops and mask, then
+// the flags they name).  PM: the call has a partition mask (a launch
+// without one compiles no mask code).
+template <int U, bool PM>
 __device__ __forceinline__ void kept_lanes(const Emit& a,
                                            const long long (&i)[U],
                                            const bool (&in)[U],
                                            const bool (&v)[U], int kk,
-                                           bool (&e)[U], bool (&dup)[U],
-                                           int (&f)[U]) {
-  uint8_t dr[U], fl[U];
+                                           bool (&e)[U], bool (&bl)[U],
+                                           bool (&dup)[U], int (&f)[U]) {
+  uint8_t dr[U], fl[U], pm[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const bool edge = in[u] && kk < a.k;
     const long long at = i[u] * a.k + kk;
     f[u] = edge ? a.sf[at] : -1;
     dr[u] = edge ? a.drop[at] : 1;
+    pm[u] = PM && edge ? a.pmask[at] : 0;
   }
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     e[u] = v[u] && dr[u] == 0 && f[u] >= 0;
+    bl[u] = PM && e[u] && pm[u] != 0;
+    e[u] = e[u] && !bl[u];
     fl[u] = e[u] && a.flags != nullptr ? a.flags[f[u]] : 0;
   }
 #pragma unroll
@@ -111,19 +125,22 @@ __device__ __forceinline__ void kept_lanes(const Emit& a,
   }
 }
 
-template <int G>
+template <int G, bool GLB, bool PM>
 __global__ void __launch_bounds__(THREADS)
-emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws,
-     unsigned epoch) {
+emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws, int* aux,
+     long long nb, unsigned epoch) {
   extern __shared__ int smem[];
-  const lookback::Slots sl = lookback::carve(smem, a.dw);
+  const lookback::Slots sl =
+      lookback::carve(lookback::tables<GLB>(smem, aux, a.dw), a.dw);
   int* s_sup = sl.aux;  // the duplicates, until look_back
   __shared__ int s_key[EMIT_TILE];  // a row's slot, -1: reserves nothing
   __shared__ int s_ec[EMIT_TILE];
   __shared__ unsigned s_mask[EMIT_TILE];  // a row's kept lanes (kw <= 32)
   __shared__ long long s_dst[EMIT_TILE];  // a row's first cell, -1: none
-  __shared__ int s_nok, s_lost;
-  int* acc = lookback::sums(ws);  // sup [0, dw), adds, lost
+  __shared__ int s_nok, s_lost, s_blocked;
+  // sup [0, dw), adds [D, D + dw), lost (2D), blocked (2D + 1)
+  int* acc = lookback::acc_sums<GLB>(ws, aux);
+  const int D = GLB ? a.dw : DW_LIMIT;
   const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
   const int sub = lane & (G - 1);
   const int shift = lane - sub;
@@ -134,218 +151,256 @@ emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws,
   constexpr int PASSES = EMIT_TILE / PASS;
   constexpr int U = PASSES < 4 ? PASSES : 4;  // passes whose loads overlap
 
-  for (int j = t; j < dw; j += THREADS) s_sup[j] = 0;
-  const long long blk = lookback::ticket(ws, sl, dw, &s_nok);
-  const long long tile0 = blk * EMIT_TILE;
+  // A tile a block (GLB: tiles by ticket until none is left).
+  for (;;) {
+    for (int j = t; j < dw; j += THREADS) s_sup[j] = 0;
+    if (PM && t == 0) s_blocked = 0;
+    const long long blk = lookback::ticket(ws, sl, dw, &s_nok);
+    if (GLB && blk >= nb) break;
+    const long long tile0 = blk * EMIT_TILE;
 
-  // STAGE 1
-  // Masks and counts: G threads a row, neighbouring lanes, U passes of
-  // the block's rows at a time.
-  for (int p0 = 0; p0 < PASSES; p0 += U) {
-    long long i[U];
-    bool in[U], v[U];
-    int ec[U], dc[U];
-    unsigned km[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      i[u] = tile0 + (p0 + u) * PASS + t / G;
-      in[u] = i[u] < a.m;
-      v[u] = in[u] && a.svalid[i[u]] != 0;
-      ec[u] = 0;
-      dc[u] = 0;
-      km[u] = 0;
-    }
-    for (int c = 0; c < a.kw; c += G) {
-      bool e[U], dup[U];
-      int f[U];
-      kept_lanes(a, i, in, v, c + sub, e, dup, f);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const unsigned eb = (__ballot_sync(FULL_MASK, e[u]) >> shift) & gmask;
-        ec[u] += __popc(eb);
-        dc[u] += __popc((__ballot_sync(FULL_MASK, dup[u]) >> shift) & gmask);
-        if (c < 32) km[u] |= eb << c;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (sub != 0) continue;
-      const int rr = (p0 + u) * PASS + t / G;
-      const int s = in[u] ? a.wslot[i[u]] : -1;
-      const bool slot_ok = s >= 0 && s < dw;
-      s_key[rr] = v[u] && slot_ok && ec[u] > 0 ? s : -1;
-      s_ec[rr] = ec[u];
-      s_mask[rr] = km[u];
-      if (dc[u] && slot_ok) atomicAdd(&s_sup[s], dc[u]);
-    }
-  }
-  __syncthreads();
-
-  // STAGE 2
-  // Weighted ranks, a thread a row: warp wid takes the tile's rows [wid *
-  // 32 * EMIT_ITEMS, (wid + 1) * 32 * EMIT_ITEMS) in rounds of 32.
-  const int row0 = wid * (32 * EMIT_ITEMS) + lane;
-  int slot[EMIT_ITEMS], wt[EMIT_ITEMS], rank[EMIT_ITEMS];
-#pragma unroll
-  for (int r = 0; r < EMIT_ITEMS; ++r) {
-    const int key = s_key[row0 + r * 32];
-    slot[r] = key < 0 ? 0 : key;
-    wt[r] = s_ec[row0 + r * 32];
-    rank[r] = key < 0 ? -1 : 0;
-  }
-  lookback::rank_tile_weighted(slot, wt, rank, sl, dw);
-  for (int j = t; j < dw; j += THREADS)
-    if (s_sup[j]) atomicAdd(&acc[j], s_sup[j]);
-  int* s_adds = sl.warp;  // free after the ranks
-  for (int j = t; j < dw; j += THREADS) s_adds[j] = 0;
-  if (t == 0) s_lost = 0;
-  // STAGE 3
-  lookback::look_back(ws, blk, dw, epoch, sl);
-
-  // STAGE 4
-  // Starts and verdicts: an okr row's first cell, adds and lost.
-  int lost = 0;
-#pragma unroll
-  for (int r = 0; r < EMIT_ITEMS; ++r) {
-    long long dst = -1;
-    if (rank[r] >= 0) {
-      const int s = slot[r];
-      const long long start = (long long)a.base[s] + sl.aux[s] + rank[r];
-      if (start + wt[r] <= a.cap) {
-        dst = s * a.cap + start;
-        atomicAdd(&s_adds[s], wt[r]);
-      } else {
-        lost += wt[r];
-      }
-    } else {
-      lost += wt[r];  // kept lanes of a row that reserves nothing
-    }
-    s_dst[row0 + r * 32] = dst;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) lost += __shfl_xor_sync(FULL_MASK, lost, o);
-  if (lane == 0 && lost) atomicAdd(&s_lost, lost);
-  __syncthreads();
-  for (int j = t; j < dw; j += THREADS)
-    if (s_adds[j]) atomicAdd(&acc[DW_LIMIT + j], s_adds[j]);
-  if (t == 0 && s_lost) atomicAdd(&acc[2 * DW_LIMIT], s_lost);
-
-  // STAGE 5
-  // Ring stores: a kept lane of an okr row at its column (its kept rank in
-  // the row), every other lane at its trash lane.  Rows of up to 32 lanes
-  // go in the tile's (row, lane) order, a thread a lane, their kept lanes
-  // from the masks: a warp's stores fall on the runs of a few rows and on
-  // one stretch of the tile's trash lanes, and a kept edge's friend is
-  // read again, coalesced, for its payload.  Wider rows go by groups and
-  // compute their lanes again.
-  if (a.kw <= 32) {
-    const long long trash0 = (long long)dw * a.cap + tile0 * a.kw;
-    const long long rows = a.m - tile0 < EMIT_TILE ? a.m - tile0 : EMIT_TILE;
-    const int lanes = (int)rows * a.kw;
-#pragma unroll 4
-    for (int e = t; e < lanes; e += THREADS) {
-      const int rr = e / a.kw;
-      const int kk = e - rr * a.kw;
-      const long long i = tile0 + rr;
-      const unsigned km = s_mask[rr];
-      const long long dst = s_dst[rr];
-      const bool kept = ((km >> kk) & 1u) != 0;
-      int32_t pay = 0;
-      if (kept) {
-        const int o = a.off[i];
-        pay = kk < a.k ? a.sf[i * a.k + kk] * a.b + o
-                       : a.tb + a.sids[i] * a.b + o;
-      }
-      a.ring[kept && dst >= 0 ? dst + __popc(km & ((1u << kk) - 1u))
-                              : trash0 + e] = pay;
-    }
-  } else {
+    // STAGE 1
+    // Masks and counts: G threads a row, neighbouring lanes, U passes of
+    // the block's rows at a time.
     for (int p0 = 0; p0 < PASSES; p0 += U) {
-      long long i[U], dst[U];
+      long long i[U];
       bool in[U], v[U];
-      int o[U], col[U];
+      int ec[U], dc[U], bc[U];
+      unsigned km[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const int rr = (p0 + u) * PASS + t / G;
-        i[u] = tile0 + rr;
+        i[u] = tile0 + (p0 + u) * PASS + t / G;
         in[u] = i[u] < a.m;
         v[u] = in[u] && a.svalid[i[u]] != 0;
-        o[u] = in[u] ? a.off[i[u]] : 0;
-        dst[u] = s_dst[rr];
-        col[u] = 0;
+        ec[u] = 0;
+        dc[u] = 0;
+        bc[u] = 0;
+        km[u] = 0;
       }
       for (int c = 0; c < a.kw; c += G) {
-        const int kk = c + sub;
-        bool e[U], dup[U];
+        bool e[U], bl[U], dup[U];
         int f[U];
-        kept_lanes(a, i, in, v, kk, e, dup, f);
+        kept_lanes<U, PM>(a, i, in, v, c + sub, e, bl, dup, f);
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const unsigned eb =
               (__ballot_sync(FULL_MASK, e[u]) >> shift) & gmask;
-          if (in[u] && kk < a.kw) {
-            int32_t pay = 0;
-            if (e[u])
-              pay = kk < a.k ? f[u] * a.b + o[u]
-                             : a.tb + a.sids[i[u]] * a.b + o[u];
-            a.ring[(e[u] && dst[u] >= 0)
-                       ? dst[u] + col[u] + __popc(eb & below)
-                       : (long long)dw * a.cap + i[u] * a.kw + kk] = pay;
+          ec[u] += __popc(eb);
+          dc[u] +=
+              __popc((__ballot_sync(FULL_MASK, dup[u]) >> shift) & gmask);
+          if (PM)
+            bc[u] +=
+                __popc((__ballot_sync(FULL_MASK, bl[u]) >> shift) & gmask);
+          if (c < 32) km[u] |= eb << c;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (sub != 0) continue;
+        const int rr = (p0 + u) * PASS + t / G;
+        const int s = in[u] ? a.wslot[i[u]] : -1;
+        const bool slot_ok = s >= 0 && s < dw;
+        s_key[rr] = v[u] && slot_ok && ec[u] > 0 ? s : -1;
+        s_ec[rr] = ec[u];
+        s_mask[rr] = km[u];
+        if (dc[u] && slot_ok) atomicAdd(&s_sup[s], dc[u]);
+        if (PM && bc[u]) atomicAdd(&s_blocked, bc[u]);
+      }
+    }
+    __syncthreads();
+
+    // STAGE 2
+    // Weighted ranks, a thread a row: warp wid takes the tile's rows [wid *
+    // 32 * EMIT_ITEMS, (wid + 1) * 32 * EMIT_ITEMS) in rounds of 32.
+    const int row0 = wid * (32 * EMIT_ITEMS) + lane;
+    int slot[EMIT_ITEMS], wt[EMIT_ITEMS], rank[EMIT_ITEMS];
+#pragma unroll
+    for (int r = 0; r < EMIT_ITEMS; ++r) {
+      const int key = s_key[row0 + r * 32];
+      slot[r] = key < 0 ? 0 : key;
+      wt[r] = s_ec[row0 + r * 32];
+      rank[r] = key < 0 ? -1 : 0;
+    }
+    lookback::rank_tile_weighted(slot, wt, rank, sl, dw);
+    for (int j = t; j < dw; j += THREADS)
+      if (s_sup[j]) atomicAdd(&acc[j], s_sup[j]);
+    int* s_adds = sl.warp;  // free after the ranks
+    for (int j = t; j < dw; j += THREADS) s_adds[j] = 0;
+    if (t == 0) s_lost = 0;
+    // STAGE 3
+    lookback::look_back(ws, blk, dw, epoch, sl);
+
+    // STAGE 4
+    // Starts and verdicts: an okr row's first cell, adds and lost.
+    int lost = 0;
+#pragma unroll
+    for (int r = 0; r < EMIT_ITEMS; ++r) {
+      long long dst = -1;
+      if (rank[r] >= 0) {
+        const int s = slot[r];
+        const long long start = (long long)a.base[s] + sl.aux[s] + rank[r];
+        if (start + wt[r] <= a.cap) {
+          dst = s * a.cap + start;
+          atomicAdd(&s_adds[s], wt[r]);
+        } else {
+          lost += wt[r];
+        }
+      } else {
+        lost += wt[r];  // kept lanes of a row that reserves nothing
+      }
+      s_dst[row0 + r * 32] = dst;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      lost += __shfl_xor_sync(FULL_MASK, lost, o);
+    if (lane == 0 && lost) atomicAdd(&s_lost, lost);
+    __syncthreads();
+    for (int j = t; j < dw; j += THREADS)
+      if (s_adds[j]) atomicAdd(&acc[D + j], s_adds[j]);
+    if (t == 0 && s_lost) atomicAdd(&acc[2 * D], s_lost);
+    if (PM && t == 0 && s_blocked) atomicAdd(&acc[2 * D + 1], s_blocked);
+
+    // STAGE 5
+    // Ring stores: a kept lane of an okr row at its column (its kept rank in
+    // the row), every other lane at its trash lane.  Rows of up to 32 lanes
+    // go in the tile's (row, lane) order, a thread a lane, their kept lanes
+    // from the masks: a warp's stores fall on the runs of a few rows and on
+    // one stretch of the tile's trash lanes, and a kept edge's friend is
+    // read again, coalesced, for its payload.  Wider rows go by groups and
+    // compute their lanes again.
+    if (a.kw <= 32) {
+      const long long trash0 = (long long)dw * a.cap + tile0 * a.kw;
+      const long long rows = a.m - tile0 < EMIT_TILE ? a.m - tile0 : EMIT_TILE;
+      const int lanes = (int)rows * a.kw;
+#pragma unroll 4
+      for (int e = t; e < lanes; e += THREADS) {
+        const int rr = e / a.kw;
+        const int kk = e - rr * a.kw;
+        const long long i = tile0 + rr;
+        const unsigned km = s_mask[rr];
+        const long long dst = s_dst[rr];
+        const bool kept = ((km >> kk) & 1u) != 0;
+        int32_t pay = 0;
+        if (kept) {
+          const int o = a.off[i];
+          pay = kk < a.k ? a.sf[i * a.k + kk] * a.b + o
+                         : a.tb + a.sids[i] * a.b + o;
+        }
+        a.ring[kept && dst >= 0 ? dst + __popc(km & ((1u << kk) - 1u))
+                                : trash0 + e] = pay;
+      }
+    } else {
+      for (int p0 = 0; p0 < PASSES; p0 += U) {
+        long long i[U], dst[U];
+        bool in[U], v[U];
+        int o[U], col[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int rr = (p0 + u) * PASS + t / G;
+          i[u] = tile0 + rr;
+          in[u] = i[u] < a.m;
+          v[u] = in[u] && a.svalid[i[u]] != 0;
+          o[u] = in[u] ? a.off[i[u]] : 0;
+          dst[u] = s_dst[rr];
+          col[u] = 0;
+        }
+        for (int c = 0; c < a.kw; c += G) {
+          const int kk = c + sub;
+          bool e[U], bl[U], dup[U];
+          int f[U];
+          kept_lanes<U, PM>(a, i, in, v, kk, e, bl, dup, f);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const unsigned eb =
+                (__ballot_sync(FULL_MASK, e[u]) >> shift) & gmask;
+            if (in[u] && kk < a.kw) {
+              int32_t pay = 0;
+              if (e[u])
+                pay = kk < a.k ? f[u] * a.b + o[u]
+                               : a.tb + a.sids[i[u]] * a.b + o[u];
+              a.ring[(e[u] && dst[u] >= 0)
+                         ? dst[u] + col[u] + __popc(eb & below)
+                         : (long long)dw * a.cap + i[u] * a.kw + kk] = pay;
+            }
+            col[u] += __popc(eb);
           }
-          col[u] += __popc(eb);
         }
       }
     }
+
+    if (!GLB) break;
+    __syncthreads();  // the tile's rows are read before the next ticket
   }
 
   // STAGE 6
-  // The last block to finish: the outputs, the head's sums, the counters.
+  // The last block to finish: the outputs, the sums, the counters.
   if (!lookback::last_to_finish(ws)) return;
   volatile int* sums = acc;
   for (int j = t; j < dw; j += THREADS) {
-    out[j] = sums[DW_LIMIT + j];
+    out[j] = sums[D + j];
     out[dw + j] = sums[j];
-    sums[DW_LIMIT + j] = 0;
+    sums[D + j] = 0;
     sums[j] = 0;
   }
   if (t == 0) {
-    out[2 * dw] = sums[2 * DW_LIMIT];
-    sums[2 * DW_LIMIT] = 0;
+    out[2 * dw] = sums[2 * D];
+    out[2 * dw + 1] = sums[2 * D + 1];
+    sums[2 * D] = 0;
+    sums[2 * D + 1] = 0;
   }
   lookback::reset_counters(ws);
 }
 
-template <int G>
-cudaError_t launch(const Emit& a, int32_t* out, u64* ws, unsigned epoch,
-                   cudaStream_t st) {
+template <int G, bool GLB, bool PM>
+cudaError_t launch(const Emit& a, int32_t* out, u64* ws, int* aux,
+                   unsigned epoch, cudaStream_t st) {
   const long long nb = a.m > 0 ? (a.m + EMIT_TILE - 1) / EMIT_TILE : 1;
-  const size_t shmem = lookback::slots_bytes(a.dw);
-  cudaError_t e = allow_smem((const void*)emit<G>, shmem);
+  const size_t shmem = GLB ? 0 : lookback::slots_bytes(a.dw);
+  cudaError_t e = allow_smem((const void*)emit<G, GLB, PM>, shmem);
   if (e != cudaSuccess) return e;
-  emit<G><<<(unsigned)nb, THREADS, shmem, st>>>(a, out, ws, epoch);
+  emit<G, GLB, PM><<<lookback::grid_of(nb, a.dw), THREADS, shmem, st>>>(
+      a, out, ws, aux, nb, epoch);
   return cudaGetLastError();
+}
+
+// The form of a call: G threads a row, the global form past DW_LIMIT
+// slots, the mask code when the call has a mask.
+template <int G>
+cudaError_t pick(const Emit& a, int32_t* out, u64* ws, int* aux,
+                 unsigned epoch, cudaStream_t st) {
+  const bool pm = a.pmask != nullptr;
+  if (a.dw > DW_LIMIT)
+    return pm ? launch<G, true, true>(a, out, ws, aux, epoch, st)
+              : launch<G, true, false>(a, out, ws, aux, epoch, st);
+  return pm ? launch<G, false, true>(a, out, ws, aux, epoch, st)
+            : launch<G, false, false>(a, out, ws, aux, epoch, st);
 }
 
 }  // namespace
 
-// out: int32[2 * dw + 1], written whole (adds, sup, lost).  flags (dup
-// filter) and strig/sender_ids (SIR trigger lane) may be null; at m = 0 the
-// per-sender inputs may be null.  group: the threads that serve a row (1
-// or 8; ops/megakernel.py emit_group).  ws is the int64 workspace of at
-// least WS_HEAD + max(1, ceil(m / EMIT_TILE)) * dw words (ops/deliver.py
-// workspace_words), zeroed when it was made; epoch in [1, EPOCH_MAX), new
-// for every call that uses ws.  dw <= DW_LIMIT.
+// out: int32[2 * dw + 2], written whole (adds, sup, lost, blocked).  flags
+// (dup filter), pmask (partition mask, uint8 (m, k)) and strig/sender_ids
+// (SIR trigger lane) may be null; at m = 0 the per-sender inputs may be
+// null.  group: the threads that serve a row (1 or 8; ops/megakernel.py
+// emit_group).  ws is the int64 workspace of at least WS_HEAD + max(1,
+// ceil(m / EMIT_TILE)) * dw words (ops/deliver.py workspace_words), zeroed
+// when it was made; epoch in [1, EPOCH_MAX), new for every call that uses
+// ws.  Past DW_LIMIT slots aux is the workspace's second part,
+// int32[aux_words >= aux_ints(dw, nb)], zeroed when it was made; else it
+// may be null.
 extern "C" int gossip_fused_emit(
     void* ring, const void* base, const void* sf, const void* drop,
     const void* svalid, const void* wslot, const void* off,
     const void* flags, int rbit, const void* strig, const void* sender_ids,
-    int tb, int m, int k, int dw, int cap, int b, int group, void* out,
-    void* ws, long long ws_words, int epoch, void* stream) {
-  if (dw < 1 || dw > DW_LIMIT || k < 1 || m < 0 || cap < 0 || out == nullptr)
+    const void* pmask, int tb, int m, int k, int dw, int cap, int b,
+    int group, void* out, void* ws, long long ws_words, int epoch, void* aux,
+    long long aux_words, void* stream) {
+  if (dw < 1 || k < 1 || m < 0 || cap < 0 || out == nullptr)
     return (int)cudaErrorInvalidValue;
   if ((strig == nullptr) != (sender_ids == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = lookback::check_ws(m, dw, ws, ws_words, epoch, EMIT_TILE);
+  cudaError_t e = lookback::check_ws(m, dw, ws, ws_words, epoch, aux,
+                                     aux_words, EMIT_TILE);
   if (e != cudaSuccess) return (int)e;
   Emit a;
   a.ring = (int32_t*)ring;
@@ -358,6 +413,7 @@ extern "C" int gossip_fused_emit(
   a.flags = (const uint8_t*)flags;
   a.strig = (const uint8_t*)strig;
   a.sids = (const int32_t*)sender_ids;
+  a.pmask = (const uint8_t*)pmask;
   a.m = m;
   a.cap = cap;
   a.rbit = rbit;
@@ -367,9 +423,13 @@ extern "C" int gossip_fused_emit(
   a.dw = dw;
   a.b = b;
   cudaStream_t st = (cudaStream_t)stream;
+  int32_t* o = (int32_t*)out;
+  u64* w = (u64*)ws;
+  int* x = (int*)aux;
+  const unsigned ep = (unsigned)epoch;
   switch (group) {
-    case 1: return (int)launch<1>(a, (int32_t*)out, (u64*)ws, epoch, st);
-    case 8: return (int)launch<8>(a, (int32_t*)out, (u64*)ws, epoch, st);
+    case 1: return (int)pick<1>(a, o, w, x, ep, st);
+    case 8: return (int)pick<8>(a, o, w, x, ep, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -45,8 +45,8 @@
 // writes all of sup, zeroes the trash cell and its row once if fewer than
 // m lanes landed, and leaves the workspace's counters at 0.
 //
-// Widths: dw <= DW_LIMIT slots; ring1 is int32[L, w1] (PushSum's mass
-// limbs); row offsets are 64-bit.
+// Widths: any dw (past DW_LIMIT slots, lookback.cuh's global form);
+// ring1 is int32[L, w1] (PushSum's mass limbs); row offsets are 64-bit.
 //
 // Plain C interface (built with nvcc, loaded with ctypes): returns the
 // cudaError_t of the launch.
@@ -57,6 +57,7 @@ namespace {
 
 using lookback::u64;
 
+template <bool GLB>
 __global__ void __launch_bounds__(THREADS)
 recv_land(int32_t* __restrict__ ring0, int32_t* __restrict__ ring1,
           const int32_t* __restrict__ recv, const int32_t* __restrict__ words,
@@ -64,73 +65,81 @@ recv_land(int32_t* __restrict__ ring0, int32_t* __restrict__ ring1,
           long long m, int dw, long long cap, int b, int w1, bool vec4,
           int rbit,
           int32_t* __restrict__ dropped, int32_t* __restrict__ sup,
-          u64* __restrict__ ws, unsigned epoch) {
+          u64* __restrict__ ws, int* aux, long long nb, unsigned epoch) {
   extern __shared__ int smem[];
-  const lookback::Slots sl = lookback::carve(smem, dw);
+  const lookback::Slots sl =
+      lookback::carve(lookback::tables<GLB>(smem, aux, dw), dw);
   int* s_sup = sl.aux;  // the duplicates, until look_back
   __shared__ int s_src[TILE];
   __shared__ long long s_row[TILE];
   __shared__ int s_nok;
-  int* sup_acc = lookback::sums(ws);
+  int* sup_acc = lookback::acc_sums<GLB>(ws, aux);
   const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
 
-  for (int j = t; j < dw; j += THREADS) s_sup[j] = 0;
-  const long long blk = lookback::ticket(ws, sl, dw, &s_nok);
-  const long long tile0 = blk * TILE;
+  // A tile a block (GLB: tiles by ticket until none is left).
+  for (;;) {
+    for (int j = t; j < dw; j += THREADS) s_sup[j] = 0;
+    const long long blk = lookback::ticket(ws, sl, dw, &s_nok);
+    if (GLB && blk >= nb) break;
+    const long long tile0 = blk * TILE;
 
-  // Decode and filter: warp wid takes the tile's lanes [wid * 32 * ITEMS,
-  // (wid + 1) * 32 * ITEMS) in ITEMS rounds of 32, all the loads in flight
-  // at once.
-  const long long lane0 = tile0 + wid * (32 * ITEMS) + lane;
-  int slot[ITEMS], rank[ITEMS], entry[ITEMS];
+    // Decode and filter: warp wid takes the tile's lanes [wid * 32 * ITEMS,
+    // (wid + 1) * 32 * ITEMS) in ITEMS rounds of 32, all the loads in flight
+    // at once.
+    const long long lane0 = tile0 + wid * (32 * ITEMS) + lane;
+    int slot[ITEMS], rank[ITEMS], entry[ITEMS];
 #pragma unroll
-  for (int r = 0; r < ITEMS; ++r)
-    entry[r] = lane0 + r * 32 < m ? recv[lane0 + r * 32] : -1;
+    for (int r = 0; r < ITEMS; ++r)
+      entry[r] = lane0 + r * 32 < m ? recv[lane0 + r * 32] : -1;
 #pragma unroll
-  for (int r = 0; r < ITEMS; ++r) {
-    const int32_t x = entry[r];
-    slot[r] = 0;
-    rank[r] = -1;
-    if (x >= 0) {
-      const int32_t d = x / (dw * b);
-      slot[r] = (x / b) % dw;
-      entry[r] = d * b + x % b;
-      rank[r] = 0;
-      if (flags != nullptr && (flags[d] & rbit) != 0) {
-        rank[r] = -1;
-        atomicAdd(&s_sup[slot[r]], 1);
+    for (int r = 0; r < ITEMS; ++r) {
+      const int32_t x = entry[r];
+      slot[r] = 0;
+      rank[r] = -1;
+      if (x >= 0) {
+        const int32_t d = x / (dw * b);
+        slot[r] = (x / b) % dw;
+        entry[r] = d * b + x % b;
+        rank[r] = 0;
+        if (flags != nullptr && (flags[d] & rbit) != 0) {
+          rank[r] = -1;
+          atomicAdd(&s_sup[slot[r]], 1);
+        }
       }
     }
-  }
-  lookback::rank_tile(slot, rank, sl, dw);
-  for (int j = t; j < dw; j += THREADS)
-    if (s_sup[j]) atomicAdd(&sup_acc[j], s_sup[j]);
-  lookback::look_back(ws, blk, dw, epoch, sl);
+    lookback::rank_tile(slot, rank, sl, dw);
+    for (int j = t; j < dw; j += THREADS)
+      if (s_sup[j]) atomicAdd(&sup_acc[j], s_sup[j]);
+    lookback::look_back(ws, blk, dw, epoch, sl);
 
-  // Positions, the id writes, and the landed lanes staged for their rows.
+    // Positions, the id writes, and the landed lanes staged for their rows.
 #pragma unroll
-  for (int r = 0; r < ITEMS; ++r) {
-    bool ok = false;
-    long long row = 0;
-    if (rank[r] >= 0) {
-      const int s = slot[r];
-      const long long pos = (long long)cnt[s] + sl.aux[s] + rank[r];
-      ok = pos < cap;
-      row = s * cap + pos;
-      if (ok) ring0[row] = entry[r];
+    for (int r = 0; r < ITEMS; ++r) {
+      bool ok = false;
+      long long row = 0;
+      if (rank[r] >= 0) {
+        const int s = slot[r];
+        const long long pos = (long long)cnt[s] + sl.aux[s] + rank[r];
+        ok = pos < cap;
+        row = s * cap + pos;
+        if (ok) ring0[row] = entry[r];
+      }
+      if (ring1 != nullptr)
+        lookback::stage(ok, (int)(lane0 - tile0) + r * 32, row, &s_nok, s_src,
+                        s_row);
     }
-    if (ring1 != nullptr)
-      lookback::stage(ok, (int)(lane0 - tile0) + r * 32, row, &s_nok, s_src,
-                      s_row);
-  }
-  if (ring1 != nullptr) {
-    __syncthreads();
-    lookback::copy_rows(ring1, words, s_src, s_row, s_nok, w1, vec4, tile0);
+    if (ring1 != nullptr) {
+      __syncthreads();
+      lookback::copy_rows(ring1, words, s_src, s_row, s_nok, w1, vec4, tile0);
+    }
+    if (!GLB) break;
+    __syncthreads();  // the tile's lists are read before the next ticket
   }
 
   // The last block to finish: counts, sup, the trash cell, the counters.
   if (!lookback::last_to_finish(ws)) return;
-  const long long landed = lookback::settle(ws, cnt, dropped, dw, cap);
+  const long long landed =
+      lookback::settle(ws, cnt, dropped, dw, cap, GLB ? nb : gridDim.x);
   for (int j = t; j < dw; j += THREADS) {
     volatile int* acc = sup_acc;
     sup[j] = acc[j];
@@ -144,35 +153,51 @@ recv_land(int32_t* __restrict__ ring0, int32_t* __restrict__ ring1,
   }
 }
 
+template <bool GLB>
+cudaError_t launch(int32_t* ring0, int32_t* ring1, const int32_t* recv,
+                   const int32_t* words, const uint8_t* flags, int32_t* cnt,
+                   long long m, int dw, long long cap, int b, int w1,
+                   bool vec4, int rbit, int32_t* dropped, int32_t* sup,
+                   u64* ws, int* aux, unsigned epoch, cudaStream_t st) {
+  const long long nb = m > 0 ? (m + TILE - 1) / TILE : 1;
+  const size_t shmem = GLB ? 0 : lookback::slots_bytes(dw);
+  cudaError_t e = allow_smem((const void*)recv_land<GLB>, shmem);
+  if (e != cudaSuccess) return e;
+  recv_land<GLB><<<lookback::grid_of(nb, dw), THREADS, shmem, st>>>(
+      ring0, ring1, recv, words, flags, cnt, m, dw, cap, b, w1, vec4, rbit,
+      dropped, sup, ws, aux, nb, epoch);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // ring1/words may be null (no word rows; w1 is then ignored); flags may be
 // null (no duplicate filter).  sup int32[dw] is written whole.  ws is the
 // int64 workspace of at least WS_HEAD + max(1, ceil(m / TILE)) * dw words
 // (ops/deliver.py workspace_words), zeroed when it was made; epoch in
-// [1, EPOCH_MAX), new for every call that uses ws.
+// [1, EPOCH_MAX), new for every call that uses ws.  Past DW_LIMIT slots
+// aux is the workspace's second part, int32[aux_words >= aux_ints(dw,
+// nb)], zeroed when it was made; else it may be null.
 extern "C" int gossip_fused_recv_land(
     void* ring0, void* ring1, const void* recv, const void* words,
     const void* flags, void* cnt, int m, int dw, int cap, int b, int w1,
     int rbit, void* dropped, void* sup, void* ws, long long ws_words,
-    int epoch, void* stream) {
-  if (dw < 1 || dw > DW_LIMIT || b < 1 || m < 0 || cap < 0)
+    int epoch, void* aux, long long aux_words, void* stream) {
+  if (dw < 1 || b < 1 || m < 0 || cap < 0)
     return (int)cudaErrorInvalidValue;
-  if ((ring1 == nullptr) != (words == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((ring1 == nullptr) != (words == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (ring1 != nullptr && w1 < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = lookback::check_ws(m, dw, ws, ws_words, epoch);
+  cudaError_t e =
+      lookback::check_ws(m, dw, ws, ws_words, epoch, aux, aux_words);
   if (e != cudaSuccess) return (int)e;
-  const long long nb = m > 0 ? ((long long)m + TILE - 1) / TILE : 1;
   const bool vec4 = ring1 != nullptr && w1 % 4 == 0
                     && (uintptr_t)ring1 % 16 == 0
                     && (uintptr_t)words % 16 == 0;
-  const size_t shmem = lookback::slots_bytes(dw);
-  e = allow_smem((const void*)recv_land, shmem);
-  if (e != cudaSuccess) return (int)e;
-  recv_land<<<(unsigned)nb, THREADS, shmem, (cudaStream_t)stream>>>(
-      (int32_t*)ring0, (int32_t*)ring1, (const int32_t*)recv,
-      (const int32_t*)words, (const uint8_t*)flags, (int32_t*)cnt, m, dw, cap,
-      b, w1, vec4, rbit, (int32_t*)dropped, (int32_t*)sup, (u64*)ws,
-      (unsigned)epoch);
-  return (int)cudaGetLastError();
+  decltype(&launch<false>) f = dw > DW_LIMIT ? &launch<true> : &launch<false>;
+  return (int)f((int32_t*)ring0, (int32_t*)ring1, (const int32_t*)recv,
+                (const int32_t*)words, (const uint8_t*)flags, (int32_t*)cnt,
+                m, dw, cap, b, w1, vec4, rbit, (int32_t*)dropped,
+                (int32_t*)sup, (u64*)ws, (int*)aux, (unsigned)epoch,
+                (cudaStream_t)stream);
 }

@@ -46,6 +46,10 @@
 // row once if fewer than m lanes landed, and leaves the workspace's
 // counters at 0.
 //
+// Past DW_LIMIT (1024) window slots the per-slot tables move to global
+// memory (lookback.cuh's global form: the same steps, a bounded grid of
+// blocks taking tiles by ticket).
+//
 // Plain C interface (built with nvcc, loaded with ctypes): returns the
 // cudaError_t of the launch.
 
@@ -59,6 +63,7 @@ __device__ __forceinline__ int clamp_slot(int w, int dw) {
   return w < 0 ? 0 : (w >= dw ? dw - 1 : w);
 }
 
+template <bool GLB>
 __global__ void __launch_bounds__(THREADS)
 ring_append(int32_t* __restrict__ ring0, int32_t* __restrict__ ring1,
             const int32_t* __restrict__ pay0,
@@ -66,66 +71,74 @@ ring_append(int32_t* __restrict__ ring0, int32_t* __restrict__ ring1,
             const int32_t* __restrict__ wslot,
             const uint8_t* __restrict__ valid, int32_t* __restrict__ cnt,
             long long m, int dw, long long cap, int w1, bool vec4,
-            int32_t* __restrict__ dropped, u64* __restrict__ ws,
-            unsigned epoch) {
+            int32_t* __restrict__ dropped, u64* __restrict__ ws, int* aux,
+            long long nb, unsigned epoch) {
   extern __shared__ int smem[];
-  const lookback::Slots sl = lookback::carve(smem, dw);
+  const lookback::Slots sl =
+      lookback::carve(lookback::tables<GLB>(smem, aux, dw), dw);
   __shared__ int s_src[TILE];
   __shared__ long long s_row[TILE];
   __shared__ int s_nok;
   const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
   const bool wide = ring1 != nullptr && w1 > 1;
 
-  const long long blk = lookback::ticket(ws, sl, dw, &s_nok);
-  const long long tile0 = blk * TILE;
+  // A tile a block (GLB: tiles by ticket until none is left).
+  for (;;) {
+    const long long blk = lookback::ticket(ws, sl, dw, &s_nok);
+    if (GLB && blk >= nb) break;
+    const long long tile0 = blk * TILE;
 
-  // Warp wid takes the tile's lanes [wid * 32 * ITEMS, (wid + 1) * 32 *
-  // ITEMS) in ITEMS rounds of 32, all the loads in flight at once.
-  const long long lane0 = tile0 + wid * (32 * ITEMS) + lane;
-  int slot[ITEMS], rank[ITEMS];
+    // Warp wid takes the tile's lanes [wid * 32 * ITEMS, (wid + 1) * 32 *
+    // ITEMS) in ITEMS rounds of 32, all the loads in flight at once.
+    const long long lane0 = tile0 + wid * (32 * ITEMS) + lane;
+    int slot[ITEMS], rank[ITEMS];
 #pragma unroll
-  for (int r = 0; r < ITEMS; ++r) {
-    const long long i = lane0 + r * 32;
-    slot[r] = i < m ? wslot[i] : 0;
-    rank[r] = i < m ? (int)valid[i] : 0;
-  }
-#pragma unroll
-  for (int r = 0; r < ITEMS; ++r) {
-    slot[r] = clamp_slot(slot[r], dw);
-    rank[r] = rank[r] != 0 ? 0 : -1;
-  }
-  lookback::rank_tile(slot, rank, sl, dw);
-  lookback::look_back(ws, blk, dw, epoch, sl);
-
-  // Positions, the id writes (a flat ring1's too), and a wide ring1's
-  // landed lanes staged for their rows.
-#pragma unroll
-  for (int r = 0; r < ITEMS; ++r) {
-    bool ok = false;
-    long long row = 0;
-    if (rank[r] >= 0) {
-      const int s = slot[r];
-      const long long pos = (long long)cnt[s] + sl.aux[s] + rank[r];
-      ok = pos < cap;
-      row = s * cap + pos;
-      if (ok) {
-        const long long i = lane0 + r * 32;
-        ring0[row] = pay0[i];
-        if (ring1 != nullptr && !wide) ring1[row] = pay1[i];
-      }
+    for (int r = 0; r < ITEMS; ++r) {
+      const long long i = lane0 + r * 32;
+      slot[r] = i < m ? wslot[i] : 0;
+      rank[r] = i < m ? (int)valid[i] : 0;
     }
-    if (wide)
-      lookback::stage(ok, (int)(lane0 - tile0) + r * 32, row, &s_nok, s_src,
-                      s_row);
-  }
-  if (wide) {
-    __syncthreads();
-    lookback::copy_rows(ring1, pay1, s_src, s_row, s_nok, w1, vec4, tile0);
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) {
+      slot[r] = clamp_slot(slot[r], dw);
+      rank[r] = rank[r] != 0 ? 0 : -1;
+    }
+    lookback::rank_tile(slot, rank, sl, dw);
+    lookback::look_back(ws, blk, dw, epoch, sl);
+
+    // Positions, the id writes (a flat ring1's too), and a wide ring1's
+    // landed lanes staged for their rows.
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) {
+      bool ok = false;
+      long long row = 0;
+      if (rank[r] >= 0) {
+        const int s = slot[r];
+        const long long pos = (long long)cnt[s] + sl.aux[s] + rank[r];
+        ok = pos < cap;
+        row = s * cap + pos;
+        if (ok) {
+          const long long i = lane0 + r * 32;
+          ring0[row] = pay0[i];
+          if (ring1 != nullptr && !wide) ring1[row] = pay1[i];
+        }
+      }
+      if (wide)
+        lookback::stage(ok, (int)(lane0 - tile0) + r * 32, row, &s_nok, s_src,
+                        s_row);
+    }
+    if (wide) {
+      __syncthreads();
+      lookback::copy_rows(ring1, pay1, s_src, s_row, s_nok, w1, vec4, tile0);
+    }
+    if (!GLB) break;
+    __syncthreads();  // the tile's lists are read before the next ticket
   }
 
   // The last block to finish: counts, the trash cell, the counters.
   if (!lookback::last_to_finish(ws)) return;
-  const long long landed = lookback::settle(ws, cnt, dropped, dw, cap);
+  const long long landed =
+      lookback::settle(ws, cnt, dropped, dw, cap, GLB ? nb : gridDim.x);
   if (landed < m) {
     const long long trash = (long long)dw * cap;
     if (t == 0) ring0[trash] = 0;
@@ -134,38 +147,52 @@ ring_append(int32_t* __restrict__ ring0, int32_t* __restrict__ ring1,
   }
 }
 
+template <bool GLB>
+cudaError_t launch(int32_t* ring0, int32_t* ring1, const int32_t* pay0,
+                   const int32_t* pay1, const int32_t* wslot,
+                   const uint8_t* valid, int32_t* cnt, long long m, int dw,
+                   long long cap, int w1, bool vec4, int32_t* dropped,
+                   u64* ws, int* aux, unsigned epoch, cudaStream_t st) {
+  const long long nb = m > 0 ? (m + TILE - 1) / TILE : 1;
+  const size_t shmem = GLB ? 0 : lookback::slots_bytes(dw);
+  cudaError_t e = allow_smem((const void*)ring_append<GLB>, shmem);
+  if (e != cudaSuccess) return e;
+  ring_append<GLB><<<lookback::grid_of(nb, dw), THREADS, shmem, st>>>(
+      ring0, ring1, pay0, pay1, wslot, valid, cnt, m, dw, cap, w1, vec4,
+      dropped, ws, aux, nb, epoch);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // ring1/pay1 may be null (one ring); at m = 0 the inputs pay0, pay1, wslot
 // and valid may be null (an empty tensor's storage).  ring1 rows and pay1
 // rows hold w1 int32 columns (1: a flat ring).  ws is the int64 workspace
-// of at least
-// WS_HEAD + max(1, ceil(m / TILE)) * dw words (ops/deliver.py
+// of at least WS_HEAD + max(1, ceil(m / TILE)) * dw words (ops/deliver.py
 // workspace_words), zeroed when it was made; epoch in [1, EPOCH_MAX), new
-// for every call that uses ws.
+// for every call that uses ws.  Past DW_LIMIT slots aux is the workspace's
+// second part, int32[aux_words >= aux_ints(dw, nb)], zeroed when it was
+// made (ops/deliver.py aux_ints); else it may be null.
 extern "C" int gossip_fused_ring_append(
     void* ring0, void* ring1, const void* pay0, const void* pay1,
     const void* wslot, const void* valid, void* cnt, int m, int dw, int cap,
     int w1, void* dropped, void* ws, long long ws_words, int epoch,
-    void* stream) {
-  if (dw < 1 || dw > DW_LIMIT || w1 < 1 || m < 0 || cap < 0)
+    void* aux, long long aux_words, void* stream) {
+  if (dw < 1 || w1 < 1 || m < 0 || cap < 0)
     return (int)cudaErrorInvalidValue;
   // An empty batch's payloads may have no storage (a null pointer).
   if (m > 0 && (ring1 == nullptr) != (pay1 == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = lookback::check_ws(m, dw, ws, ws_words, epoch);
+  cudaError_t e =
+      lookback::check_ws(m, dw, ws, ws_words, epoch, aux, aux_words);
   if (e != cudaSuccess) return (int)e;
-  const long long nb = m > 0 ? ((long long)m + TILE - 1) / TILE : 1;
   const bool vec4 = ring1 != nullptr && w1 % 4 == 0
                     && (uintptr_t)ring1 % 16 == 0
                     && (uintptr_t)pay1 % 16 == 0;
-  const size_t shmem = lookback::slots_bytes(dw);
-  e = allow_smem((const void*)ring_append, shmem);
-  if (e != cudaSuccess) return (int)e;
-  ring_append<<<(unsigned)nb, THREADS, shmem, (cudaStream_t)stream>>>(
-      (int32_t*)ring0, (int32_t*)ring1, (const int32_t*)pay0,
-      (const int32_t*)pay1, (const int32_t*)wslot, (const uint8_t*)valid,
-      (int32_t*)cnt, m, dw, cap, w1, vec4, (int32_t*)dropped, (u64*)ws,
-      (unsigned)epoch);
-  return (int)cudaGetLastError();
+  decltype(&launch<false>) f = dw > DW_LIMIT ? &launch<true> : &launch<false>;
+  return (int)f((int32_t*)ring0, (int32_t*)ring1, (const int32_t*)pay0,
+                (const int32_t*)pay1, (const int32_t*)wslot,
+                (const uint8_t*)valid, (int32_t*)cnt, m, dw, cap, w1, vec4,
+                (int32_t*)dropped, (u64*)ws, (int*)aux, (unsigned)epoch,
+                (cudaStream_t)stream);
 }

@@ -42,16 +42,29 @@
 // shared by the three kernels: calls on one stream run in order): word 0
 // holds the ticket and done counters (uint32 each), words 1 .. WS_HEAD - 1
 // the caller's own int32 sums (sums(): DW_LIMIT per-slot sums, DW_LIMIT
-// more, then one); the kernels leave all of them at 0 for the next call.
+// more, then two); the kernels leave all of them at 0 for the next call.
 // From word WS_HEAD on, one look-back word per (logical block, slot):
 // (epoch << 2 | flag) in the high half, the count in the low.  These are
 // never zeroed: each call carries a new epoch (1 .. EPOCH_MAX - 1; the
 // wrapper zeroes the workspace when it wraps), and a word of another epoch
 // reads as not yet published.
 //
-// Shared memory: the caller's dynamic array of (2 * WARPS + 2) * dw int32
-// (dw <= DW_LIMIT slots), cut by carve(), set by allow_smem (smem.cuh); the
-// staged rows' list is static.
+// Two forms, by the ring's depth dw:
+//   - dw <= DW_LIMIT (the shared form): the per-slot tables are the
+//     caller's dynamic shared array of (2 * WARPS + 2) * dw int32, cut by
+//     carve(), set by allow_smem (smem.cuh); a block takes one tile;
+//   - dw > DW_LIMIT (the global form): the tables would not fit in shared
+//     memory, so they live in the workspace's second part (int32[aux_ints],
+//     kept beside the first by ops/deliver.py): aux_sums(dw) int32 sums
+//     (2 * dw + 2 of them, zeroed by the wrapper before the call: a call
+//     of another depth or grid may have left its tables there) that take
+//     the place of the head's, then one table set a block of a grid of
+//     at most GLOBAL_GRID blocks, each block taking tiles by ticket until
+//     none is left (a block waits only on tiles whose tickets were taken
+//     before its own, by running blocks, so the loop cannot deadlock).
+//     The ranks, the look-back and the settling are the shared form's,
+//     read and written through global memory.
+// The staged rows' list is static shared memory in both forms.
 
 #pragma once
 
@@ -66,6 +79,7 @@
 #define ITEMS 8
 #define TILE (THREADS * ITEMS)  // ops/deliver.py APPEND_TILE
 #define WS_HEAD (DW_LIMIT + 2)  // ops/deliver.py APPEND_WS_HEAD
+#define GLOBAL_GRID 264  // ops/deliver.py APPEND_GLOBAL_GRID: 2 a card's SM
 #define EPOCH_MAX (1 << 30)  // ops/deliver.py APPEND_EPOCH_MAX
 #define FLAG_A 1u
 #define FLAG_P 2u
@@ -86,6 +100,34 @@ struct Slots {
 
 __host__ __device__ inline size_t slots_bytes(int dw) {
   return (size_t)(2 * WARPS + 2) * dw * sizeof(int);
+}
+
+// The global form's second part: its int32 sums (rounded up to 4 int32,
+// so the tables start 16-byte aligned), then a table set a block.
+__host__ __device__ inline long long aux_sums(int dw) {
+  return ((long long)2 * dw + 2 + 3) / 4 * 4;
+}
+
+__host__ __device__ inline long long aux_ints(int dw, long long nb) {
+  const long long grid = nb < GLOBAL_GRID ? nb : GLOBAL_GRID;
+  return aux_sums(dw) + grid * (long long)(slots_bytes(dw) / sizeof(int));
+}
+
+// The tables of this block: the dynamic shared array, or (GLB) the block's
+// set in the second part.
+template <bool GLB>
+__device__ __forceinline__ int* tables(int* smem, int* aux, int dw) {
+  if (!GLB) return smem;
+  return aux + aux_sums(dw)
+         + (long long)blockIdx.x * (long long)(slots_bytes(dw) / sizeof(int));
+}
+
+// The caller's int32 sums and their stride (the per-slot runs' length):
+// the head's (DW_LIMIT) in the shared form, the second part's (dw) in the
+// global one.
+template <bool GLB>
+__device__ __forceinline__ int* acc_sums(u64* ws, int* aux) {
+  return GLB ? aux : reinterpret_cast<int*>(ws + 1);
 }
 
 __device__ __forceinline__ Slots carve(int* smem, int dw) {
@@ -322,23 +364,24 @@ __device__ __forceinline__ void reset_counters(u64* ws) {
 }
 
 // The head's int32 sums of the caller's own, after the counters: 2 *
-// DW_LIMIT + 1 cells, all 0 between calls.
+// DW_LIMIT + 2 cells, all 0 between calls.
 __device__ __forceinline__ int* sums(u64* ws) {
   return reinterpret_cast<int*>(ws + 1);
 }
 
 // In the last block: cnt[j] += the landed lanes of slot j, dropped += the
 // lanes past the capacity, the counters reset; returns the landed lanes.
+// nb: the call's logical blocks (tiles).
 __device__ __forceinline__ long long settle(u64* ws, int32_t* cnt,
                                             int32_t* dropped, int dw,
-                                            long long cap) {
+                                            long long cap, long long nb) {
   __shared__ unsigned long long s_landed, s_lost;
   if (threadIdx.x == 0) {
     s_landed = 0;
     s_lost = 0;
   }
   __syncthreads();
-  const u64* last = ws + WS_HEAD + (long long)(gridDim.x - 1) * dw;
+  const u64* last = ws + WS_HEAD + (nb - 1) * dw;
   for (int j = threadIdx.x; j < dw; j += THREADS) {
     const long long total = (unsigned)load_word(&last[j]);
     const long long c = cnt[j];
@@ -356,14 +399,23 @@ __device__ __forceinline__ long long settle(u64* ws, int32_t* cnt,
 }
 
 // The C entry points' checks of the workspace and epoch, for m items in
-// tiles of `tile`.
+// tiles of `tile` (and, past DW_LIMIT slots, of the second part).
 inline cudaError_t check_ws(long long m, int dw, const void* ws,
-                            long long ws_words, int epoch, int tile = TILE) {
+                            long long ws_words, int epoch, const void* aux,
+                            long long aux_words, int tile = TILE) {
   if (epoch < 1 || epoch >= EPOCH_MAX) return cudaErrorInvalidValue;
   const long long nb = m > 0 ? (m + tile - 1) / tile : 1;
   if (ws == nullptr || ws_words < WS_HEAD + nb * dw)
     return cudaErrorInvalidValue;
+  if (dw > DW_LIMIT && (aux == nullptr || aux_words < aux_ints(dw, nb)))
+    return cudaErrorInvalidValue;
   return cudaSuccess;
+}
+
+// The grid of a call of nb tiles: a block a tile in the shared form, at
+// most GLOBAL_GRID blocks in the global one.
+inline unsigned grid_of(long long nb, int dw) {
+  return (unsigned)(dw > DW_LIMIT && nb > GLOBAL_GRID ? GLOBAL_GRID : nb);
 }
 
 }  // namespace lookback

@@ -52,6 +52,16 @@ def run_simulation(cfg: Config, printer: Optional[ProgressPrinter] = None,
                    else TorchStepper(cfg, device=device))
 
     printer.params(cfg.parameter_dump())
+    scen = cfg.scenario_resolved
+    if scen.active or cfg.overlay_heal_resolved:
+        # The one-line fault-model banner, as the JAX package prints it.
+        printer.note(
+            f"scenario: {len(scen.crashes)} crash / {len(scen.churns)} "
+            f"churn / {len(scen.partitions)} partition events, "
+            f"groups={scen.groups}, downtime={scen.downtime}ms; "
+            f"overlay-heal {cfg.overlay_heal}"
+            + (f" (detect {cfg.heal_detect_ms}ms)"
+               if cfg.overlay_heal_resolved else ""))
     if cfg.backend == "sharded":
         # What this run's exchange runs, as the JAX package's transcript
         # says it.
@@ -148,22 +158,25 @@ def _telemetry_windows(cfg: Config, stepper: Stepper,
     device loop (``run_bounded_to_target``) tests before each window that
     the target count ``ceil(coverage_target * n)`` is unmet (the worst
     rumor's count under ``-rumors``), the tick below ``-max-rounds`` and a
-    message in flight (PushSum: or the first batch not yet sent), and its
+    message in flight (PushSum: or the first batch not yet sent; not under
+    ``-overlay-heal on``, where healing can revive an empty ring), and its
     replay (``telemetry.replay_gossip``) prints each window's coverage as
     ``total_received / n``.  So a broadcast that dies at once prints no
     window line.  Exhaustion is the final state's empty ring (under
-    ``-rumors``, past tick 0).  Returns the windows run."""
+    ``-rumors``, past tick 0; never under healing).  Returns the windows
+    run."""
     from gossip_simulator_tpu_torch.models import event
 
     target = math.ceil(cfg.coverage_target * cfg.n)
     first_batch = event.batch_ticks(cfg) if cfg.model == "pushsum" else 0
     pushpull = cfg.protocol == "pushpull"
+    heal = cfg.overlay_heal_resolved
     stats, live = stepper.stats_and_inflight()
     windows = 0
     while True:
         recv = (stats.rumor_min_recv if cfg.multi_rumor
                 else stats.total_received)
-        alive = live or pushpull or stats.round < first_batch
+        alive = live or pushpull or heal or stats.round < first_batch
         if recv >= target or stats.round >= cfg.max_rounds or not alive:
             break
         stats = stepper.gossip_window()
@@ -171,6 +184,6 @@ def _telemetry_windows(cfg: Config, stepper: Stepper,
         windows += 1
         pct = (stats.total_received / cfg.n if cfg.n else 0.0) * 100.0
         printer.coverage_window(round(pct, 4), float(stats.round))
-    stepper.exhausted = (not live and not pushpull
+    stepper.exhausted = (not live and not pushpull and not heal
                          and (not cfg.multi_rumor or stats.round > 0))
     return windows

@@ -32,9 +32,13 @@ data-dependent count of sender chunks is a Python loop over the senders'
 row ids, read to the host once per tick.  The deposits go through
 ``ops/deliver.py`` (``fused_deposit_add``, ``fused_deposit_rows``) and
 ``ops/megakernel.py`` (``fused_deposit_both``) under the kernel gates.
-Fault scenarios and overlay healing (the partition mask, the crash
-timeline, ``make_heal_fn``) are not yet ported (ROADMAP A10), nor is the
-device-side fast path (ROADMAP A6).
+Fault scenarios (``scenario.py``) apply at each tick's start
+(``apply_fault_window``: crash, churn and recovery on ``crashed``, the
+crash clock in ``down_since``), the partition mask drops the wave's
+edges at their send tick (``part_dropped``), and with ``-overlay-heal
+on`` a healing pass (``make_heal_fn``) deposits the re-sends and rejoin
+pulls after each window.  The device-side fast path is not yet ported
+(ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import math
 import numpy as np
 import torch
 
+from gossip_simulator_tpu_torch import scenario as _scen
 from gossip_simulator_tpu_torch.config import Config
 from gossip_simulator_tpu_torch.models.state import SimState
 from gossip_simulator_tpu_torch.ops import deliver, megakernel
@@ -184,7 +189,7 @@ def init_state(cfg: Config, friends: torch.Tensor,
         rebroadcast=torch.zeros((d_rb, n), dtype=torch.bool, device=dev),
         tick=0, total_message=z(), total_received=z(), total_crashed=z(),
         exchange_overflow=z(),
-        down_since=torch.zeros((1,), dtype=I32, device=dev),
+        down_since=_scen.init_down_since(cfg.faults_enabled, n, dev),
         scen_crashed=z(), scen_recovered=z(), part_dropped=z(),
         heal_repaired=z(), pending_rumors=pending_rumors,
         rumor_words=rumor_words, rumor_recv=rumor_recv,
@@ -235,6 +240,11 @@ def tick_core(cfg: Config, st: SimState, keys: dict, crash: CrashDraw):
         new_crash = crash.draw(keys["crash"], counted)
         st.crashed |= new_crash
         st.total_crashed += new_crash.sum(dtype=I64)
+        if cfg.faults_enabled:
+            # Reception crashes stamp the crash clock too: every crash is
+            # subject to the reboot timeline and the healer's detection.
+            st.down_since = torch.where(new_crash, torch.tensor(
+                st.tick, dtype=I32, device=dev), st.down_since)
     newly = has & ~st.crashed & ~st.received
     st.received |= newly
     st.total_received += newly.sum(dtype=I64)
@@ -270,19 +280,28 @@ def tick_core(cfg: Config, st: SimState, keys: dict, crash: CrashDraw):
 
 
 def edges_from_senders(cfg: Config, friends, friend_cnt, senders, dslot,
-                       drop_key, rows):
+                       drop_key, rows, tick: int):
     """This tick's outgoing wave from the given rows as flat (dst, slot,
-    valid) lanes, row-major (k lanes a row).  `friends`, `friend_cnt`,
-    `senders` and `dslot` are the rows' own; `rows` their ids, which key
-    the per-link drop draw."""
+    valid) lanes, row-major (k lanes a row), and the count of edges the
+    scenario's partition mask dropped at send tick `tick` (int64 0-d; 0
+    without partitions).  `friends`, `friend_cnt`, `senders` and `dslot`
+    are the rows' own; `rows` their ids, which key the per-link drop
+    draw."""
     k = friends.shape[1]
     drop = _rng.row_bernoulli(drop_key, p_eff(cfg, cfg.droprate), rows, k)
     cols = torch.arange(k, dtype=I32, device=friends.device)
     edge = ((cols[None, :] < friend_cnt[:, None]) & senders[:, None]
             & ~drop & (friends >= 0))
+    scen = cfg.scenario_resolved
+    blk = torch.zeros((), dtype=I64, device=friends.device)
+    if scen.has_partitions:
+        blocked = _scen.partition_blocked(scen, cfg.n, tick, rows[:, None],
+                                          friends) & edge
+        blk = blocked.sum(dtype=I64)
+        edge = edge & ~blocked
     dst = torch.where(edge, friends, -1).reshape(-1)
     slots = dslot[:, None].expand(-1, k).reshape(-1)
-    return dst, slots, edge.reshape(-1)
+    return dst, slots, edge.reshape(-1), blk
 
 
 def compact_chunk_cap(cfg: Config, n_local: int) -> int:
@@ -314,7 +333,7 @@ def compact_gather(cfg: Config, friends, friend_cnt, dslot, delay_key,
     ones = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
     return edges_from_senders(cfg, friends[idx.long()],
                               friend_cnt[idx.long()], ones, slot, drop_key,
-                              idx)
+                              idx, tick)
 
 
 def deposit_local(pending, dst, slots, valid, kernel: str = "xla"):
@@ -342,16 +361,20 @@ def deposit_rumors(pending_rumors, dst, slots, valid, newbits,
 
 
 def deposit_compact(cfg: Config, st: SimState, senders, dslot, delay_key,
-                    drop_key, tick: int) -> None:
+                    drop_key, tick: int):
     """Compacted deposit: only the sender rows reach the draws, gathers
-    and deposits, in chunks of compact_chunk_cap rows."""
+    and deposits, in chunks of compact_chunk_cap rows.  Returns the
+    partition-blocked edge count (int64 0-d)."""
     cap = compact_chunk_cap(cfg, senders.shape[0])
     kern = cfg.deliver_kernel_resolved
+    blk = torch.zeros((), dtype=I64, device=senders.device)
     for idx in row_batches(senders, cap):
-        dst, slots, valid = compact_gather(cfg, st.friends, st.friend_cnt,
-                                           dslot, delay_key, drop_key, tick,
-                                           idx)
+        dst, slots, valid, b = compact_gather(
+            cfg, st.friends, st.friend_cnt, dslot, delay_key, drop_key,
+            tick, idx)
         deposit_local(st.pending, dst, slots, valid, kernel=kern)
+        blk = blk + b
+    return blk
 
 
 def make_tick_fn(cfg: Config):
@@ -363,17 +386,22 @@ def make_tick_fn(cfg: Config):
     target = int(math.ceil(cfg.coverage_target * cfg.n))
     crash = CrashDraw(p_eff(cfg, cfg.crashrate))
 
+    scen = cfg.scenario_resolved
+
     def tick_fn(st: SimState, base_key: torch.Tensor) -> SimState:
         tick = st.tick
+        dsc, dsr = apply_fault_window(
+            cfg, st, torch.arange(st.received.shape[0], dtype=I32,
+                                  device=st.received.device), base_key)
         keys = tick_keys(base_key, tick)
         senders, dslot, newbits = tick_core(cfg, st, keys, crash)
         if multi:
             # Always dense: the compacted gather carries no rumor payload.
             n = senders.shape[0]
             rows = torch.arange(n, dtype=I32, device=senders.device)
-            dst, slots, valid = edges_from_senders(
+            dst, slots, valid, blk = edges_from_senders(
                 cfg, st.friends, st.friend_cnt, senders, dslot, keys["drop"],
-                rows)
+                rows, tick)
             if p2 == "pallas":
                 megakernel.fused_deposit_both(st.pending, st.pending_rumors,
                                               dst, slots, valid, newbits)
@@ -384,15 +412,19 @@ def make_tick_fn(cfg: Config):
             hit = (st.rumor_recv >= target) & (st.rumor_done < 0)
             st.rumor_done = torch.where(hit, st.tick, st.rumor_done)
         elif cfg.compact_resolved:
-            deposit_compact(cfg, st, senders, dslot, keys["delay"],
-                            keys["drop"], tick)
+            blk = deposit_compact(cfg, st, senders, dslot, keys["delay"],
+                                  keys["drop"], tick)
         else:
             n = senders.shape[0]
             rows = torch.arange(n, dtype=I32, device=senders.device)
-            dst, slots, valid = edges_from_senders(
+            dst, slots, valid, blk = edges_from_senders(
                 cfg, st.friends, st.friend_cnt, senders, dslot, keys["drop"],
-                rows)
+                rows, tick)
             deposit_local(st.pending, dst, slots, valid, kernel=dkern)
+        if scen.active:
+            st.scen_crashed += dsc
+            st.scen_recovered += dsr
+            st.part_dropped += blk
         return st
 
     return tick_fn
@@ -433,9 +465,10 @@ def make_seed_fn(cfg: Config):
             kp = _rng.tick_key(base_key, SEED_TICK, _rng.OP_DROP)
             dslot = row_slot(cfg, kd, st.tick, rows)
             ones = torch.ones(rows.shape, dtype=torch.bool, device=dev)
-            dst, slots, valid = edges_from_senders(
+            dst, slots, valid, blk = edges_from_senders(
                 cfg, st.friends[rows.long()], st.friend_cnt[rows.long()],
-                ones, dslot, kp, rows)
+                ones, dslot, kp, rows, st.tick)
+            st.part_dropped += blk
             deposit_local(st.pending, dst, slots, valid)
             deposit_rumors(st.pending_rumors, dst, slots, valid,
                            unpack_rumor_bits(delta[rows.long()], r_total))
@@ -459,10 +492,12 @@ def make_seed_fn(cfg: Config):
             return st
         rows = torch.tensor([sender], dtype=I32, device=dev)
         dslot = row_slot(cfg, kd, st.tick, rows)
-        dst, slots, valid = edges_from_senders(
+        dst, slots, valid, blk = edges_from_senders(
             cfg, st.friends[sender:sender + 1],
             st.friend_cnt[sender:sender + 1],
-            torch.ones((1,), dtype=torch.bool, device=dev), dslot, kp, rows)
+            torch.ones((1,), dtype=torch.bool, device=dev), dslot, kp, rows,
+            st.tick)
+        st.part_dropped += blk
         deposit_local(st.pending, dst, slots, valid)
         if cfg.protocol == "sir":
             # The seed is a sender like any other: its removal draw
@@ -576,13 +611,81 @@ def make_step_fn(cfg: Config):
     return make_tick_fn(cfg)
 
 
+def apply_fault_window(cfg: Config, st: SimState, ids_global, base_key,
+                       nticks: int = 1):
+    """The scenario's crash, churn and recovery over the window [st.tick,
+    st.tick + nticks) (``scenario.fault_window``; the ring engine steps a
+    tick at a time), on ``crashed`` and ``down_since`` in place.  Returns
+    (d_crash, d_recover), int64 0-d, or (0, 0) without fault events."""
+    scen = cfg.scenario_resolved
+    if not scen.has_faults:
+        return 0, 0
+    new_crash, recover, st.down_since, dc, drc = _scen.fault_window(
+        scen, cfg.n, st.tick, nticks, ids_global, st.crashed, st.down_since,
+        base_key)
+    st.crashed = (st.crashed & ~recover) | new_crash
+    return dc, drc
+
+
+def make_heal_fn(cfg: Config):
+    """The ring engine's overlay healing (None when -overlay-heal is off),
+    in place, once per poll window: condemn dead friends
+    (scenario.detect_dead), replace them through the phase-1 makeup draw,
+    and deposit the infected healers' re-sends and the rejoin pulls'
+    responses into the delay ring like any broadcast
+    (scenario.heal_and_wave): two deposits of n * k lanes into one slot a
+    row, through the deposit gate (integer adds commute, so the kernel
+    gives the JAX package's unfused deposit's counts)."""
+    if not cfg.overlay_heal_resolved:
+        return None
+    detect = cfg.heal_detect_ms
+    d = ring_depth(cfg)
+    dkern = cfg.deliver_kernel_resolved
+
+    def heal_fn(st: SimState, base_key: torch.Tensor) -> SimState:
+        n, k = st.friends.shape
+        dev = st.friends.device
+        ids = torch.arange(n, dtype=I32, device=dev)
+        detected = _scen.detect_dead(st.crashed, st.down_since, st.tick,
+                                     detect)
+        healer_ok = ~st.crashed
+        sender_inf = st.received & ~st.crashed & ~st.removed
+        bits = _scen.heal_peer_bits(detected, sender_inf)
+        friends, resend, pull, delay, clear, rep, blk = _scen.heal_and_wave(
+            cfg, st.friends, st.friend_cnt, bits, healer_ok, sender_inf,
+            _scen.rejoined_mask(st.down_since), ids, st.tick, base_key)
+        if cfg.effective_time_mode == "rounds":
+            dslot = torch.full((n,), (st.tick + 1) % d, dtype=I32,
+                               device=dev)
+        else:
+            dslot = ((st.tick + delay) % d).to(I32)
+        slots = dslot[:, None].expand(n, k).reshape(-1)
+        deposit_local(st.pending, torch.where(resend, friends, -1)
+                      .reshape(-1), slots, resend.reshape(-1), kernel=dkern)
+        # Rejoin pull responses deliver to the puller's own row.
+        deposit_local(st.pending, ids[:, None].expand(n, k).reshape(-1),
+                      slots, pull.reshape(-1), kernel=dkern)
+        st.friends = friends
+        st.down_since = torch.where(clear, -1, st.down_since)
+        st.heal_repaired += rep
+        st.part_dropped += blk
+        return st
+
+    return heal_fn
+
+
 def make_window_fn(cfg: Config, window: int):
-    """`window` consecutive steps (one progress window)."""
+    """`window` consecutive steps (one progress window), then (-overlay-heal
+    on) one healing pass, the cadence and tick keys of the JAX package's
+    device loop."""
     step = make_step_fn(cfg)
+    heal = make_heal_fn(cfg)
 
     def window_fn(st: SimState, base_key: torch.Tensor) -> SimState:
         for _ in range(window):
             step(st, base_key)
+        if heal is not None:
+            heal(st, base_key)
         return st
 
     return window_fn

@@ -24,6 +24,14 @@ rumor.  Messages themselves are stored, batched by delivery time:
 Random draws reproduce the JAX package's streams bit for bit
 (``utils/rng.py``), so a run here gives the JAX package's trajectory.
 
+Fault scenarios (``scenario.py``): crash, churn and recovery apply at
+each window step's start on the flags' crashed bit
+(``apply_fault_window_flags``), after which the drain black-holes
+deliveries to crashed nodes even at crash rate 0; the partition mask
+filters every append at its send tick, before the duplicate filter
+(counted in ``part_dropped``); with ``-overlay-heal on`` a healing pass
+(``make_heal_fn``) runs after each poll window's steps.
+
 Where the JAX package threads the state through donated jitted functions,
 this port updates the ring, its counts and the flags IN PLACE (the ring
 is the largest tensor of the run; a copy per append batch would double
@@ -41,9 +49,10 @@ import math
 import torch
 
 from gossip_simulator_tpu_torch import config as _config
+from gossip_simulator_tpu_torch import scenario as _scen
 from gossip_simulator_tpu_torch.config import Config
 from gossip_simulator_tpu_torch.models import epidemic
-from gossip_simulator_tpu_torch.ops import deliver, megakernel
+from gossip_simulator_tpu_torch.ops import deliver, mailbox, megakernel
 from gossip_simulator_tpu_torch.utils import rng as _rng
 
 I32 = torch.int32
@@ -75,13 +84,15 @@ class EventState:
     total_crashed: torch.Tensor  # int64[]
     mail_dropped: torch.Tensor  # int64[]  slot-capacity overflow (counted)
     exchange_overflow: torch.Tensor  # int64[]  (always 0 on one device)
-    # Scenario and multi-rumor leaves: the JAX package's 1-element
-    # placeholders (those features are not yet ported).
-    down_since: torch.Tensor  # int32[1]
+    # Scenario leaves: the crash clock (int32[n] under Config.faults_enabled,
+    # a 1-element placeholder otherwise) and the fault counters.
+    down_since: torch.Tensor  # int32[n | 1]  crash tick, -1 = live/unknown
     scen_crashed: torch.Tensor  # int64[]
     scen_recovered: torch.Tensor  # int64[]
     part_dropped: torch.Tensor  # int64[]
     heal_repaired: torch.Tensor  # int64[]
+    # Multi-rumor leaves: the JAX package's 1-element placeholders (not
+    # yet ported on this engine, ROADMAP A11).
     mail_words: torch.Tensor  # uint32[1, 1]
     rumor_words: torch.Tensor  # uint32[1, 1]
     rumor_recv: torch.Tensor  # int32[1]
@@ -246,7 +257,7 @@ def init_state(cfg: Config, friends: torch.Tensor,
         sup_cnt=torch.zeros((1, dw), dtype=I32, device=dev),
         tick=0, total_message=z(), total_received=z(), total_crashed=z(),
         mail_dropped=z(), exchange_overflow=z(),
-        down_since=torch.full((1,), -1, dtype=I32, device=dev),
+        down_since=_scen.init_down_since(cfg.faults_enabled, n, dev),
         scen_crashed=z(), scen_recovered=z(), part_dropped=z(),
         heal_repaired=z(),
         mail_words=torch.zeros((1, 1), dtype=torch.uint32, device=dev),
@@ -272,7 +283,9 @@ def append_messages(cfg: Config, mail_ids, mail_cnt, dropped, sender_ids,
                     flags=None, kernel: str = "xla", phase2: str = "xla"):
     """Emit each sender's broadcast (k sends, ONE shared delay drawn at its
     delivery tick -- simulator.go:141-142) into the packed mail ring, in
-    place.  Returns (mail_ids, mail_cnt, dropped, sup_adds[dw]).
+    place.  Returns (mail_ids, mail_cnt, dropped, sup_adds[dw], blocked):
+    `blocked` counts the edges the scenario's partition mask dropped at
+    their send tick (before the duplicate filter; 0 without partitions).
 
     `flags` enables guaranteed-duplicate suppression (crash rate 0 only):
     an edge whose destination already has the received bit never enters
@@ -299,14 +312,21 @@ def append_messages(cfg: Config, mail_ids, mail_cnt, dropped, sender_ids,
     wslot = (arrive // b) % dw
     off = arrive % b
     tb = trigger_base(n, b) if strig is not None else None
+    scen = cfg.scenario_resolved
+    pmask = None
+    if scen.has_partitions:
+        # The raw send-time predicate; the emission ANDs it with the edge
+        # verdict (both gates).
+        pmask = _scen.partition_blocked(scen, cfg.n, sticks[:, None],
+                                        rows[:, None], sf)
     emit = dict(dw=dw, cap=cap, b=b, tb=tb, strig=strig,
                 sender_ids=sender_ids if strig is not None else None,
-                flags=flags, received_bit=RECEIVED)
+                pmask=pmask, flags=flags, received_bit=RECEIVED)
     if phase2 == "pallas":
-        mail_ids, adds, sup_adds, lost = megakernel.fused_emit(
+        mail_ids, adds, sup_adds, lost, blocked = megakernel.fused_emit(
             mail_ids, mail_cnt, sf, drop, svalid, wslot, off, **emit)
     else:
-        flat, ivals, adds, sup_adds, lost = megakernel.emit_layout(
+        flat, ivals, adds, sup_adds, lost, blocked = megakernel.emit_layout(
             mail_cnt, sf, drop, svalid, wslot, off, **emit)
         if kernel == "pallas":
             deliver.fused_unique_set(mail_ids, flat, ivals)
@@ -316,7 +336,7 @@ def append_messages(cfg: Config, mail_ids, mail_cnt, dropped, sender_ids,
     # CAVEAT (SIR): an overflowed reservation loses the sender's
     # re-broadcast trigger with its data messages; slot_cap budgets
     # mean_degree+1 per sender so this stays at zero.
-    return mail_ids, mail_cnt, dropped + lost, sup_adds
+    return mail_ids, mail_cnt, dropped + lost, sup_adds, blocked
 
 
 # --- drain -------------------------------------------------------------------
@@ -356,9 +376,11 @@ def predrain_compact(b: int, n_rows: int, dw: int, cap: int, ccap: int,
 
 
 def drain_chunk_core(crash_p: float, b: int, n_rows: int, flags, packed,
-                     evalid, entry_pos, ckey, sir: bool = False):
+                     evalid, entry_pos, ckey, sir: bool = False,
+                     track_crashed: bool = False, down_since=None,
+                     win_tick: int = 0):
     """Crash/infect/dedupe one drained chunk of packed entries; updates
-    `flags` in place.
+    `flags` (and `down_since`) in place.
 
     Sorts by (id, crash-fired-first, tick_off): a node's entries become one
     contiguous run whose FIRST element answers whether any per-message
@@ -366,6 +388,12 @@ def drain_chunk_core(crash_p: float, b: int, n_rows: int, flags, packed,
     delivery tick.  SIR triggers sort after all data into their own runs;
     a trigger fires iff the node is infected and neither crashed nor
     removed as of the chunk start.
+
+    `track_crashed` reads the crashed bit even at crash_p == 0: under a
+    fault scenario nodes crash outside the reception draw, and deliveries
+    to them black-hole.  `down_since` (not None) stamps `win_tick` on the
+    nodes a reception crash fells (the crash clock of the reboot and
+    detection timeline).
 
     Returns (flags, dm, dr, dc, ids_s, toff_s, senders); senders is
     newly-infected for SI, newly | firing for SIR."""
@@ -405,7 +433,7 @@ def drain_chunk_core(crash_p: float, b: int, n_rows: int, flags, packed,
     idx = torch.where(touched, ids_s, n_rows).clamp(0, n_rows - 1)
     pre = flags[idx.long()]
     pre_recv = (pre & RECEIVED) > 0
-    if crash_p > 0.0:
+    if crash_p > 0.0 or track_crashed:
         pre_crash = ((pre & CRASHED) > 0) & touched
     else:
         pre_crash = torch.zeros(ccap, dtype=torch.bool, device=dev)
@@ -422,6 +450,8 @@ def drain_chunk_core(crash_p: float, b: int, n_rows: int, flags, packed,
         run_crash = first & crash_s & ~pre_crash
         dc = run_crash.sum()
         delta = delta + run_crash.to(torch.uint8) * CRASHED
+        if down_since is not None:
+            down_since[ids_s[run_crash].long()] = win_tick
     # Winners are unique node ids whose delta bits are not yet set, so a
     # set of pre | delta equals the JAX package's add; lanes that update
     # nothing write 0 to the trash cell flags[n_rows].
@@ -475,10 +505,32 @@ def _remove_draw(flags, base_key, removal_p, sticks, ids, live, n):
 # --- window step -------------------------------------------------------------
 
 
+def apply_fault_window_flags(cfg: Config, st, ids_global, base_key,
+                             nticks: int):
+    """The scenario's crash, churn and recovery over the window [st.tick,
+    st.tick + nticks) (``scenario.fault_window``) on the crashed bit of
+    ``st.flags[:n]``, in place; recovery clears only the crashed bit (a
+    recovered node keeps its received and removed history).  Updates
+    st.down_since; returns (d_crash, d_recover), int64 0-d, or (0, 0)
+    when the scenario has no fault events."""
+    scen = cfg.scenario_resolved
+    if not scen.has_faults:
+        return 0, 0
+    n = ids_global.shape[0]
+    f = st.flags[:n]
+    new_crash, recover, st.down_since, dc, drc = _scen.fault_window(
+        scen, cfg.n, st.tick, nticks, ids_global, (f & CRASHED) > 0,
+        st.down_since, base_key)
+    f = torch.where(recover, f & (0xFF ^ CRASHED), f)
+    st.flags[:n] = torch.where(new_crash, f | CRASHED, f)
+    return dc, drc
+
+
 def make_window_step_fn(cfg: Config, n_local: int | None = None):
-    """One B-tick window transition, in place: drain this window's slot in
-    chunks (drain_chunk_core) and append the new senders' broadcasts at
-    their delivery ticks."""
+    """One B-tick window transition, in place: the scenario's faults at the
+    window's start, then drain this window's slot in chunks
+    (drain_chunk_core) and append the new senders' broadcasts at their
+    delivery ticks."""
     b = batch_ticks(cfg)
     dw = ring_windows(cfg)
     ccap = drain_chunk(cfg, n_local)
@@ -490,13 +542,20 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
     suppress = cfg.dup_suppress_resolved
     dkern = cfg.deliver_kernel_resolved
     p2 = cfg.phase2_kernel_resolved
+    scen = cfg.scenario_resolved
+    # The drain honors crashed bits at crash_p 0 once faults can set them;
+    # reception crashes stamp the crash clock when it is carried.
+    track_crashed = cfg.faults_enabled
+    track_down = cfg.faults_enabled and crash_p > 0.0
 
     def append(st, base_key, sids, svalid, sticks, strig):
-        _, _, st.mail_dropped, sa = append_messages(
+        _, _, st.mail_dropped, sa, blk = append_messages(
             cfg, st.mail_ids, st.mail_cnt, st.mail_dropped, sids, svalid,
             sticks, st.friends, base_key, strig=strig,
             flags=st.flags if suppress else None, kernel=dkern, phase2=p2)
         st.sup_cnt += sa[None, :]
+        if scen.has_partitions:
+            st.part_dropped += blk
 
     def step_fn(st: EventState, base_key: torch.Tensor) -> EventState:
         n = st.friends.shape[0]
@@ -509,6 +568,8 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
         m, recv = (int(x) for x in torch.stack(
             [st.mail_cnt[0, slot].to(I64), st.total_received]).tolist())
         dm = st.sup_cnt[0, slot].to(I64)
+        dsc, dsr = apply_fault_window_flags(
+            cfg, st, torch.arange(n, dtype=I32, device=dev), base_key, b)
         if suppress and recv >= int(PREDRAIN_MIN_RECV_FRAC * n):
             _, kept, fdat = predrain_compact(b, n, dw, cap, ccap, sir,
                                              st.flags, st.mail_ids, slot, m)
@@ -526,7 +587,9 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
             packed = st.mail_ids[start:start + ccap]
             _, cdm, cdr, cdc, ids_s, toff_s, senders = drain_chunk_core(
                 crash_p, b, n, st.flags, packed, evalid, entry_pos, ckey,
-                sir=sir)
+                sir=sir, track_crashed=track_crashed,
+                down_since=st.down_since if track_down else None,
+                win_tick=st.tick)
             dm, dr, dc = dm + cdm, dr + cdr, dc + cdc
             if scap:
                 # Compact senders to <= scap-row batches, then append at
@@ -562,6 +625,9 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
         st.total_message += dm
         st.total_received += dr
         st.total_crashed += dc
+        if scen.has_faults:
+            st.scen_crashed += dsc
+            st.scen_recovered += dsr
         return st
 
     return step_fn
@@ -597,6 +663,12 @@ def make_seed_fn(cfg: Config):
         arrive = st.tick + delay
         wslot = (arrive // b) % dw
         edge = (torch.arange(k, device=dev) < scnt) & ~drop & (sf >= 0)
+        scen = cfg.scenario_resolved
+        if scen.has_partitions:
+            blocked = _scen.partition_blocked(scen, cfg.n, st.tick, sender,
+                                              sf) & edge
+            st.part_dropped += blocked.sum()
+            edge = edge & ~blocked
         payload = sf * b + arrive % b
         cols = torch.cumsum(edge, dim=0, dtype=I32) - 1
         ec = edge.sum(dtype=I32)
@@ -627,14 +699,70 @@ def make_seed_fn(cfg: Config):
     return seed_fn
 
 
+def make_heal_fn(cfg: Config, n_local: int | None = None):
+    """The event engine's overlay healing (None when -overlay-heal is
+    off), in place: condemn dead friends (scenario.detect_dead), replace
+    them through the phase-1 makeup draw, and append the infected healers'
+    re-sends and the rejoin pulls' responses into the mail ring at their
+    drawn arrival ticks (scenario.heal_and_wave): two ring appends of
+    n * k lanes, one slot a row."""
+    if not cfg.overlay_heal_resolved:
+        return None
+    b = batch_ticks(cfg, n_local)
+    dw = ring_windows(cfg, n_local)
+    tail = ring_tail(cfg, n_local)
+    detect = cfg.heal_detect_ms
+    dkern = cfg.deliver_kernel_resolved
+
+    def heal_fn(st: EventState, base_key: torch.Tensor) -> EventState:
+        n, k = st.friends.shape
+        dev = st.mail_ids.device
+        ids = torch.arange(n, dtype=I32, device=dev)
+        f = st.flags[:n]
+        crashed = (f & CRASHED) > 0
+        detected = _scen.detect_dead(crashed, st.down_since, st.tick,
+                                     detect)
+        healer_ok = ~crashed
+        sender_inf = ((f & RECEIVED) > 0) & ~crashed & ((f & REMOVED) == 0)
+        bits = _scen.heal_peer_bits(detected, sender_inf)
+        friends, resend, pull, delay, clear, rep, blk = _scen.heal_and_wave(
+            cfg, st.friends, st.friend_cnt, bits, healer_ok, sender_inf,
+            _scen.rejoined_mask(st.down_since), ids, st.tick, base_key)
+        arrive = st.tick + delay  # per healer row, shared by its lanes
+        wslot = ((arrive // b) % dw)[:, None].expand(n, k).reshape(-1)
+        off = (arrive % b)[:, None]
+        cap = (st.mail_ids.shape[0] - tail) // dw
+        dropped = torch.zeros((), dtype=I32, device=dev)
+        mailbox.ring_append((st.mail_ids,), st.mail_cnt, dropped,
+                            ((friends * b + off).reshape(-1),), wslot,
+                            resend.reshape(-1), dw, cap, kernel=dkern)
+        # Rejoin pull responses deliver to the puller's own row.
+        ppay = ((ids * b)[:, None] + off).expand(n, k).reshape(-1)
+        mailbox.ring_append((st.mail_ids,), st.mail_cnt, dropped, (ppay,),
+                            wslot, pull.reshape(-1), dw, cap, kernel=dkern)
+        st.friends = friends
+        st.mail_dropped += dropped
+        st.down_since = torch.where(clear, -1, st.down_since)
+        st.heal_repaired += rep
+        st.part_dropped += blk
+        return st
+
+    return heal_fn
+
+
 def make_window_fn(cfg: Config, window: int):
-    """Advance ~`window` simulated ms: ceil(window / B) window steps."""
+    """Advance ~`window` simulated ms: ceil(window / B) window steps, then
+    (-overlay-heal on) one healing pass, the cadence and tick keys of the
+    JAX package's device loop."""
     step = make_window_step_fn(cfg)
+    heal = make_heal_fn(cfg)
     steps = max(1, -(-window // batch_ticks(cfg)))
 
     def window_fn(st: EventState, base_key: torch.Tensor) -> EventState:
         for _ in range(steps):
             step(st, base_key)
+        if heal is not None:
+            heal(st, base_key)
         return st
 
     return window_fn

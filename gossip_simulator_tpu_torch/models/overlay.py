@@ -252,6 +252,32 @@ def process_makeup_slot_pallas(fanin, friends, cnt, src, has, kk):
     return friends, cnt, reply, reply >= 0
 
 
+def heal_dead_friends(n_global: int, friends, friend_cnt, detected_global,
+                      healer_ok, ids_global, heal_key):
+    """Phase-2 re-entry of the bootstrap/needNewFriend draw
+    (simulator.go:95-106): every live node replaces the friends its
+    failure detector has condemned with a fresh uniform random peer, self
+    patched ``(id + 1) % N`` as in the phase-1 bootstrap.  The reciprocal
+    fanin-side accept is not simulated (as in the JAX package).
+    `detected_global` is the full-axis bool detector verdict; draws are
+    row-keyed on GLOBAL ids, and made only for the rows that replace a
+    friend (a row's draw depends on its own key alone).  Updates `friends`
+    in place; returns (friends, dead_mask, repaired count (int64 0-d))."""
+    k = friends.shape[1]
+    cols = torch.arange(k, dtype=torch.int32, device=friends.device)
+    valid = (cols[None, :] < friend_cnt[:, None]) & (friends >= 0)
+    dead = (detected_global[torch.clamp_min(friends, 0).long()] & valid
+            & healer_ok[:, None])
+    rows = torch.nonzero(dead.any(dim=1)).flatten()
+    if rows.numel():
+        g = ids_global[rows]
+        w = _rng.row_randint(heal_key, n_global, g, k)
+        w = torch.where(w == g[:, None], (w + 1) % n_global, w)
+        friends[rows] = torch.where(dead[rows], w.to(friends.dtype),
+                                    friends[rows])
+    return friends, dead, dead.sum(dtype=torch.int64)
+
+
 def phase1_slot_fns(cfg: Config):
     """(breakup_slot_fn, makeup_slot_fn) for cfg's -phase1-kernel gate."""
     if cfg.phase1_kernel_resolved == "pallas":

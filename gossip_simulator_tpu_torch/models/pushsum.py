@@ -1,7 +1,7 @@
 """PushSum numeric gossip: mass averaging as a second model family.
 
-The port of the JAX package's ``models/pushsum.py`` (single device, no
-fault scenarios).  Each node carries a value vector x (length
+The port of the JAX package's ``models/pushsum.py`` (single device).  Each
+node carries a value vector x (length
 ``-pushsum-dim``) and a PushSum weight w (init 1).  Every window a node
 keeps about half its (x, w) mass and pushes the other half, split evenly
 over its friend edges, through the event engine's mail ring; delivery is
@@ -30,6 +30,14 @@ the slot's entry count a window step.  Under ``-phase2-kernel
 auto|pallas`` the whole slot drains in one ``fused_drain_sum`` launch,
 which reads the count on the card.  The state is updated in place.
 
+Fault scenarios (``scenario.py``) apply at each window step's start on
+the flags' crashed bit (``event.apply_fault_window_flags``): a crashed
+node neither emits nor converges, but mail keeps landing in its row
+(parked mass), which it pushes back out once it reboots, so Sigma x and
+Sigma w stay exact.  The partition mask takes blocked edges out of the
+sender's divisor, so their share never leaves it.  ``-overlay-heal on``
+only consumes the reboot markers (``make_heal_fn``).
+
 uint32 hashing runs in int64 lanes masked to 32 bits (as ``utils/rng.py``
 does); the exact true means come from the numpy twin of the hash.
 """
@@ -42,6 +50,7 @@ import functools
 import numpy as np
 import torch
 
+from gossip_simulator_tpu_torch import scenario as _scen
 from gossip_simulator_tpu_torch.config import Config
 from gossip_simulator_tpu_torch.models import event
 from gossip_simulator_tpu_torch.ops import mailbox, megakernel
@@ -66,8 +75,9 @@ class PushSumState:
     ``PushSumState``; ``utils/interop.py`` converts to and from its numpy
     form.  ``tick`` is a host int; the totals and counters are int64 0-d
     tensors, except ``mail_dropped`` (int32, the ring append's counter).
-    The scenario leaves and ``exch_counts`` are the JAX package's
-    1-element placeholders (fault scenarios are not yet ported)."""
+    ``down_since`` is the crash clock (int32[n] under
+    Config.faults_enabled, a 1-element placeholder otherwise);
+    ``exch_counts`` is the JAX package's 1-element placeholder."""
 
     flags: torch.Tensor  # uint8[n]  CRASHED bit; RECEIVED mirrors converged
     friends: torch.Tensor  # int32[n, k]
@@ -83,11 +93,11 @@ class PushSumState:
     total_crashed: torch.Tensor  # int64[]  always 0 (crashrate rejected)
     mail_dropped: torch.Tensor  # int32[]  must stay 0 (mass loss otherwise)
     exchange_overflow: torch.Tensor  # int64[]  (always 0 on one device)
-    down_since: torch.Tensor  # int32[1]
+    down_since: torch.Tensor  # int32[n | 1]  crash tick, -1 = live/unknown
     scen_crashed: torch.Tensor  # int64[]
     scen_recovered: torch.Tensor  # int64[]
     part_dropped: torch.Tensor  # int64[]
-    heal_repaired: torch.Tensor  # int64[]
+    heal_repaired: torch.Tensor  # int64[]  always 0 (heal rewires nothing)
     relerr_ppb: torch.Tensor  # int64[]  last window's live max rel-err, ppb
     eps_tick: torch.Tensor  # int64[]  first tick with eps-band count >= target
     exch_counts: torch.Tensor  # int32[1, 1]
@@ -308,7 +318,7 @@ def init_state(cfg: Config, friends: torch.Tensor, friend_cnt: torch.Tensor,
         tick=0, total_message=z(), total_received=z(), total_crashed=z(),
         mail_dropped=torch.zeros((), dtype=I32, device=dev),
         exchange_overflow=z(),
-        down_since=torch.full((1,), -1, dtype=I32, device=dev),
+        down_since=_scen.init_down_since(cfg.faults_enabled, n, dev),
         scen_crashed=z(), scen_recovered=z(), part_dropped=z(),
         heal_repaired=z(),
         relerr_ppb=torch.full((), 2_000_000_000, dtype=I64, device=dev),
@@ -356,8 +366,10 @@ def emit_shares(cfg: Config, m3, crashed, friends, friend_cnt, tick: int,
                 gids, base_key):
     """The PushSum emission: halve, split over the eligible edges, return
     the lanes to append.  An eligible edge is in range, not padding, from
-    a live sender; ineligible lanes are out of the divisor, so their share
-    never leaves the sender.  Returns (new_m3, share_lanes (n*k, C), dst
+    a live sender and not partition-blocked at send tick `tick`;
+    ineligible lanes are out of the divisor, so their share never leaves
+    the sender.  Crashed destinations still receive (parked mass).
+    Returns (new_m3, share_lanes (n*k, C), dst
     (n*k,), wslot (n*k,), off (n*k,), lane_valid (n*k,), blocked_count);
     one delay per sender, (tick, id)-keyed off the base key."""
     n, k = friends.shape
@@ -367,6 +379,13 @@ def emit_shares(cfg: Config, m3, crashed, friends, friend_cnt, tick: int,
     in_range = (torch.arange(k, dtype=I32, device=dev)[None, :]
                 < friend_cnt[:, None])
     edge = in_range & (friends >= 0) & ~crashed[:, None]
+    scen = cfg.scenario_resolved
+    blk = torch.zeros((), dtype=I64, device=dev)
+    if scen.has_partitions:
+        blocked = _scen.partition_blocked(scen, cfg.n, tick, gids[:, None],
+                                          friends) & edge
+        blk = blocked.sum(dtype=I64)
+        edge = edge & ~blocked
     mdeg = edge.sum(dim=1, dtype=I32)
     emit = ~crashed & (mdeg > 0)
     half, odd = _halve(m3)
@@ -385,13 +404,13 @@ def emit_shares(cfg: Config, m3, crashed, friends, friend_cnt, tick: int,
     off = (arrive % b)[:, None].expand(n, k).reshape(-1)
     lane_valid = (edge & emit[:, None]).reshape(-1)
     dst = torch.where(edge, friends, torch.zeros_like(friends)).reshape(-1)
-    blk = torch.zeros((), dtype=I64, device=dev)
     return new_m3, share_lanes, dst, wslot, off, lane_valid, blk
 
 
 def make_window_step_fn(cfg: Config, n_local: int | None = None):
-    """One B-tick window, in place: drain this window's slot with the SUM
-    combine -> normalize -> convergence metric -> emission."""
+    """One B-tick window, in place: scenario faults -> drain this window's
+    slot with the SUM combine -> normalize -> convergence metric ->
+    emission."""
     b = batch_ticks(cfg)
     dw = ring_windows(cfg)
     cap = slot_cap(cfg, n_local)
@@ -425,6 +444,7 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
         dev = st.mass.device
         gids = torch.arange(n, dtype=I32, device=dev)
         slot = (st.tick // b) % dw
+        dsc, dsr = event.apply_fault_window_flags(cfg, st, gids, base_key, b)
         drain(st, slot)
         m3 = _normalize(st.mass.view(n, dim + 1, LIMBS))
         crashed = (st.flags & event.CRASHED) > 0
@@ -449,6 +469,8 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
         st.tick = new_tick
         st.total_message += lane_valid.sum()
         st.total_received = recv
+        st.scen_crashed += dsc
+        st.scen_recovered += dsr
         st.part_dropped += blk
         st.relerr_ppb = (rep.max() * torch.tensor(1e9, dtype=F32, device=dev)
                          ).to(I32).to(I64)
@@ -467,14 +489,38 @@ def make_seed_fn(cfg: Config):
     return seed_fn
 
 
+def make_heal_fn(cfg: Config):
+    """Reboot-marker clearing only (None when -overlay-heal is off).  The
+    SI heal's repair, re-send and pull are all inert for PushSum, as in
+    the JAX package: repairing edges away from a node that is down for a
+    while would strand it when it reboots (nobody pushes to it), and
+    re-sends or pulls would emit extra mass.  Parked mass and the
+    unchanged topology are the averaging model's own healing; what
+    remains is consuming the markers, so detection clocks restart
+    cleanly across repeated reboots."""
+    if not cfg.overlay_heal_resolved:
+        return None
+
+    def heal_fn(st: PushSumState, base_key: torch.Tensor) -> PushSumState:
+        st.down_since = torch.where(_scen.rejoined_mask(st.down_since), -1,
+                                    st.down_since)
+        return st
+
+    return heal_fn
+
+
 def make_window_fn(cfg: Config, window: int):
-    """Advance ~`window` simulated ms: ceil(window / B) window steps."""
+    """Advance ~`window` simulated ms: ceil(window / B) window steps, then
+    (-overlay-heal on) the healing pass."""
     step = make_window_step_fn(cfg)
+    heal = make_heal_fn(cfg)
     steps = max(1, -(-window // batch_ticks(cfg)))
 
     def window_fn(st: PushSumState, base_key: torch.Tensor) -> PushSumState:
         for _ in range(steps):
             step(st, base_key)
+        if heal is not None:
+            heal(st, base_key)
         return st
 
     return window_fn

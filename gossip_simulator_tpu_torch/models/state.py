@@ -65,8 +65,9 @@ class SimState:
     total_received: torch.Tensor  # int64[]
     total_crashed: torch.Tensor  # int64[]
     exchange_overflow: torch.Tensor  # int64[]  (always 0 on one device)
-    # Scenario leaves: placeholders (fault scenarios are not yet ported).
-    down_since: torch.Tensor  # int32[1]
+    # Scenario leaves: the crash clock (int32[n] under Config.faults_enabled,
+    # a 1-element placeholder otherwise) and the fault counters.
+    down_since: torch.Tensor  # int32[n | 1]  crash tick, -1 = live/unknown
     scen_crashed: torch.Tensor  # int64[]
     scen_recovered: torch.Tensor  # int64[]
     part_dropped: torch.Tensor  # int64[]

@@ -37,7 +37,8 @@ KERNELS = ("fused_emit", "fused_unique_set", "fused_ring_append",
            "fused_deposit_both", "fused_drain_sum", "kout_pallas",
            "erdos_pallas", "fused_recv_land")
 # Counts of one form of a kernel, beside the kernel's own count.
-FORMS = ("fused_chunk_step:spill", "fused_deposit_add:dense")
+FORMS = ("fused_chunk_step:spill", "fused_deposit_add:dense",
+         "fused_emit:pmask")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS + FORMS}
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -40,10 +40,11 @@ import torch
 
 from gossip_simulator_tpu_torch.ops import _build
 
-# Window slots of the event ring (and the tick-faithful overlay's ring)
-# that fused_emit, fused_ring_append and fused_recv_land take: their
-# per-block slot sums live in shared memory (DW_LIMIT of
-# csrc/lookback.cuh).  Config refuses a deeper ring at parse.
+# Window slots of the event ring (and the tick-faithful overlay's ring) up
+# to which fused_emit, fused_ring_append and fused_recv_land keep their
+# per-block slot tables in shared memory (DW_LIMIT of csrc/lookback.cuh);
+# a deeper ring takes their global form, whose tables and sums live in
+# the workspace's second part (aux_ints).
 RING_SLOTS_MAX = 1024
 
 I32 = torch.int32
@@ -54,6 +55,8 @@ UNIQUE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
                                            ctypes.c_void_p]
 RING_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_void_p,
+                                            ctypes.c_longlong,
                                             ctypes.c_void_p])
 CHUNK_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p, ctypes.c_longlong]
@@ -141,46 +144,77 @@ def _need(name, t, nm, dtype, dev, dim=1):
 RING = "fused_ring_append"
 
 
+def slot_prefix(wslot, weight, valid, dw: int):
+    """Per-item exclusive prefix of `weight` over the earlier valid items
+    of the same slot (items in order; invalid items get 0): the one-hot
+    scan up to RING_SLOTS_MAX slots, a stable sort by slot past it (a
+    one-hot of m x dw cells would not fit).  Returns (prefix, per-slot
+    sums of the valid items' weights), int32."""
+    dev = wslot.device
+    w = torch.where(valid, weight, torch.zeros_like(weight)).to(I32)
+    if dw <= RING_SLOTS_MAX:
+        oh = ((wslot[:, None] == torch.arange(dw, dtype=I32,
+                                              device=dev)[None])
+              & valid[:, None]).to(I32)
+        # The scan runs along each slot's row of the (dw, m) transpose: a
+        # scan over the first axis of (m, dw) runs on dw sequential threads
+        # on the card (6.4 s at 6e7 lanes).
+        oht = (oh * w[:, None]).t().contiguous()
+        pre = ((torch.cumsum(oht, dim=1, dtype=I32) - oht)
+               * oh.t()).sum(dim=0, dtype=I32)
+        return pre, oht.sum(dim=1, dtype=I32)
+    key = torch.where(valid, wslot.to(I64), dw)
+    order = torch.sort(key, stable=True).indices
+    ws = w[order].to(I64)
+    incl = torch.cumsum(ws, dim=0)
+    ks = key[order]
+    tot = torch.zeros(dw + 1, dtype=I64, device=dev)
+    tot.index_add_(0, ks, ws)
+    starts = torch.cumsum(tot, dim=0) - tot  # slot k's first prefix
+    pre = torch.empty_like(w)
+    pre[order] = (incl - ws - starts[ks]).to(I32)
+    return torch.where(valid, pre, 0), tot[:dw].to(I32)
+
+
 def ring_append_plain(rings, cnt, dropped, payloads, wslot, valid, dw: int,
                       cap: int):
     """Plain version: the JAX package's one-hot chain (``ops/mailbox.py``
-    ring_append).  Per-slot ranks are a cumsum over one-hot columns; a
-    lane that is invalid or past the slot capacity writes 0 to the trash
-    cell ``dw*cap`` of every ring (a zero row of a wide ring).  Updates
-    rings, cnt (int32[1, dw]) and dropped (0-d) in place."""
-    dev = wslot.device
-    oh = ((wslot[:, None] == torch.arange(dw, dtype=I32, device=dev)[None])
-          & valid[:, None]).to(I32)
-    # The scan runs along each slot's row of the (dw, m) transpose: a scan
-    # over the first axis of (m, dw) runs on dw sequential threads on the
-    # card (6.4 s at 6e7 lanes).
-    oht = oh.t().contiguous()
-    rank = (torch.cumsum(oht, dim=1, dtype=I32) * oht).sum(dim=0,
-                                                           dtype=I32) - 1
-    base = (cnt[0][None, :] * oh).sum(dim=1, dtype=I32)
-    pos = base + rank
+    ring_append).  Per-slot ranks are a scan over the slot's lanes
+    (``slot_prefix``); a lane that is invalid or past the slot capacity
+    writes 0 to the trash cell ``dw*cap`` of every ring (a zero row of a
+    wide ring).  Updates rings, cnt (int32[1, dw]) and dropped (0-d) in
+    place."""
+    rank, _ = slot_prefix(wslot, torch.ones_like(wslot), valid, dw)
+    slot = torch.where(valid, wslot, 0).long()
+    pos = cnt[0][slot] + rank
     ok = valid & (pos < cap)
     flat = torch.where(ok, wslot.to(I64) * cap + pos, dw * cap)
     for r, p in zip(rings, payloads):
         # Duplicate indices only at the trash cell, all writing 0.
         keep = ok[:, None] if p.dim() == 2 else ok
         r.index_put_((flat,), torch.where(keep, p, torch.zeros_like(p)))
-    cnt += (oh * ok[:, None]).sum(dim=0, dtype=I32)[None, :]
+    cnt[0].index_add_(0, slot, ok.to(I32))
     dropped += (valid & ~ok).sum(dtype=I32)
     return rings, cnt, dropped
 
 
 # The single-pass appends (fused_ring_append, megakernel.fused_recv_land and
 # megakernel.fused_emit; csrc/lookback.cuh): lanes a block, the workspace's
-# head words (the counters and 2 * RING_SLOTS_MAX + 1 int32 sums: the
-# kernels' sup, adds and lost) and the look-back epochs' range.
+# head words (the counters and 2 * RING_SLOTS_MAX + 2 int32 sums: the
+# kernels' sup, adds, lost and blocked), the look-back epochs' range, and
+# the global form's grid (past RING_SLOTS_MAX slots: blocks that take
+# tiles by ticket, each with its own tables in the second part).
 APPEND_TILE = 2048
 APPEND_WS_HEAD = RING_SLOTS_MAX + 2
 APPEND_EPOCH_MAX = 1 << 30
+APPEND_GLOBAL_GRID = 264
+APPEND_WARPS = 8  # csrc/lookback.cuh WARPS
 # (card index, raw stream) -> [int64 workspace, last epoch]: the three
 # kernels' look-back state and counters, kept across calls on one stream
-# (calls on one stream run in order; two streams never share one).
+# (calls on one stream run in order; two streams never share one); and
+# (card index, raw stream) -> the int32 second part of the global form.
 _WS: dict = {}
+_AUX: dict = {}
 
 
 def workspace_words(m: int, dw: int, tile: int = APPEND_TILE) -> int:
@@ -188,6 +222,33 @@ def workspace_words(m: int, dw: int, tile: int = APPEND_TILE) -> int:
     of `tile` (fused_emit's senders: megakernel.EMIT_TILE): the head and
     one look-back word per (block, slot)."""
     return APPEND_WS_HEAD + max(1, -(-m // tile)) * dw
+
+
+def aux_ints(m: int, dw: int, tile: int = APPEND_TILE) -> int:
+    """int32 cells of the global form's second part (csrc/lookback.cuh
+    aux_ints): 2 * dw + 2 sums (rounded up to 4 cells), then a table set
+    of (2 * WARPS + 2) * dw cells for each block of the bounded grid; 0
+    for the shared form."""
+    if dw <= RING_SLOTS_MAX:
+        return 0
+    nb = max(1, -(-m // tile))
+    grid = min(nb, APPEND_GLOBAL_GRID)
+    return (2 * dw + 2 + 3) // 4 * 4 + grid * (2 * APPEND_WARPS + 2) * dw
+
+
+def aux_part(dev, stream: int, ints: int, dw: int = 0):
+    """(pointer, cells) of the second part of (card, stream), grown to
+    `ints`, its first 2 * dw + 2 cells (the call's sums) zeroed on the
+    stream: a call of another depth or grid may have left its tables
+    there; (None, 0) when the call needs none."""
+    if ints == 0:
+        return None, 0
+    aux = _AUX.get((dev.index, stream))
+    if aux is None or aux.numel() < ints:
+        aux = _AUX[dev.index, stream] = torch.empty(ints, dtype=I32,
+                                                    device=dev)
+    aux[:2 * dw + 2].zero_()
+    return aux.data_ptr(), aux.numel()
 
 
 def workspace(dev, stream: int, words: int):
@@ -213,9 +274,8 @@ def _ring_check(rings, cnt, dropped, payloads, wslot, valid, dw, cap) -> int:
     when flat or absent)."""
     card = wslot.get_device()
     m = wslot.shape[0]
-    if not 1 <= dw <= RING_SLOTS_MAX:
-        raise ValueError(f"{RING}: dw={dw} outside the kernel's "
-                         f"1..{RING_SLOTS_MAX}")
+    if dw < 1:
+        raise ValueError(f"{RING}: dw={dw} < 1")
     if len(rings) not in (1, 2) or len(payloads) != len(rings):
         raise ValueError(f"{RING}: the kernel takes one or two rings and "
                          f"their payloads, got {len(rings)} and "
@@ -272,13 +332,15 @@ def _ring_launch(rings, cnt, dropped, payloads, wslot, valid, dw, cap):
     m = wslot.shape[0]
     stream = _stream(wslot.device.index)
     ws, epoch = workspace(wslot.device, stream, workspace_words(m, dw))
+    aux, aux_n = aux_part(wslot.device, stream, aux_ints(m, dw), dw)
     two = len(rings) == 2
     fn = _ring_fn()
     _build.count_launch(RING)
     rc = fn(rings[0].data_ptr(), rings[1].data_ptr() if two else None,
             payloads[0].data_ptr(), payloads[1].data_ptr() if two else None,
             wslot.data_ptr(), valid.data_ptr(), cnt.data_ptr(), m, dw, cap,
-            w1, dropped.data_ptr(), ws.data_ptr(), ws.numel(), epoch, stream)
+            w1, dropped.data_ptr(), ws.data_ptr(), ws.numel(), epoch, aux,
+            aux_n, stream)
     if rc:
         _build.check(rc, RING)
     return rings, cnt, dropped

@@ -4,9 +4,11 @@ multi-rumor deposits in one pass, and ``fused_drain_sum``, PushSum's
 whole-slot drain.
 
 From the gathered friends rows down, for one batch of senders: the edge
-mask, the duplicate filter against the RECEIVED bit, the SIR trigger
-lane, the per-slot weighted exclusive prefix of reservation sizes, the
-capacity check and the ring write at reserved cells or unique trash lanes
+mask, the partition mask (the scenario's send-time ``partition_blocked``,
+computed outside as the JAX package computes it, counted as blocked),
+the duplicate filter against the RECEIVED bit, the SIR trigger lane, the
+per-slot weighted exclusive prefix of reservation sizes, the capacity
+check and the ring write at reserved cells or unique trash lanes
 (``dw*cap + i*kw + kk``).  The random draws (drop mask, delay slot) stay
 outside, so the streams are untouched.
 
@@ -52,29 +54,37 @@ import functools
 import torch
 
 from gossip_simulator_tpu_torch.ops import _build, deliver
-from gossip_simulator_tpu_torch.ops.deliver import (RING_SLOTS_MAX,
-                                                    ring_append_plain)
+from gossip_simulator_tpu_torch.ops.deliver import (ring_append_plain,
+                                                    slot_prefix)
 
 NAME = "fused_emit"
 I32 = torch.int32
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 3
              + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
-             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_void_p])
 
 
 def emit_layout(mail_cnt, sf, drop, svalid, wslot, off, *, dw: int,
                 cap: int, b: int, tb=None, strig=None, sender_ids=None,
-                flags=None, received_bit: int = 1):
+                pmask=None, flags=None, received_bit: int = 1):
     """The unfused chain without its final write: returns (flat, ivals,
-    adds[dw], sup[dw], lost) with flat/ivals of m*kw lanes, int32.
+    adds[dw], sup[dw], lost, blocked) with flat/ivals of m*kw lanes, int32.
 
-    Row r's slot column is picked by one-hot arithmetic (dw is ~3); rows
-    with svalid False get zero prefix and base, and every consumer masks
-    them with ok.  Dead lanes divert to unique trash positions, so the
-    write needs no duplicate handling."""
+    `pmask` (bool (m, k), the raw partition_blocked matrix) blocks the
+    edges it marks before the duplicate filter; `blocked` counts them (0
+    without it).  Each row's start is the weighted prefix of its slot
+    (``deliver.slot_prefix``); rows with svalid False get zero prefix and
+    every consumer masks them with ok.  Dead lanes divert to unique trash
+    positions, so the write needs no duplicate handling."""
     m, k = sf.shape
     dev = sf.device
     edge = svalid[:, None] & ~drop & (sf >= 0)
+    blocked = torch.zeros((), dtype=torch.int64, device=dev)
+    if pmask is not None:
+        bl = pmask & edge
+        blocked = bl.sum()
+        edge = edge & ~bl
     dcnt = None
     if flags is not None:
         dstf = flags[torch.where(sf >= 0, sf, 0).long()]
@@ -91,14 +101,12 @@ def emit_layout(mail_cnt, sf, drop, svalid, wslot, off, *, dw: int,
         payload = torch.cat(
             [payload, (tb + sender_ids * b + off)[:, None]], dim=1)
         ec = ec + strig.to(I32)
-    oh = ((wslot[:, None] == torch.arange(dw, dtype=I32, device=dev)[None])
-          & svalid[:, None]).to(I32)
-    sup = ((oh * dcnt[:, None]).sum(dim=0, dtype=I32) if dcnt is not None
-           else torch.zeros(dw, dtype=I32, device=dev))
-    w = oh * ec[:, None]
-    seg = ((torch.cumsum(w, dim=0, dtype=I32) - w) * oh).sum(dim=1,
-                                                              dtype=I32)
-    base = (mail_cnt[0][None, :] * oh).sum(dim=1, dtype=I32)
+    seg, _ = slot_prefix(wslot, ec, svalid, dw)
+    slot = torch.where(svalid, wslot, 0).long()
+    sup = torch.zeros(dw, dtype=I32, device=dev)
+    if dcnt is not None:
+        sup.index_add_(0, slot, torch.where(svalid, dcnt, 0))
+    base = torch.where(svalid, mail_cnt[0][slot], 0)
     start = base + seg
     ok = svalid & (start + ec <= cap)
     kw = edge.shape[1]
@@ -110,21 +118,23 @@ def emit_layout(mail_cnt, sf, drop, svalid, wslot, off, *, dw: int,
     # Overflowed senders are a per-slot suffix (start grows monotonically
     # within a slot), so counting only written reservations keeps
     # positions contiguous.
-    adds = (w * ok[:, None]).sum(dim=0, dtype=I32)
+    adds = torch.zeros(dw, dtype=I32, device=dev)
+    adds.index_add_(0, slot, torch.where(ok, ec, 0))
     lost = (edge & ~ok[:, None]).sum()
-    return flat.reshape(-1), ivals.reshape(-1), adds, sup, lost
+    return flat.reshape(-1), ivals.reshape(-1), adds, sup, lost, blocked
 
 
 def emit_plain(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *,
                dw: int, cap: int, b: int, tb=None, strig=None,
-               sender_ids=None, flags=None, received_bit: int = 1):
+               sender_ids=None, pmask=None, flags=None,
+               received_bit: int = 1):
     """Plain version: ``emit_layout`` plus one ``index_put_``."""
-    flat, ivals, adds, sup, lost = emit_layout(
+    flat, ivals, adds, sup, lost, blocked = emit_layout(
         mail_cnt, sf, drop, svalid, wslot, off, dw=dw, cap=cap, b=b,
-        tb=tb, strig=strig, sender_ids=sender_ids, flags=flags,
+        tb=tb, strig=strig, sender_ids=sender_ids, pmask=pmask, flags=flags,
         received_bit=received_bit)
     mail_ids.index_put_((flat.long(),), ivals)
-    return mail_ids, adds, sup, lost
+    return mail_ids, adds, sup, lost, blocked
 
 
 # Senders a block of the kernel takes (csrc/fused_emit.cu EMIT_TILE).
@@ -140,13 +150,12 @@ def emit_group(kw: int) -> int:
 
 
 def _emit_check(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, dw, cap,
-                flags, strig, sender_ids) -> None:
+                flags, strig, sender_ids, pmask=None) -> None:
     """Raise on what the kernel does not take, in attribute reads (the call
     is short: its host path is most of its time)."""
     card = mail_ids.get_device()
-    if not 1 <= dw <= RING_SLOTS_MAX:
-        raise ValueError(f"{NAME}: dw={dw} outside the kernel's "
-                         f"1..{RING_SLOTS_MAX}")
+    if dw < 1:
+        raise ValueError(f"{NAME}: dw={dw} < 1")
     if sf.dtype is not I32 or sf.ndim != 2:
         raise TypeError(f"{NAME}: sf must be 2-D int32, got {sf.dtype} "
                         f"{tuple(sf.shape)}")
@@ -166,6 +175,8 @@ def _emit_check(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, dw, cap,
     if strig is not None:
         rows += [(strig, "strig", torch.bool, (m,)),
                  (sender_ids, "sender_ids", I32, (m,))]
+    if pmask is not None:
+        rows.append((pmask, "pmask", torch.bool, (m, k)))
     for t, nm, dt, shape in rows:
         if t.dtype is not dt or t.shape != shape:
             raise ValueError(f"{NAME}: {nm} must be {dt} {shape}, got "
@@ -175,7 +186,7 @@ def _emit_check(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, dw, cap,
         raise TypeError(f"{NAME}: flags must be 1-D uint8, got "
                         f"{flags.dtype} {tuple(flags.shape)}")
     for t in (mail_ids, mail_cnt, sf, drop, svalid, wslot, off, flags,
-              strig, sender_ids):
+              strig, sender_ids, pmask):
         if t is not None and (t.get_device() != card
                               or not t.is_contiguous()):
             raise ValueError(f"{NAME}: every tensor must be contiguous on "
@@ -189,33 +200,40 @@ def _emit_fn():
 
 
 def _launch(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *, dw, cap,
-            b, tb, strig, sender_ids, flags, received_bit, group=None):
+            b, tb, strig, sender_ids, flags, received_bit, pmask=None,
+            group=None):
     """One launch on the (card, stream) workspace of the single-pass
-    appends; the outputs (adds, sup, lost) come from one torch.empty, the
-    call's only allocation.  `group` overrides emit_group (the card's
-    measurements of the three forms)."""
+    appends; the outputs (adds, sup, lost, blocked) come from one
+    torch.empty, the call's only allocation.  `group` overrides
+    emit_group (the card's measurements of the three forms)."""
     _emit_check(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, dw, cap,
-                flags, strig, sender_ids)
+                flags, strig, sender_ids, pmask)
     m, k = sf.shape
     dev = mail_ids.device
     stream = deliver._stream(dev.index)
     ws, epoch = deliver.workspace(dev, stream,
                                   deliver.workspace_words(m, dw, EMIT_TILE))
-    out = torch.empty(2 * dw + 1, dtype=I32, device=dev)
+    aux, aux_n = deliver.aux_part(dev, stream,
+                                  deliver.aux_ints(m, dw, EMIT_TILE), dw)
+    out = torch.empty(2 * dw + 2, dtype=I32, device=dev)
     if group is None:
         group = emit_group(k + (strig is not None))
     fn = _emit_fn()
     _build.count_launch(NAME)
+    if pmask is not None:
+        _build.count_launch(NAME + ":pmask")
     rc = fn(mail_ids.data_ptr(), mail_cnt.data_ptr(), sf.data_ptr(),
             drop.data_ptr(), svalid.data_ptr(), wslot.data_ptr(),
             off.data_ptr(), None if flags is None else flags.data_ptr(),
             received_bit, None if strig is None else strig.data_ptr(),
             None if strig is None else sender_ids.data_ptr(),
+            None if pmask is None else pmask.data_ptr(),
             0 if tb is None else tb, m, k, dw, cap, b, group,
-            out.data_ptr(), ws.data_ptr(), ws.numel(), epoch, stream)
+            out.data_ptr(), ws.data_ptr(), ws.numel(), epoch, aux, aux_n,
+            stream)
     if rc:
         _build.check(rc, NAME)
-    return mail_ids, out[:dw], out[dw:2 * dw], out[2 * dw]
+    return mail_ids, out[:dw], out[dw:2 * dw], out[2 * dw], out[2 * dw + 1]
 
 
 def fused_emit(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *,
@@ -223,14 +241,12 @@ def fused_emit(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *,
                sender_ids=None, pmask=None, flags=None, received_bit=1,
                swords=None, mail_words=None):
     """Emission from the gathered friends rows down, writing `mail_ids` in
-    place.  Returns (mail_ids, adds[dw], sup_adds[dw], lost).  `flags`
-    enables the duplicate filter; `tb`/`strig`/`sender_ids` the SIR
-    trigger lane.  Partition masks (`pmask`, scenario faults) and rumor
-    words (`swords`/`mail_words`, multi-rumor traffic) are not yet
+    place.  Returns (mail_ids, adds[dw], sup_adds[dw], lost, blocked).
+    `pmask` (bool (m, k), the raw partition_blocked matrix) blocks the
+    edges it marks, counted in `blocked` (0 without it); `flags` enables
+    the duplicate filter; `tb`/`strig`/`sender_ids` the SIR trigger lane.
+    Rumor words (`swords`/`mail_words`, multi-rumor traffic) are not yet
     ported."""
-    if pmask is not None:
-        raise ValueError(f"{NAME}: partition masks are not yet ported "
-                         "(ROADMAP A10)")
     if swords is not None or mail_words is not None:
         raise ValueError(f"{NAME}: rumor words are not yet ported "
                          "(ROADMAP A11)")
@@ -239,7 +255,7 @@ def fused_emit(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *,
         raise ValueError(f"{NAME}: the trigger lane needs tb, strig and "
                          "sender_ids together")
     kw = dict(dw=dw, cap=cap, b=b, tb=tb, strig=strig,
-              sender_ids=sender_ids, flags=flags,
+              sender_ids=sender_ids, pmask=pmask, flags=flags,
               received_bit=received_bit)
     dev = mail_ids.device
     if dev.type == "cpu":
@@ -485,6 +501,8 @@ def fused_drain_sum(acc, mail_ids, mail_mass, mail_cnt, slot: int, *,
 RECV = "fused_recv_land"
 RECV_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                  + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_void_p,
+                                            ctypes.c_longlong,
                                             ctypes.c_void_p])
 # The workspace and epochs: deliver.workspace, shared with fused_ring_append
 # (csrc/lookback.cuh).
@@ -531,9 +549,8 @@ def _recv_check(mail_ids, mail_cnt, dropped, recv, dw, cap, b, words,
     """Raise on what neither version takes, in attribute reads (the batch
     call is short: its host path is most of its time)."""
     dev = recv.device
-    if not 1 <= dw <= RING_SLOTS_MAX or b < 1:
-        raise ValueError(f"{RECV}: dw={dw} outside 1..{RING_SLOTS_MAX} or "
-                         f"b={b} < 1")
+    if dw < 1 or b < 1:
+        raise ValueError(f"{RECV}: dw={dw} or b={b} < 1")
     if mail_ids.dtype is not I32 or mail_cnt.dtype is not I32 \
             or dropped.dtype is not I32 or recv.dtype is not I32 \
             or mail_ids.ndim != 1 or recv.ndim != 1 or dropped.ndim != 0:
@@ -594,6 +611,7 @@ def _recv_launch(mail_ids, mail_cnt, dropped, recv, dw, cap, b, words,
     m = recv.shape[0]
     stream = deliver._stream(dev.index)
     ws, epoch = deliver.workspace(dev, stream, deliver.workspace_words(m, dw))
+    aux, aux_n = deliver.aux_part(dev, stream, deliver.aux_ints(m, dw), dw)
     sup = torch.empty(dw, dtype=I32, device=dev)
     fn = _recv_fn()
     _build.count_launch(RECV)
@@ -604,7 +622,7 @@ def _recv_launch(mail_ids, mail_cnt, dropped, recv, dw, cap, b, words,
             mail_cnt.data_ptr(), m, dw, cap, b,
             1 if words is None else words.shape[1], received_bit,
             dropped.data_ptr(), sup.data_ptr(), ws.data_ptr(), ws.numel(),
-            epoch, stream)
+            epoch, aux, aux_n, stream)
     if rc:
         _build.check(rc, RECV)
     if words is not None:

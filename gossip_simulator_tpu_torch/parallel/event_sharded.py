@@ -34,8 +34,10 @@ Differences from the single-device engine, as in the JAX package:
   exchange.
 
 Not yet ported: the pipelined schedule (``-exchange-pipeline double``,
-ROADMAP A13), fault scenarios and healing (A10), the rumor words (A11),
-the device fast path and spatial panels (A6).
+ROADMAP A13), the sharded fault branches (scenarios and healing run on
+one device; their sharded heal and exchange-route partition mask are
+A13), the rumor words (A11), the device fast path and spatial panels
+(A6).
 """
 
 from __future__ import annotations
@@ -198,7 +200,7 @@ def make_sharded_event_step(cfg: Config, mesh: Mesh):
             # One-shard SI: the emission IS the one-device append.
             st = states[0]
             sids, svalid, sticks = batches[0]
-            _, _, dropped, sa = event.append_messages(
+            _, _, dropped, sa, _ = event.append_messages(
                 cfg, st.mail_ids, st.mail_cnt, drops[0], sids, svalid,
                 sticks, st.friends, skeys[0],
                 flags=st.flags if suppress else None, kernel=dkern,

@@ -19,8 +19,9 @@ The float32 metric is the single-device engine's (``pushsum.metric_rel``),
 computed per shard on the same rows, so nothing compiled by nvcc touches
 it.
 
-Not yet ported: fault scenarios and healing (ROADMAP A10), the device
-fast path and spatial panels (A6).
+Not yet ported: the sharded fault branches (scenarios and healing run
+on one device; on shards they are ROADMAP A13), the device fast path and
+spatial panels (A6).
 """
 
 from __future__ import annotations

@@ -56,9 +56,13 @@ _ARRAYS = {"friends": np.int32, "friend_cnt": np.int32,
            "down_since": np.int32, "mail_words": np.uint32,
            "rumor_words": np.uint32, "rumor_recv": np.int32,
            "rumor_done": np.int32, "exch_counts": np.int32}
-_PLACEHOLDERS = {"down_since": (1,), "mail_words": (1, 1),
-                 "rumor_words": (1, 1), "rumor_recv": (1,),
-                 "rumor_done": (1,), "exch_counts": (1, 1)}
+# Multi-rumor and spatial-telemetry leaves: placeholders only (ROADMAP
+# A11, A6).  The scenario leaves cross at either shape: the crash clock
+# down_since is int32[n] under faults (Config.faults_enabled), int32[1]
+# otherwise, and the four counters are scalars.
+_PLACEHOLDERS = {"mail_words": (1, 1), "rumor_words": (1, 1),
+                 "rumor_recv": (1,), "rumor_done": (1,),
+                 "exch_counts": (1, 1)}
 
 
 def state_from_numpy(tree: dict, device) -> EventState:
@@ -69,9 +73,9 @@ def state_from_numpy(tree: dict, device) -> EventState:
     for name, shape in _PLACEHOLDERS.items():
         if np.shape(tree[name]) != shape:
             raise ValueError(
-                f"leaf {name} has shape {np.shape(tree[name])}: scenario "
-                "and multi-rumor state is not yet ported (ROADMAP A10, "
-                "A11)")
+                f"leaf {name} has shape {np.shape(tree[name])}: "
+                "multi-rumor and spatial-telemetry state is not yet "
+                "ported (ROADMAP A11, A6)")
     dev = torch.device(device)
 
     def arr(name):
@@ -117,12 +121,10 @@ _SIM_COUNTERS = ("total_received", "total_crashed", "exchange_overflow",
 
 def sim_state_from_numpy(tree: dict, device) -> SimState:
     """The port's SimState from a JAX-package ring-engine state dict."""
-    for name, shape in (("down_since", (1,)), ("exch_counts", (1, 1))):
-        if np.shape(tree[name]) != shape:
-            raise ValueError(
-                f"leaf {name} has shape {np.shape(tree[name])}: scenario "
-                "and spatial-telemetry state is not yet ported (ROADMAP "
-                "A10, A6)")
+    if np.shape(tree["exch_counts"]) != (1, 1):
+        raise ValueError(
+            f"leaf exch_counts has shape {np.shape(tree['exch_counts'])}: "
+            "spatial-telemetry state is not yet ported (ROADMAP A6)")
     dev = torch.device(device)
 
     def t(name, dtype):
@@ -171,12 +173,10 @@ def pushsum_state_from_numpy(tree: dict, device) -> PushSumState:
     if "mail_geom" not in tree:
         raise ValueError("state tree has no mail_geom: cannot tell the "
                          "ring's slot capacity")
-    for name, shape in (("down_since", (1,)), ("exch_counts", (1, 1))):
-        if np.shape(tree[name]) != shape:
-            raise ValueError(
-                f"leaf {name} has shape {np.shape(tree[name])}: scenario "
-                "and spatial-telemetry state is not yet ported (ROADMAP "
-                "A10, A6)")
+    if np.shape(tree["exch_counts"]) != (1, 1):
+        raise ValueError(
+            f"leaf exch_counts has shape {np.shape(tree['exch_counts'])}: "
+            "spatial-telemetry state is not yet ported (ROADMAP A6)")
     dev = torch.device(device)
 
     def arr(name):

@@ -22,9 +22,11 @@ T = torch.from_numpy
 
 
 def _emit_inputs(seed, *, m=48, k=6, n=60, dw=3, cap=400, b=10, dup=False,
-                 sir=False, dead=0.25, pad=0.1, base_hi=None):
+                 sir=False, dead=0.25, pad=0.1, base_hi=None, pm=None):
     """Numpy inputs of one fused_emit call (test_torch_ops.py shares them):
-    -1 padded friend columns, dead rows, a random ring and base counts."""
+    -1 padded friend columns, dead rows, a random ring and base counts;
+    with `pm`, a partition mask with that share of its lanes set (drawn
+    last, so the other inputs do not depend on it)."""
     rng = np.random.default_rng(seed)
     kw = k + (1 if sir else 0)
     ring_len = dw * cap + m * kw + 7
@@ -44,6 +46,8 @@ def _emit_inputs(seed, *, m=48, k=6, n=60, dw=3, cap=400, b=10, dup=False,
         d["strig"] = d["svalid"] & (rng.random(m) < 0.8)
         d["sids"] = rng.integers(0, n, m).astype(np.int32)
         kwargs["tb"] = (n + 1) * b
+    if pm is not None:
+        d["pmask"] = rng.random((m, k)) < pm
     return d, kwargs
 
 
@@ -56,6 +60,7 @@ def _emit(d, kw, dev, group=None, sync=True):
     opt = dict(strig=T(d["strig"]).to(dev) if "strig" in d else None,
                sender_ids=T(d["sids"]).to(dev) if "sids" in d else None,
                flags=T(d["flags"]).to(dev) if "flags" in d else None,
+               pmask=T(d["pmask"]).to(dev) if "pmask" in d else None,
                received_bit=tevent.RECEIVED, **kw)
     if group is None:
         out = megakernel.fused_emit(ring, *args, **opt)
@@ -69,6 +74,7 @@ def _same_emit(want, got):
     assert torch.equal(want[0], got[0])  # the ring
     assert torch.equal(want[1], got[1]) and torch.equal(want[2], got[2])
     assert int(want[3]) == int(got[3])
+    assert int(want[4]) == int(got[4])  # the partition-blocked edges
 
 
 EMIT_CASES = {
@@ -101,11 +107,32 @@ EMIT_CASES = {
     "all_dead": dict(m=3000, dead=1.0),
     "dw1": dict(dw=1, m=3000, cap=9000),
     "overflow_mid_block": dict(m=4000, cap=5000, base_hi=4000),
+    # The scenario's partition mask (0 %, half and every lane blocked), with
+    # and without the duplicate filter and the SIR trigger lane.
+    "pm0": dict(pm=0.0, m=3000, n=3000, cap=9000),
+    "pm50": dict(pm=0.5, m=3000, n=3000, cap=9000),
+    "pm100": dict(pm=1.0, m=3000, n=3000, cap=9000),
+    "pm50_dup": dict(pm=0.5, dup=True, m=3000, n=3000, cap=9000),
+    "pm50_sir_dup": dict(pm=0.5, sir=True, dup=True, m=3000, n=3000,
+                         cap=9000),
+    "pm100_sir": dict(pm=1.0, sir=True, m=3000, n=3000, cap=9000),
+    "pm50_kw112_sir": dict(pm=0.5, k=111, sir=True, m=1000, n=3000,
+                           cap=60_000, pad=0.5),
+    "pm50_many_blocks": dict(pm=0.5, m=150_000, n=200_000, cap=400_000),
+    # Past 1024 ring slots (ROADMAP C1): the global form's tables; 1536
+    # with a slot that overflows, 4096 with more tiles than the global
+    # form's grid (264 blocks of 256 senders).
+    "dw1025": dict(dw=1025, m=20_000, n=5000, cap=60),
+    "dw1536_overflow": dict(dw=1536, m=20_000, n=5000, cap=40, base_hi=30),
+    "dw1536_pm50_sir_dup": dict(dw=1536, pm=0.5, sir=True, dup=True,
+                                m=20_000, n=5000, cap=60),
+    "dw4096_blocks": dict(dw=4096, m=100_000, n=50_000, cap=400),
 }
 # The kernel's two forms (threads a row): each at the widths it would not
 # be chosen for as well.
 FORM_CASES = ("si", "sir_dup", "overflow_mid_block", "kw33_sir", "kw112_sir",
-              "dw40_kw112_dup", "m257_dup", "m65_kw65_sir", "dw1024")
+              "dw40_kw112_dup", "m257_dup", "m65_kw65_sir", "dw1024",
+              "pm50_sir_dup", "pm50_kw112_sir", "dw1536_pm50_sir_dup")
 
 
 def _ring_inputs(seed, *, m=300, dw=3, cap=200, base_hi=None, rings=2,
@@ -423,6 +450,29 @@ def test_fused_emit_epoch_wrap_matches_plain_on_card(monkeypatch):
     assert epochs == [1, 2, 1, 2, 1]
 
 
+def test_global_form_calls_of_other_depths_match_plain_on_card():
+    """Past 1024 slots the appends' tables and sums share the workspace's
+    second part: a deep call on a one-block grid, a shallower one whose
+    264 blocks' tables cover where the first call's sums lie, then the
+    first again (its sums zeroed before it), each against its plain
+    version."""
+    dev = _card()
+    for dw, m, kind in ((4096, 200, "emit"), (1536, 600_000, "ring"),
+                        (4096, 200, "emit"), (2048, 300_000, "emit")):
+        if kind == "emit":
+            d, kw = _emit_inputs(dw + m, m=m, dw=dw, n=3000, cap=5,
+                                 sir=True, dup=True, pm=0.3)
+            _same_emit(_emit(d, kw, torch.device("cpu")), _emit(d, kw, dev))
+        else:
+            d, kw = _ring_inputs(dw, m=m, dw=dw, cap=2 * m // dw,
+                                 width=12)
+            want = _ring_append(deliver.ring_append_plain, d, kw,
+                                torch.device("cpu"))
+            got = _ring_append(deliver.fused_ring_append, d, kw, dev)
+            for w, g in zip(want, got):
+                assert torch.equal(w, g)
+
+
 def test_emit_ring_append_and_recv_land_interleaved_match_plain_on_card():
     """fused_emit, fused_ring_append and fused_recv_land take one
     workspace per stream: calls of all three, interleaved on one stream
@@ -517,12 +567,17 @@ RING_CASES = {
     "m0": dict(m=0), "m0_wide": dict(m=0, width=12),
     "m1": dict(m=1, width=12), "m2049": dict(m=2049, width=12),
     "m2049_all_land": dict(m=2049, dead=0.0, cap=5000, width=8),
+    # Past 1024 slots with more tiles than the global form's grid (264
+    # blocks of 2048 lanes): blocks take several tiles each.
+    "dw1536_tiles_700": dict(dw=1536, m=1_433_600, cap=1000, width=12),
+    "dw4096_one_ring": dict(dw=4096, rings=1, m=600_000, cap=150),
 }
 # The slot counts and row widths the port's rings take: dw 1 (one delay),
 # 3 (the default), 40, 512 (slot counts whose shared memory passes 48 KB
-# only with the static staging list) and the limit; one column (a 2-D ring
-# of one) and PushSum's 8, 12 and 36 limbs.  Slots fill and some overflow.
-for _dw in (1, 3, 40, 512, 1024):
+# only with the static staging list), the shared form's limit and past it
+# (ROADMAP C1: the global form); one column (a 2-D ring of one) and
+# PushSum's 8, 12 and 36 limbs.  Slots fill and some overflow.
+for _dw in (1, 3, 40, 512, 1024, 1025, 1536, 4096):
     for _w1 in (1, 8, 12, 36):
         RING_CASES[f"dw{_dw}_w{_w1}"] = dict(
             dw=_dw, width=_w1, m=5000, cap=2 * 5000 // _dw + 5)
@@ -1040,6 +1095,12 @@ RECV_CASES = {
                          width=12),
     "dw512_words": dict(dw=512, cap=6, n=40, rcap=2000, fill=1500,
                         width=12),
+    # Past 1024 slots (ROADMAP C1): the global form, one tile and many.
+    "dw1025": dict(dw=1025, cap=3, n=40, rcap=2000, fill=1500, flags=True),
+    "dw1536_words": dict(dw=1536, cap=3, n=40, rcap=2000, fill=1500,
+                         width=12),
+    "dw4096_blocks": dict(dw=4096, sources=8, rcap=80_000, fill=70_000,
+                          n=5000, cap=200, flags=True),
 }
 
 

@@ -61,10 +61,11 @@ def _jax_emit(d, kw):
         strig=jnp.asarray(d["strig"]) if "strig" in d else None,
         sender_ids=jnp.asarray(d["sids"]) if "sids" in d else None,
         flags=jnp.asarray(d["flags"]) if "flags" in d else None,
+        pmask=jnp.asarray(d["pmask"]) if "pmask" in d else None,
         received_bit=jevent.RECEIVED, interpret=True, **kw)
-    ring, adds, sup, lost, _ = out
+    ring, adds, sup, lost, blk = out
     return (np.asarray(ring), np.asarray(adds), np.asarray(sup),
-            int(lost))
+            int(lost), int(blk))
 
 
 def _port_emit(d, kw, fn=megakernel.fused_emit):
@@ -74,9 +75,10 @@ def _port_emit(d, kw, fn=megakernel.fused_emit):
              strig=T(d["strig"]) if "strig" in d else None,
              sender_ids=T(d["sids"]) if "sids" in d else None,
              flags=T(d["flags"]) if "flags" in d else None,
+             pmask=T(d["pmask"]) if "pmask" in d else None,
              received_bit=tevent.RECEIVED, **kw)
-    ring, adds, sup, lost = out
-    return ring.numpy(), adds.numpy(), sup.numpy(), int(lost)
+    ring, adds, sup, lost, blk = out
+    return ring.numpy(), adds.numpy(), sup.numpy(), int(lost), int(blk)
 
 
 EMIT_CASES = {
@@ -102,6 +104,16 @@ EMIT_CASES = {
     "kw32": dict(k=32, m=24),
     "dw9": dict(dw=9, m=64),
     "straddle": dict(k=8, cap=40, base_hi=30, pad=0.0, dead=0.0),
+    # The scenario's partition mask (the Pallas kernel's has_part): a
+    # blocked edge is cleared before the duplicate filter and counted.
+    "pm50": dict(pm=0.5),
+    "pm50_sir_dup": dict(pm=0.5, sir=True, dup=True),
+    "pm100_dup": dict(pm=1.0, dup=True),
+    "pm50_overflow": dict(pm=0.5, cap=60, base_hi=50),
+    # Past 1024 ring slots (ROADMAP C1): the plain version's sorted
+    # per-slot prefix.
+    "dw1536": dict(dw=1536, m=64, cap=3),
+    "dw1536_pm50_sir": dict(dw=1536, m=64, cap=3, pm=0.5, sir=True),
 }
 
 
@@ -115,6 +127,8 @@ def test_fused_emit_plain_matches_pallas(case, seed):
         assert np.array_equal(np.asarray(w), np.asarray(g))
     if case == "overflow":
         assert want[3] > 0  # the corner is actually exercised
+    if case.startswith("pm50"):
+        assert want[4] > 0  # edges were blocked
     if case == "straddle":
         # Some sender's reservation starts below cap and ends past it (no
         # padding, no dead row: a row's kept lanes are its undropped ones).
@@ -136,11 +150,18 @@ def _cfgs(**kw):
     return jcfg.Config(**base).validate(), tcfg.Config(**base).validate()
 
 
+PARTITION = ('{"groups": 2, "events": [{"type": "partition", "start": 0, '
+             '"end": 45}]}')
 APPEND_CASES = {
     "si_crash": dict(),
     "si_suppress": dict(crashrate=0.0),
     "sir": dict(protocol="sir", removal_rate=0.3),
     "overflow": dict(event_slot_cap=40),
+    # The send-time partition mask: senders at ticks 40..49, the window
+    # [0, 45) blocks the cross-group edges of about half of them.
+    "partition_suppress": dict(crashrate=0.0, scenario=PARTITION),
+    "partition_sir": dict(protocol="sir", removal_rate=0.3,
+                          scenario=PARTITION),
 }
 
 
@@ -179,7 +200,7 @@ def test_append_messages_matches_xla_chain(case, phase2, kernel):
         flags=jnp.asarray(flags) if sup else None, kernel="xla",
         phase2="xla")
     tflags = T(np.append(flags, np.uint8(0)))
-    tring, tcnt, tdrop, tsup = tevent.append_messages(
+    tring, tcnt, tdrop, tsup, tblk = tevent.append_messages(
         tc, T(ring.copy()), T(cnt.copy()), torch.zeros((), dtype=torch.int64),
         T(sids), T(svalid), T(sticks), T(friends), trng.base_key(tc.seed),
         strig=None if strig is None else T(strig),
@@ -188,8 +209,29 @@ def test_append_messages_matches_xla_chain(case, phase2, kernel):
     assert np.array_equal(np.asarray(jout[1]), tcnt.numpy())
     assert int(jout[2]) == int(tdrop)
     assert np.array_equal(np.asarray(jout[3]), tsup.numpy())
+    assert int(jout[4]) == int(tblk)
     if case == "overflow":
         assert int(tdrop) > 0
+    if case.startswith("partition"):
+        assert int(tblk) > 0
+
+
+@pytest.mark.parametrize("dw,m,cap", ((1536, 600, 3), (1025, 3000, 2)))
+def test_ring_append_plain_matches_pallas_past_1024_slots(dw, m, cap):
+    """The ring append's plain version past 1024 window slots (ROADMAP
+    C1: its sorted per-slot ranks) against the Pallas kernel in interpret
+    mode, slots filling and overflowing."""
+    d, kw = _ring_inputs(23, m=m, dw=dw, cap=cap, width=12)
+    args = (tuple(jnp.asarray(r) for r in d["rings"]), jnp.asarray(d["cnt"]),
+            jnp.int32(3), tuple(jnp.asarray(p) for p in d["pays"]),
+            jnp.asarray(d["wslot"]), jnp.asarray(d["valid"]), dw, cap)
+    rings, cnt, dropped = jdeliver.fused_ring_append(*args, interpret=True)
+    want = [np.asarray(r) for r in rings] + [np.asarray(cnt),
+                                             np.asarray(dropped)]
+    got = _ring_append(deliver.fused_ring_append, d, kw, torch.device("cpu"))
+    for w, g in zip(want, got):
+        assert np.array_equal(w, g.numpy())
+    assert int(want[-1]) > 3  # some lanes overflowed their slots
 
 
 @pytest.mark.parametrize("seed", (0, 1, 2))
@@ -449,11 +491,14 @@ def test_drain_and_recv_constants_match_the_sources():
         <= megakernel.DRAIN_STAGE_MAX
     r = _source_defines("lookback.cuh")
     assert deliver.APPEND_TILE == r["THREADS"] * r["ITEMS"]
-    # The head: the counters' word, then 2 * DW_LIMIT + 1 int32 sums.
+    # The head: the counters' word, then 2 * DW_LIMIT + 2 int32 sums.
     assert deliver.APPEND_WS_HEAD == r["DW_LIMIT"] + 2
     assert "#define WS_HEAD (DW_LIMIT + 2)" in open(
         os.path.join(_build.CSRC, "lookback.cuh")).read()
     assert deliver.APPEND_EPOCH_MAX == r["EPOCH_MAX"]
+    # The global form's grid and the tables' warps a block.
+    assert deliver.APPEND_GLOBAL_GRID == r["GLOBAL_GRID"]
+    assert deliver.APPEND_WARPS == r["THREADS"] // 32
     assert r["DW_LIMIT"] == deliver.RING_SLOTS_MAX
     e = _source_defines("fused_emit")
     assert megakernel.EMIT_TILE == r["THREADS"] * e["EMIT_ITEMS"]
@@ -758,7 +803,7 @@ def test_recv_launch_keeps_a_workspace_per_stream(monkeypatch):
         megakernel._recv_launch(ring, cnt, dropped, recv, kw["dw"],
                                 kw["cap"], kw["b"], None, None, None, 1)
         a = calls[-1]
-        return a[14], a[15], a[16], a[17]  # ws, ws_words, epoch, stream
+        return a[14], a[15], a[16], a[19]  # ws, ws_words, epoch, stream
 
     ws, words, epoch, st = launch(1200)
     assert (epoch, st) == (1, 11)
@@ -841,7 +886,7 @@ def test_ring_launch_shares_the_workspace_and_allocates_nothing(
     a = ring_call(None)  # the first call makes the workspace
     assert allocs == ["zeros"]
     allocs.clear()
-    assert a[10] == 1 and a[14] == 1 and a[15] == 5
+    assert a[10] == 1 and a[14] == 1 and a[17] == 5
     ws = deliver._WS[None, 5][0]
     assert (a[12], a[13]) == (ws.data_ptr(), ws.numel())
     assert ws.numel() >= deliver.workspace_words(300, 3)
@@ -880,9 +925,10 @@ def test_emit_launch_shares_the_workspace_and_allocates_its_outputs_only(
     """fused_emit's launch path is one C call a call on the (card, stream)
     workspace that the ring appends use (a new epoch each call, whichever
     kernel made the last one), sized for EMIT_TILE senders a block; its
-    only allocation is the torch.empty of its 2 * dw + 1 outputs, which
-    it returns as views (adds, sup, lost); the group of threads a row
-    follows kw.  CPU tensors, the C entry points replaced by recorders."""
+    only allocation is the torch.empty of its 2 * dw + 2 outputs, which
+    it returns as views (adds, sup, lost, blocked); the group of threads
+    a row follows kw.  CPU tensors, the C entry points replaced by
+    recorders."""
     calls = []
 
     def entry(kind):
@@ -913,28 +959,83 @@ def test_emit_launch_shares_the_workspace_and_allocates_its_outputs_only(
             received_bit=1, tb=kw.pop("tb", None), **kw)
         return out, calls[-1][1]
 
-    (_, adds, sup, lost), a = emit_call(m=600)  # makes the workspace
+    (_, adds, sup, lost, blk), a = emit_call(m=600)  # makes the workspace
     assert [x[0] for x in allocs] == ["zeros", "empty"]
-    assert allocs[1][1] == (7,)  # the outputs: 2 * dw + 1
+    assert allocs[1][1] == (8,)  # the outputs: 2 * dw + 2
     ws = deliver._WS[None, 9][0]
     assert ws.numel() >= deliver.workspace_words(600, 3,
                                                  megakernel.EMIT_TILE)
-    assert (a[19], a[20], a[21], a[22]) == (ws.data_ptr(), ws.numel(), 1, 9)
-    assert a[18] == adds.data_ptr() and a[17] == 1  # group: kw 6
-    assert (adds.shape, sup.shape, lost.shape) == ((3,), (3,), ())
+    assert (a[20], a[21], a[22], a[25]) == (ws.data_ptr(), ws.numel(), 1, 9)
+    assert (a[23], a[24]) == (None, 0)  # the shared form: no second part
+    assert a[19] == adds.data_ptr() and a[18] == 1  # group: kw 6
+    assert a[11] is None  # no partition mask
+    assert (adds.shape, sup.shape, lost.shape, blk.shape) == (
+        (3,), (3,), (), ())
     assert sup.data_ptr() == adds.data_ptr() + 12
     allocs.clear()
     a = emit_call(k=37, sir=True, m=100)[1]
-    assert a[17] == 8 and a[21] == 2 and len(allocs) == 1
+    assert a[18] == 8 and a[22] == 2 and len(allocs) == 1
     d, kw = _ring_inputs(3, m=300)
     deliver._ring_launch(tuple(T(r.copy()) for r in d["rings"]),
                          T(d["cnt"].copy()), torch.tensor(0, dtype=torch.int32),
                          tuple(T(p) for p in d["pays"]), T(d["wslot"]),
                          T(d["valid"]), kw["dw"], kw["cap"])
     assert calls[-1][1][14] == 3  # the ring append took the next epoch
-    assert emit_call(m=0)[1][21] == 4
+    assert emit_call(m=0)[1][22] == 4
     assert deliver._build.LAUNCHES[megakernel.NAME] == 3
     assert [k for k, _ in calls] == ["emit", "emit", "ring", "emit"]
+
+
+def test_global_form_takes_the_second_part_with_its_sums_zeroed(
+        monkeypatch):
+    """Past RING_SLOTS_MAX slots the three appends pass the workspace's
+    second part (aux_ints cells: the sums, then a table set for each block
+    of a grid of at most APPEND_GLOBAL_GRID), its sums zeroed before each
+    call (another depth's or grid's tables may lie there); the shared
+    form passes none.  CPU tensors, the C entry points replaced by
+    recorders."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(megakernel, "_emit_fn", lambda: entry)
+    monkeypatch.setattr(deliver, "_ring_fn", lambda: entry)
+    monkeypatch.setattr(deliver._build, "LAUNCHES", dict(_build.LAUNCHES))
+    monkeypatch.setattr(deliver, "_WS", {})
+    monkeypatch.setattr(deliver, "_AUX", {})
+    monkeypatch.setattr(deliver, "_stream", lambda index: 4)
+    d, kw = _emit_inputs(5, dw=1536, m=300, cap=5)
+    args = [T(d["ring"].copy()), T(d["cnt"]), T(d["sf"]), T(d["drop"]),
+            T(d["svalid"]), T(d["wslot"]), T(d["off"])]
+    megakernel._launch(*args, strig=None, sender_ids=None, flags=None,
+                       received_bit=1, **dict(kw, tb=None))
+    aux = deliver._AUX[None, 4]
+    want = deliver.aux_ints(300, 1536, megakernel.EMIT_TILE)
+    assert want == (2 * 1536 + 2 + 3) // 4 * 4 + 2 * 18 * 1536  # 2 tiles
+    assert (calls[-1][23], calls[-1][24]) == (aux.data_ptr(), aux.numel())
+    assert aux.numel() >= want
+    aux.fill_(7)  # tables left by a call
+    d, kw = _ring_inputs(3, m=5000, dw=2000, cap=9)
+    deliver._ring_launch(tuple(T(r.copy()) for r in d["rings"]),
+                         T(d["cnt"].copy()),
+                         torch.tensor(0, dtype=torch.int32),
+                         tuple(T(p) for p in d["pays"]), T(d["wslot"]),
+                         T(d["valid"]), 2000, 9)
+    aux = deliver._AUX[None, 4]
+    assert int(aux[:2 * 2000 + 2].abs().sum()) == 0
+    assert (calls[-1][15], calls[-1][16]) == (aux.data_ptr(), aux.numel())
+    assert aux.numel() >= deliver.aux_ints(5000, 2000)
+    d, kw = _ring_inputs(3, m=300)
+    deliver._ring_launch(tuple(T(r.copy()) for r in d["rings"]),
+                         T(d["cnt"].copy()),
+                         torch.tensor(0, dtype=torch.int32),
+                         tuple(T(p) for p in d["pays"]), T(d["wslot"]),
+                         T(d["valid"]), kw["dw"], kw["cap"])
+    assert (calls[-1][15], calls[-1][16]) == (None, 0)  # the shared form
+    assert deliver.aux_ints(10**8, 4096) == (
+        (2 * 4096 + 2 + 3) // 4 * 4 + deliver.APPEND_GLOBAL_GRID * 18 * 4096)
 
 
 def test_emit_group_follows_the_row_width():
@@ -948,8 +1049,11 @@ def test_unported_inputs_raise():
     d, kw = _emit_inputs(0)
     args = [T(d["ring"].copy()), T(d["cnt"]), T(d["sf"]), T(d["drop"]),
             T(d["svalid"]), T(d["wslot"]), T(d["off"])]
-    with pytest.raises(ValueError, match=r"not yet ported \(ROADMAP A10\)"):
-        megakernel.fused_emit(*args, pmask=torch.zeros_like(args[3]), **kw)
+    # The partition mask is ported (ROADMAP A10); one of the wrong shape
+    # is refused.
+    with pytest.raises(ValueError, match="pmask must be"):
+        megakernel._emit_check(*args, kw["dw"], kw["cap"], None, None, None,
+                               pmask=torch.zeros((47, 6), dtype=torch.bool))
     with pytest.raises(ValueError, match=r"not yet ported \(ROADMAP A11\)"):
         megakernel.fused_emit(*args, swords=torch.zeros((48, 1)), **kw)
     # The wide companion ring is ported (PushSum's mass ring); the id ring

@@ -347,7 +347,8 @@ def test_slice_flags_validate_and_need_the_card(flags):
      "require -time-mode ticks"),
     (["-engine", "ring", "-rumors", "1025"], r"rumors must be in \[1, 1024\]"),
     (["-engine", "event", "-time-mode", "rounds"], "engine=event supports"),
-    (["-engine", "ring", "-scenario", "{}"], r"ROADMAP A10"),
+    (["-engine", "ring", "-rumors", "4", "-overlay-heal", "on"],
+     "ring-engine heal re-sends are single-rumor"),
     # Push-pull on -graph erdos is ported (A3); the sharded backend is not.
     (["-protocol", "pushpull", "-graph", "erdos", "-backend", "sharded"],
      r"ROADMAP A13")))

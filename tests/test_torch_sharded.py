@@ -219,9 +219,10 @@ def test_recv_land_refuses_what_it_does_not_take():
             torch.tensor(0, dtype=torch.int32)]
     with pytest.raises(TypeError, match="recv must be 1-D"):
         megakernel.fused_recv_land(*args, T(d["recv"]).long(), **kw)
-    with pytest.raises(ValueError, match="outside 1..1024"):
+    # Any ring depth from 1 (past 1024 slots: the kernel's global form).
+    with pytest.raises(ValueError, match=r"dw=0 or b=10 < 1"):
         megakernel.fused_recv_land(*args, T(d["recv"]),
-                                   **dict(kw, dw=1025))
+                                   **dict(kw, dw=0))
     with pytest.raises(ValueError, match="go together"):
         megakernel.fused_recv_land(*args, T(d["recv"]),
                                    words=torch.zeros((1200, 2),

@@ -32,6 +32,13 @@ def threefry_layout():
     yield
     trng.set_partitionable(old)
 KOUT = ["-graph", "kout", "-n", "2000", "-fanout", "6"]
+# A fault timeline (bench.py's churn scenario) and a partition-only one.
+CHURN = ('{"groups": 2, "downtime": 60, "events": ['
+         '{"type": "churn", "start": 0, "end": 150, "rate": 2.0},'
+         '{"type": "crash", "at": 30, "frac": 0.3, "group": 1},'
+         '{"type": "partition", "start": 20, "end": 60}]}')
+PARTITION = ('{"groups": 2, "events": [{"type": "partition", "start": 10, '
+             '"end": 40}]}')
 TWINS = {
     "kout_seed1": KOUT + ["-seed", "1"],
     "kout_seed3": KOUT + ["-seed", "3"],
@@ -120,19 +127,23 @@ def test_sir_dieout_exit_status():
 
 @pytest.mark.parametrize("flags,item", (
     (["-traffic", "stream"], "A11"), (["-n", "300000000"], "A18"),
-    (["-overlay-mode", "rounds", "-overlay-heal", "on"], "A10"),
+    # Fault scenarios and healing run on one device (A10); the sharded
+    # backend's fault branches do not.
+    (["-overlay-mode", "rounds", "-overlay-heal", "on", "-backend",
+      "sharded"], "A13"),
     (["-overlay-mode", "ticks", "-n", "40000000"], "A17"),
     (["-n", "100000000", "-mailbox-cap", "16", "-overlay-mode", "ticks"],
      "A17"),
-    # -graph erdos is ported (A3); its fault scenarios are not.
-    (["-graph", "erdos", "-scenario", "{}"], "A10"),
-    (["-graph", "kout", "-engine", "ring", "-overlay-heal", "on"], "A10"),
-    # -model pushsum is ported (A12); its fault scenarios are not.
+    (["-graph", "erdos", "-backend", "sharded", "-scenario", CHURN],
+     "A13"),
+    (["-graph", "kout", "-backend", "sharded", "-overlay-heal", "on"],
+     "A13"),
     (["-graph", "kout", "-model", "pushsum", "-droprate", "0",
-      "-crashrate", "0", "-scenario", "{}"], "A10"),
+      "-crashrate", "0", "-backend", "sharded", "-scenario", CHURN], "A13"),
     (["-graph", "kout", "-rumors", "4"], "A11"),
-    (["-graph", "kout", "-scenario", "{}"], "A10"),
-    (["-graph", "kout", "-overlay-heal", "on"], "A10"),
+    (["-graph", "kout", "-backend", "sharded", "-scenario", PARTITION],
+     "A13"),
+    (["-graph", "kout", "-rumors", "4", "-overlay-heal", "on"], "A11"),
     (["-graph", "kout", "-serve"], "A14"),
     (["-graph", "kout", "-supervise"], "A14"),
     # -backend sharded is ported for the event engine and PushSum (A13,
@@ -149,13 +160,15 @@ def test_sir_dieout_exit_status():
     (["-graph", "kout", "-pallas", "-backend", "sharded",
       "-exchange-pipeline", "double"], "A13"),
     (["-graph", "kout", "-tuning-table", "off"], "A15"),
-    (["-graph", "kout", "-time-mode", "rounds", "-scenario", "{}"], "A10"),
+    (["-graph", "kout", "-backend", "sharded", "-pallas", "-scenario",
+      CHURN, "-overlay-heal", "on"], "A13"),
     (["-graph", "kout", "-engine", "ring", "-backend", "sharded"], "A13"),
     # The reference flags the port parses without running them (C2).
     (["-graph", "kout", "-exchange-pipeline", "double"], "A13"),
     (["-graph", "kout", "-telemetry-spatial", "on"], "A6"),
     (["-graph", "kout", "-telemetry-summary"], "A6"),
-    (["-graph", "kout", "-heal-detect-ms", "50"], "A10"),
+    (["-graph", "kout", "-backend", "sharded", "-overlay-heal", "on",
+      "-heal-detect-ms", "50"], "A13"),
     (["-graph", "kout", "-stream-rate", "200"], "A11"),
     (["-graph", "kout", "-arrivals", "poisson"], "A11"),
     (["-graph", "kout", "-serve-high", "0.9"], "A14"),
@@ -179,8 +192,10 @@ def test_sir_dieout_exit_status():
     (["-graph", "kout", "-recover-max-stale", "3"], "A14"),
     (["-graph", "kout", "-run-id", "r1"], "A7"),
     (["-graph", "kout", "-init-timeout", "5"], "A14"),
-    # A mail ring wider than the kernels' slot limit (C1).
-    (["-graph", "kout", "-delaylow", "1", "-delayhigh", "2000"], "C1"),
+    # A mail ring past 1024 window slots runs (C1 repaired); under the
+    # sharded backend's fault branches it stays refused.
+    (["-graph", "kout", "-delaylow", "1", "-delayhigh", "2000", "-backend",
+      "sharded", "-scenario", CHURN], "A13"),
 ))
 def test_unported_flags_are_named(flags, item):
     with pytest.raises(tcfg.NotYetPorted,

@@ -222,7 +222,7 @@ def emit(dev, tmp: str, calls: int) -> None:
                               3 * 3_000_000 + m * 112, dup=False, sir=True,
                               base_hi=1_500_000, cnt_lo=30)}
     ws = torch.zeros(1 << 20, dtype=torch.int64, device=dev)
-    out = torch.empty(2 * deliver.RING_SLOTS_MAX + 1, dtype=torch.int32,
+    out = torch.empty(2 * deliver.RING_SLOTS_MAX + 2, dtype=torch.int32,
                       device=dev)
     stream = deliver._stream(dev.index)
     epoch = [0]
@@ -242,10 +242,11 @@ def emit(dev, tmp: str, calls: int) -> None:
                     checked(fn(*(t.data_ptr() for t in a),
                                ptr(kw.get("flags")), 1,
                                ptr(kw.get("strig")),
-                               ptr(kw.get("sender_ids")), kw.get("tb") or 0,
-                               rows, cols, kw["dw"], kw["cap"], kw["b"],
-                               group, out.data_ptr(), ws.data_ptr(),
-                               ws.numel(), epoch[0], stream))
+                               ptr(kw.get("sender_ids")), None,
+                               kw.get("tb") or 0, rows, cols, kw["dw"],
+                               kw["cap"], kw["b"], group, out.data_ptr(),
+                               ws.data_ptr(), ws.numel(), epoch[0], None, 0,
+                               stream))
                 call()
                 split, _ = cs._profile_split(call, calls)
                 line.append(f"{stop} {split.get('emit', 0.0):.4f}")
