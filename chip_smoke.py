@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases graphs         # static graph generation
     python3 chip_smoke.py --phases sharded        # the sharded backend
     python3 chip_smoke.py --phases faults         # fault scenarios, healing
+    python3 chip_smoke.py --phases rumors_event   # multi-rumor traffic
 
 Phases, each printing its own line:
 
@@ -110,8 +111,8 @@ Phases, each printing its own line:
               0.99), the default run at n = 1e7 (tick-faithful overlay),
               -overlay-mode rounds at n = 1e7 (the column band), and the
               default run at n = 1e8 (the split round, two_phase_100m),
-              whose xla twin runs at 1e8 when the first run took under 5
-              minutes and as a pair at 4e7 otherwise; the 1e8 run also
+              whose xla twin runs as a pair at 4e7 (cut from 1e8 for the
+              time limit, TWIN_LIMIT_S); the 1e8 run also
               prints its rounds, spill peak, phase seconds and peak memory;
               then the ring engine: -time-mode rounds at n = 1e7 (the
               rounds overlay, then ring rounds with 6e7-lane deposits,
@@ -162,7 +163,7 @@ Phases, each printing its own line:
               n = 1e7 under the default gates and -phase2-kernel xla (one
               transcript; fused_recv_land only under the first),
               pushsum10m with -backend sharded (mass conserved, nothing
-              dropped), and config 5 at n = 1e8 with its wall seconds,
+              dropped), and config 5 cut to n = 2e7 with its wall seconds,
               peak memory and the host seconds spent in the
               fused_recv_land wrapper;
 9. faults  -- fault scenarios and overlay healing under bench.py's
@@ -171,7 +172,7 @@ Phases, each printing its own line:
               on -graph kout -fanout 6 -crashrate 0, seed 0: cuda-vs-cpu
               twins at n = 20,000 of the runs below; at n = 1e7
               churn10m_heal (-overlay-heal on -coverage-target 0.99
-              -max-rounds 2000: scen_crashed >= 0.2 n, heal_repaired > 0,
+              -max-rounds 1000: scen_crashed >= 0.2 n, heal_repaired > 0,
               fused_emit with the partition mask and the heal's
               fused_ring_append launched) and churn10m_noheal (not
               converged, nothing repaired); at n = 1e6, the JAX package's
@@ -179,16 +180,37 @@ Phases, each printing its own line:
               and its -phase2-kernel xla -deliver-kernel xla twin (one
               transcript and Stats, no kernel) and churn1m_noheal (not
               converged, coverage < 0.97, nothing repaired; heal on
-              converged or above it); at 1e7 ring_churn10m_heal (-engine
-              ring: fused_deposit_add) and pushsum_churn10m (-model
+              converged or above it); at 1e7 ring_churn10m_heal to
+              -max-rounds 600 (-engine ring: fused_deposit_add) and
+              pushsum_churn10m (-model
               pushsum, heal on: Sigma x and Sigma w exactly the initial
               totals); each printing its wall, peak memory and fault
-              counters.
+              counters;
+10. rumors_event -- multi-rumor traffic on the event engine: right after
+              phase 3, fused_emit with rumor words (W = 1, 2, 32, with and
+              without the partition mask, at the kout main shape and kw
+              112), fused_unique_set over the id and word rings (W = 1, 2,
+              beside two index_put_ calls) and fused_ring_append with the
+              word ring at the injection batches and the heal's appends,
+              bit-exact and timed as in phase 3; then, on bench.py's
+              multirumor flags (-graph kout -fanout 6 -crashrate 0
+              -coverage-target 0.95 -seed 0), cuda-vs-cpu twins at
+              20,000, and at n = 1e6 multirumor1m_r16 (-rumors 16) under
+              the default gates, -phase2-kernel xla and all-xla, stream1m
+              (-rumors 64 -traffic stream -stream-rate 100) under the
+              default gates and all-xla (one transcript, Stats and report
+              a run family), stream1m_poisson, and churn1m_heal_r16 (the
+              JAX package's test_churn_partition_heal_r16 at 1e6) and its
+              xla twin, those eight side by side in the worker processes;
+              then multirumor50m_r16 at n = 5e7 once, alone, with
+              -event-slot-cap 350000007 (the largest slot the JAX
+              package's sizing allows: all 16 rumors to the target), each
+              printing its wall, peak memory, rumors done and report.
 
-The twins' runs, on the card and on the CPU (phases 4, 8 and 9), and the
-CPU's erdos rows (phase 7, before its full runs) run in WORKERS spawned
-worker processes, which have ended before any full run is timed; "time
-<phase>" lines say where the script's time goes.
+The twins' runs, on the card and on the CPU (phases 4, 8, 9 and 10), and
+the CPU's erdos rows (phase 7, before its full runs) run in WORKERS
+spawned worker processes, which have ended before any full run is timed;
+"time <phase>" lines say where the script's time goes.
 
 With --profile, a full-size run (--profile-run: the default run, one
 of the ring engine's runs, pushsum, erdos or sharded, the last on 8
@@ -526,7 +548,7 @@ def emit_host(label, ring, args, kw) -> None:
     head = (ring.data_ptr(), mail_cnt.data_ptr(), sf.data_ptr(),
             drop.data_ptr(), svalid.data_ptr(), wslot.data_ptr(),
             off.data_ptr(), ptr(flags), 1, ptr(strig), ptr(sids), None,
-            kw.get("tb") or 0, m, k, dw, cap, b,
+            None, None, kw.get("tb") or 0, m, k, dw, cap, b, 0,
             megakernel.emit_group(k + (strig is not None)), out.data_ptr(),
             ws.data_ptr(), ws.numel())
     fn = megakernel._emit_fn()
@@ -946,7 +968,10 @@ def negotiate_parity(dev, gen, reps: int) -> dict:
 
 SPLIT_N = 100_000_000  # the split-round band's full size (two_phase_100m)
 SPLIT_TWIN_N = 40_000_000  # the split band's twin pair when 100M is slow
-TWIN_LIMIT_S = 300.0  # the 100M xla twin runs only below this wall time
+# The 100M run's xla twin runs at 1e8 only below this wall time, else as a
+# pair at SPLIT_TWIN_N: 0, always the pair (a depth cut for the script's
+# time limit, PERF.md section 4).
+TWIN_LIMIT_S = 0.0
 
 
 def request_parity(dev, gen, reps: int) -> dict:
@@ -2415,7 +2440,8 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     (with its -phase2-kernel xla -deliver-kernel xla twin: one
     transcript, one Stats, no kernel) and churn1m_noheal (not converged,
     coverage < 0.97, nothing repaired; heal on converges or ends above
-    it); ring_churn10m_heal at n (-engine ring: fused_deposit_add) and
+    it); ring_churn10m_heal at n to -max-rounds 600 (-engine ring:
+    fused_deposit_add) and
     pushsum_churn10m at n (-model pushsum, heal on: Sigma x and Sigma w,
     parked mass included, exactly the initial totals).  Returns the
     launches of each full-size run by name."""
@@ -2442,8 +2468,10 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     run_twins([(f"twin {name}", argv, (), checker(name, kernels))
                for name, argv, kernels in cases])
     runs = {}
+    # -max-rounds 2000 cut to 1000 at n (the script's time limit,
+    # PERF.md section 4): the run stalls short of 0.99 either way.
     _, res_h, st, runs["churn10m_heal"] = fault_run(
-        "churn10m_heal", n, churn_argv(n, *HEAL_ON))
+        "churn10m_heal", n, churn_argv(n, *HEAL_ON, "-max-rounds", "1000"))
     del st
     sh = res_h.stats
     if sh.scen_crashed < 0.2 * n or sh.heal_repaired <= 0:
@@ -2494,13 +2522,16 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     say(f"faults {tag}: default and xla-gate transcripts and Stats "
         f"identical; heal on {'converged' if res_h.converged else 'stopped'}"
         f" at coverage {sh.coverage:.6f}, heal off at {sn.coverage:.6f}")
-    _, res_r, st, runs["ring_churn10m_heal"] = fault_run(
-        "ring_churn10m_heal", n, churn_argv(n, "-engine", "ring", *HEAL_ON))
+    # The ring engine's heal run to -max-rounds 600, not 2000 (its time
+    # goes by the window, not by n: the script's time limit, PERF.md
+    # section 4).
+    rtag = "ring_churn10m_heal"
+    _, res_r, st, runs[rtag] = fault_run(
+        rtag, n, churn_argv(n, "-engine", "ring", *HEAL_ON, "-max-rounds",
+                            "600"))
     del st
-    if runs["ring_churn10m_heal"][DEPOSIT] <= 0 or \
-            res_r.stats.heal_repaired <= 0:
-        fail(f"faults ring_churn10m_heal: launches "
-             f"{runs['ring_churn10m_heal']}, heal_repaired "
+    if runs[rtag][DEPOSIT] <= 0 or res_r.stats.heal_repaired <= 0:
+        fail(f"faults {rtag}: launches {runs[rtag]}, heal_repaired "
              f"{res_r.stats.heal_repaired}")
     _, res_p, st, runs["pushsum_churn10m"] = fault_run(
         "pushsum_churn10m", n, pushsum_argv(n) + ["-scenario", CHURN,
@@ -2516,6 +2547,345 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     say(f"faults pushsum_churn10m: mass conserved (Sigma x, Sigma w = "
         f"{totals}, parked mass included); report {res_p.report}")
     del st
+    return runs
+
+
+# --- phase 10: multi-rumor traffic on the event engine -----------------------
+
+# bench.py's multirumor rows: multirumor_1m_r16 and stream_1m (n = 1e6,
+# capture_multirumor) and multirumor_50m_r16 (capture_multirumor_50m).
+RUMOR_BIG_N = 50_000_000
+RUMOR_FLAGS = ["-graph", "kout", "-fanout", "6", "-crashrate", "0",
+               "-coverage-target", "0.95", "-seed", "0"]
+STREAM_FLAGS = ["-rumors", "64", "-traffic", "stream", "-stream-rate", "100"]
+WORDS = "fused_emit:words"  # fused_emit's launches with rumor words
+UNIQUE_WORDS = "fused_unique_set:words"  # its launches over the word ring
+# The JAX package's test_churn_partition_heal_r16 (tests/test_multirumor.py)
+# at n: R = 16 under CHURN with healing, to 0.99 within 600 ms, seed 3.
+CHURN_R16 = ["-graph", "kout", "-fanout", "6", "-seed", "3", "-crashrate",
+             "0", "-coverage-target", "0.99", "-max-rounds", "600",
+             "-rumors", "16", "-scenario", CHURN, "-overlay-heal", "on"]
+# The kernels whose word forms this phase times, their sources, the TPU
+# kernels they replace and the case whose columns head a row that phase 3
+# did not make (--phases rumors_event alone).
+RUMOR_ROWS = {
+    "fused_emit": ("gossip_simulator_tpu_torch/csrc/fused_emit.cu",
+                   "gossip_simulator_tpu/ops/pallas_megakernel.py:206", "w1"),
+    "fused_unique_set": ("gossip_simulator_tpu_torch/csrc/fused_unique_set.cu",
+                         "gossip_simulator_tpu/ops/pallas_deliver.py:357",
+                         "w1"),
+    "fused_ring_append": (
+        "gossip_simulator_tpu_torch/csrc/fused_ring_append.cu",
+        "gossip_simulator_tpu/ops/pallas_deliver.py:226", "heal_r16"),
+}
+
+
+def rumor_row(name: str, cols: dict) -> dict:
+    """A kernels-line row of `name` headed by its RUMOR_ROWS case."""
+    source, replaces, lbl = RUMOR_ROWS[name]
+    return dict(route="cuda", source=source, replaces=replaces,
+                max_abs_err=cols[f"{lbl}_max_abs_err"], ms=cols[f"{lbl}_ms"],
+                plain_ms=cols[f"{lbl}_plain_ms"],
+                bound_ms=cols[f"{lbl}_bound_ms"],
+                bound_by=cols[f"{lbl}_bound_by"],
+                library_ms=cols.get(f"{lbl}_library_ms"))
+
+
+def rumor_argv(n: int, *extra) -> list:
+    """bench.py's multirumor flags at n (R and traffic in `extra`)."""
+    return RUMOR_FLAGS + ["-n", str(n), *extra]
+
+
+def _rumor_words(gen, dev, rows, w, density=0.25):
+    """int32 (rows, w) words, each bit set with about `density`."""
+    bits = torch.rand((rows, w, 32), generator=gen, device=dev) < density
+    sh = torch.arange(32, dtype=torch.int64, device=dev)
+    return (bits.to(torch.int64) << sh).sum(-1).to(torch.int32)
+
+
+def rumor_parity(dev, gen, reps: int) -> dict:
+    """The fourteenth slice's kernel forms, bit-exact to their plain
+    versions and timed: fused_emit with rumor words (W = 1, 2, 32; with and
+    without the partition mask) at the kout main shape (131,072 senders, 6
+    lanes, dw 3) and at kw 112 (131,072 senders at W = 1 and 2, 16,384 at
+    32); fused_unique_set over the id and word rings (W = 1, 2) at the
+    main shape's 786,432 lanes, beside two index_put_ calls; and
+    fused_ring_append with the word ring at multirumor1m_r16's and
+    stream1m's injection batches (16 lanes W = 1, 2 lanes W = 2, on the
+    1e6 ring) and at churn1m_heal_r16's heal appends (n * k = 7e6 lanes,
+    W = 1).  Bounds by bytes, a scattered 4-byte access as its 32-byte
+    sector (the word stores of a sender's kept lanes are one contiguous
+    run).  Returns the columns of each kernel's row by kernel name."""
+    from gossip_simulator_tpu_torch.config import Config
+    from gossip_simulator_tpu_torch.models import event
+    from gossip_simulator_tpu_torch.ops import deliver, megakernel
+
+    cols = {name: {} for name in RUMOR_ROWS}
+    kcfg = Config(n=FULL_N, fanout=6, graph="kout").validate()
+    n, k, b, dw, cap, m, ring_len = emit_shapes(kcfg, 6)
+    # A ring of the main shape's depth that holds every case's W words.
+    wcap = 2 * m * 112 // dw
+    unique_case = None
+    for label, kk, mm, w, pm in (
+            ("w1", k, m, 1, None), ("w2", k, m, 2, None),
+            ("w32", k, m, 32, None), ("w1_pm", k, m, 1, 0.5),
+            ("w2_pm", k, m, 2, 0.5), ("w32_pm", k, m, 32, 0.5),
+            ("kw112_w1", 112, m, 1, None), ("kw112_w2", 112, m, 2, None),
+            ("kw112_w32", 112, 16_384, 32, None)):
+        rlen = dw * wcap + mm * kk
+        case, kw = emit_case(gen, dev, n, mm, kk, dw, wcap, b, rlen,
+                             dup=False, sir=False, base_hi=wcap // 2)
+        if pm is not None:
+            kw["pmask"] = torch.rand((mm, kk), generator=gen,
+                                     device=dev) < pm
+        kw["swords"] = _rumor_words(gen, dev, mm, w)
+        ring0 = case.pop("mail_ids")
+        words0 = torch.zeros((rlen, w), dtype=torch.int32, device=dev)
+        args = [case[x] for x in ("mail_cnt", "sf", "drop", "svalid",
+                                  "wslot", "off")]
+        out, err, t_k, t_p = check_and_time(
+            f"fused_emit[{label}]", megakernel.emit_plain,
+            megakernel.fused_emit,
+            lambda: [ring0.clone(), words0.clone()],  # noqa: B023
+            lambda fn, st: fn(st[0], *args, mail_words=st[1],  # noqa: B023
+                              **kw)[1:5],  # noqa: B023
+            lambda st: None, reps)
+        kept = int(out[2].sum())
+        nbytes, nops = emit_bytes(mm, kk, kk, False, False)
+        nbytes += mm * w * 4 + mm * kk * w * 4  # the rows' words, stored
+        if pm is not None:
+            nbytes += mm * kk  # one mask byte a lane
+        bnd, by = bound_ms(nbytes, nops)
+        say(f"fused_emit[{label}]: bit-exact (m {mm}, kw {kk}, W {w}, "
+            f"{kept} entries written, blocked {int(out[5])}); kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd:.5f} ms ({by})")
+        cols["fused_emit"].update({
+            f"{label}_max_abs_err": err, f"{label}_ms": t_k,
+            f"{label}_plain_ms": t_p, f"{label}_bound_ms": bnd,
+            f"{label}_bound_by": by})
+        if label in ("w1", "w2"):
+            flat, ivals, *_, wvals = megakernel.emit_layout(
+                *args, swords=kw["swords"], **{
+                    x: kw[x] for x in ("dw", "cap", "b")})
+            unique_case = unique_case or {}
+            unique_case[w] = (ring0, words0, flat, ivals, wvals)
+        del out, case, args, kw, ring0, words0
+        torch.cuda.empty_cache()
+    for w, (ring0, words0, flat, ivals, wvals) in unique_case.items():
+        label = f"w{w}"
+        flat64 = flat.long()
+        out, err, t_k, t_p = check_and_time(
+            f"fused_unique_set[{label}]",
+            lambda rings, f, v: (deliver.unique_set_plain(rings[0], f, v[0]),
+                                 deliver.unique_set_plain(rings[1], f,
+                                                          v[1])),
+            deliver.fused_unique_set,
+            lambda: [ring0.clone(), words0.clone()],  # noqa: B023
+            lambda fn, st: fn((st[0], st[1]), flat,  # noqa: B023
+                              (ivals, wvals)) and None,  # noqa: B023
+            lambda st: None, reps)
+        t_l = time_ms(lambda: (out[0].index_put_((flat64,), ivals),
+                               out[1].index_put_((flat64,), wvals)), reps)
+        lanes = flat.numel()
+        bnd, by = bound_ms(lanes * (12 + 8 * w), lanes * 2 * (1 + w))
+        say(f"fused_unique_set[{label}]: bit-exact over {lanes} lanes and "
+            f"their {w}-word rows; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"two index_put_ {t_l:.4f} ms, bound {bnd:.5f} ms ({by})")
+        cols["fused_unique_set"].update({
+            f"{label}_max_abs_err": err, f"{label}_ms": t_k,
+            f"{label}_plain_ms": t_p, f"{label}_library_ms": t_l,
+            f"{label}_bound_ms": bnd, f"{label}_bound_by": by})
+        del out
+    del unique_case
+    torch.cuda.empty_cache()
+    ri = lambda lo, hi, shape: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+    rcfg = Config(n=RUMOR_N, fanout=6, graph="kout", crashrate=0.0,
+                  rumors=16).validate()
+    rdw, rcap = event.ring_windows(rcfg), event.slot_cap(rcfg)
+    rlen = rdw * rcap + event.ring_tail(rcfg)
+    hk = rcfg.max_degree
+    for label, lanes, w, valid_p in (
+            ("inject_r16", event.injection_lanes(rcfg), 1, 1.0),
+            ("inject_stream", event.injection_lanes(Config(
+                n=RUMOR_N, fanout=6, graph="kout", crashrate=0.0, rumors=64,
+                traffic="stream", stream_rate=100).validate()), 2, 1.0),
+            ("heal_r16", RUMOR_N * hk, 1, 0.05)):
+        rings0 = [ri(0, 2**30, (rlen,)), ri(-2**31, 2**31 - 1, (rlen, w))]
+        cnt0 = ri(0, rcap // 2, (1, rdw))
+        pays = (ri(0, RUMOR_N * 10, (lanes,)),
+                _rumor_words(gen, dev, lanes, w))
+        wslot = ri(0, rdw, (lanes,))
+        valid = torch.rand(lanes, generator=gen, device=dev) < valid_p
+        out, err, t_k, t_p = check_and_time(
+            f"fused_ring_append[{label}]", deliver.ring_append_plain,
+            deliver.fused_ring_append,
+            lambda: [r.clone() for r in rings0] + [  # noqa: B023
+                cnt0.clone(),  # noqa: B023
+                torch.zeros((), dtype=torch.int32, device=dev)],
+            lambda fn, st: fn(st[:2], st[2], st[3], pays,  # noqa: B023
+                              wslot, valid, rdw, rcap) and None,  # noqa: B023
+            lambda st: (st[2].copy_(cnt0), st[3].zero_()),  # noqa: B023
+            reps)
+        landed = int(valid.sum()) - int(out[3])
+        # Lanes read once (payload, words, slot, valid); a landed lane's id
+        # and word row stored in their sectors.
+        bnd, by = bound_ms(lanes * (4 + 4 * w + 4 + 1)
+                           + landed * (32 + max(32, 4 * w)), lanes * 40)
+        say(f"fused_ring_append[{label}]: bit-exact over {lanes} lanes, "
+            f"{landed} landed, W {w}; kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms, bound {bnd:.5f} ms ({by})")
+        cols["fused_ring_append"].update({
+            f"{label}_max_abs_err": err, f"{label}_ms": t_k,
+            f"{label}_plain_ms": t_p, f"{label}_bound_ms": bnd,
+            f"{label}_bound_by": by})
+        del rings0, out, pays, wslot, valid
+        torch.cuda.empty_cache()
+    return cols
+
+
+def _card_side(argv):
+    """One full-size run on the card in a worker process, every launch
+    count set to 0 before it: (transcript, RunResult, launches, wall s,
+    peak bytes allocated)."""
+    from gossip_simulator_tpu_torch.ops import _build
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    out, res, st, wall = run_port(argv, "cuda")
+    return (out, res, dict(_build.LAUNCHES), wall,
+            torch.cuda.max_memory_allocated())
+
+
+def rumor_line(name, n, res, counts, wall, peak, converge=True) -> None:
+    """Print one multi-rumor run's wall, peak memory, rumors done,
+    coverage, counters and report; with `converge`, fail unless it
+    converged."""
+    s = res.stats
+    say(f"rumors {name}: n={n} R={s.rumors} {res.gossip_windows} windows "
+        f"({res.coverage_ms:g} simulated ms), rumors_done {s.rumors_done}, "
+        f"worst-rumor coverage {s.coverage:.6f}, total_received "
+        f"{s.total_received}, converged={res.converged}; wall {wall:.3f} s; "
+        f"total_message {s.total_message} ({s.total_message / wall:.4g} "
+        f"messages/s); mailbox_dropped {s.mailbox_dropped}; scen_crashed "
+        f"{s.scen_crashed}, heal_repaired {s.heal_repaired}, part_dropped "
+        f"{s.part_dropped}; max_memory_allocated {peak} B; launches "
+        f"{counts}; report {json.dumps(res.report)}")
+    if converge and not res.converged:
+        fail(f"rumors {name}: did not converge")
+
+
+def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
+    """The fourteenth slice's path, multi-rumor traffic on the event engine
+    (bench.py's multirumor flags: -graph kout -fanout 6 -crashrate 0
+    -coverage-target 0.95 -seed 0): cuda-vs-cpu twins at twin_n (R = 16,
+    R = 40 under -phase2-kernel xla, a stream, the churn timeline with
+    healing); at n multirumor1m_r16 (R = 16) under the default gates
+    (fused_emit with words, the injection's fused_ring_append),
+    -phase2-kernel xla (fused_unique_set over the word ring) and all-xla
+    (no kernel), stream1m (R = 64 at 100 rumors a second) under the
+    default gates and all-xla, each family with one transcript, Stats and
+    report, stream1m_poisson once (-arrivals poisson), and
+    churn1m_heal_r16 (the JAX package's test_churn_partition_heal_r16 at
+    n: the partition mask and the heal's appends with words) under the
+    default gates and its -phase2-kernel xla -deliver-kernel xla twin --
+    these eight runs side by side in the worker processes (each run's
+    host, its enqueue of small launches, is what bounds it; the walls
+    printed are under that sharing); then multirumor50m_r16 at n_big
+    alone, at the largest slot capacity the JAX package's sizing allows
+    (-event-slot-cap 7 n + 7), which must bring all 16 rumors to the
+    target.  Returns the launches of each full-size run by name."""
+    cases = [
+        ("r16", rumor_argv(twin_n, "-rumors", "16"),
+         ("fused_emit", WORDS, "fused_ring_append")),
+        ("r40_p2_xla", rumor_argv(twin_n, "-rumors", "40",
+                                  "-phase2-kernel", "xla"),
+         ("fused_unique_set", UNIQUE_WORDS, "fused_ring_append")),
+        ("stream", rumor_argv(twin_n, "-rumors", "16", "-traffic",
+                              "stream", "-stream-rate", "100"),
+         ("fused_emit", WORDS, "fused_ring_append")),
+        ("churn_heal_r16", CHURN_R16 + ["-n", str(twin_n)],
+         ("fused_emit", WORDS, PMASK, "fused_ring_append"))]
+
+    def checker(name, kernels):
+        def check(launches, res_g):
+            if any(launches[k] <= 0 for k in kernels):
+                fail(f"twin {name}: a kernel of {kernels} was never "
+                     f"launched ({launches})")
+            if res_g.stats.rumors_done <= 0:
+                fail(f"twin {name}: no rumor reached the target")
+        return check
+
+    run_twins([(f"twin rumors {name}", argv, (), checker(name, kernels))
+               for name, argv, kernels in cases])
+    default = ("fused_emit", WORDS, "fused_ring_append")
+    families = {  # name: (argv, (suffix, flags, kernels) a gate, converge)
+        "stream1m": (rumor_argv(n, *STREAM_FLAGS), (
+            ("", [], default), ("_xla", ALL_XLA, ())), True),
+        "stream1m_poisson": (rumor_argv(n, *STREAM_FLAGS, "-arrivals",
+                                        "poisson"),
+                             (("", [], default),), False),
+        "churn1m_heal_r16": (CHURN_R16 + ["-n", str(n)], (
+            ("", [], default + (PMASK,)),
+            ("_xla", ["-phase2-kernel", "xla", "-deliver-kernel", "xla"],
+             ())), False),
+        "multirumor1m_r16": (rumor_argv(n, "-rumors", "16"), (
+            ("", [], default),
+            ("_p2_xla", ["-phase2-kernel", "xla"],
+             ("fused_unique_set", UNIQUE_WORDS, "fused_ring_append")),
+            ("_xla", ALL_XLA, ())), True)}
+    t0 = time.perf_counter()
+    with worker_pool() as pool:
+        futs = {name + sfx: pool.submit(_card_side, argv + flags)
+                for name, (argv, gates, _) in families.items()
+                for sfx, flags, _ in gates}
+        done = {k: f.result() for k, f in futs.items()}
+    say(f"rumors: the {len(done)} runs at n={n} side by side in "
+        f"{WORKERS} workers took {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for name, (argv, gates, converge) in families.items():
+        seen = set()
+        for sfx, _, kernels in gates:
+            out, res, got, wall, peak = done[name + sfx]
+            rumor_line(name + sfx, n, res, got, wall, peak, converge)
+            runs[name + sfx] = got
+            if any(got[k] <= 0 for k in kernels) or (
+                    not kernels and any(gated(got).values())):
+                fail(f"rumors {name + sfx}: launches {got}, expected "
+                     f"{kernels}")
+            seen.add(json.dumps((strip_notes(out), res.stats.to_dict(),
+                                 res.report), sort_keys=True))
+        if len(seen) != 1:
+            fail(f"rumors {name}: the gate settings' transcripts, Stats or "
+                 "reports differ")
+        if len(gates) > 1:
+            say(f"rumors {name}: "
+                f"{', '.join(s or 'default' for s, _, _ in gates)}: one "
+                "transcript, one Stats, one report")
+    res = done["churn1m_heal_r16"][1].stats
+    if res.heal_repaired <= 0 or res.scen_crashed < 0.2 * n:
+        fail(f"rumors churn1m_heal_r16: heal_repaired {res.heal_repaired}, "
+             f"scen_crashed {res.scen_crashed}")
+    del done, futs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    from gossip_simulator_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    # The largest slot capacity the JAX package's slot_cap allows an SI
+    # ring, n * k + k (7 n + 7): its default (the 3 GB ring budget, 2^28
+    # entries a slot at 5e7) drops so many sends that 5 of the 16 rumors
+    # reach the target (PERF.md section 6).
+    big_cap = ["-event-slot-cap", str(7 * n_big + 7)]
+    _, res, st, wall = run_port(rumor_argv(n_big, "-rumors", "16", *big_cap),
+                                "cuda")
+    runs["multirumor50m_r16"] = dict(_build.LAUNCHES)
+    del st
+    rumor_line("multirumor50m_r16", n_big, res, runs["multirumor50m_r16"],
+               wall, torch.cuda.max_memory_allocated())
+    if res.stats.rumors_done != 16:
+        fail(f"rumors multirumor50m_r16: rumors_done "
+             f"{res.stats.rumors_done}")
     return runs
 
 
@@ -2627,7 +2997,9 @@ def phase_graphs(n_kout: int, n_erdos: int, n_wide: int) -> dict:
 
 SHARDS = 8  # config 5's mesh (BASELINE.json: v5e-8), on one card
 SHARDED_N = 10_000_000  # sharded_10m (bench.py's row at S = 8)
-SHARDED_BIG_N = 100_000_000  # config 5, "100M nodes sharded"
+# Config 5 ("100M nodes sharded") cut to 2e7: the script's time limit
+# (PERF.md section 4 lists the cut).
+SHARDED_BIG_N = 20_000_000
 RECV = "fused_recv_land"
 
 
@@ -2910,8 +3282,8 @@ def fault_parity(dev, gen, reps: int) -> dict:
 
 
 def heal_deposit_parity(dev, gen, reps: int) -> dict:
-    """fused_deposit_add at the ring engine's heal deposit
-    (ring_churn10m_heal: n * k = 6e7 lanes, one slot a healer row of the
+    """fused_deposit_add at the ring engine's heal deposit at n = 1e7
+    (n * k = 6e7 lanes, one slot a healer row of the
     20 x 1e7 ring, a quarter of a percent of the lanes valid, about one
     heal's re-sends): 0.3 lanes a ring cell, so the wrapper takes the
     direct form.  Bit-exact to its plain version, timed beside it, the
@@ -3157,7 +3529,11 @@ def phase_profile(n: int, out_path: str, run: str = "default") -> None:
 
 
 PHASES = ("parity", "twins", "full", "rounds", "ring", "pushsum", "graphs",
-          "sharded", "faults")
+          "sharded", "faults", "rumors_event")
+
+
+# The launch counts of a kernel's forms (ops/_build.py FORMS).
+FORMS = (SPILL, DEPOSIT_DENSE, PMASK, WORDS, UNIQUE_WORDS)
 
 
 def kernel_rows(kernels: dict, runs: dict) -> list:
@@ -3178,10 +3554,12 @@ def kernel_rows(kernels: dict, runs: dict) -> list:
         if "spill_ms" in row:
             out["spill_launches"] = sum(c.get(SPILL, 0)
                                         for c in runs.values())
+        # Each counted form's launches by run (fused_deposit_add's dense
+        # form, fused_emit's mask and words, fused_unique_set's words).
+        for form in (f for f in FORMS if f.split(":")[0] == name):
+            out[form.split(":")[1] + "_launches_by_run"] = {
+                run: c[form] for run, c in runs.items() if c.get(form)}
         if name == DEPOSIT:
-            out["dense_launches_by_run"] = {
-                run: c[DEPOSIT_DENSE] for run, c in runs.items()
-                if c.get(DEPOSIT_DENSE)}
             out["dense_overflow_by_run"] = dict(DEPOSIT_OVERFLOW)
         # Device ms per call of each case of phase 3 (torch.profiler).
         out["device_ms"] = {lbl: round(ms, 5) for lbl, ms in DEVICE.items()
@@ -3263,6 +3641,11 @@ def main() -> int:
         for name, cols in fault_parity(dev, gen, REPS).items():
             if name in kernels:
                 kernels[name].update(cols)
+    if "rumors_event" in phases:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(17)
+        for name, cols in rumor_parity(dev, gen, REPS).items():
+            kernels.setdefault(name, rumor_row(name, cols)).update(cols)
     lap("parity")
 
     # 4. twins
@@ -3282,7 +3665,9 @@ def main() -> int:
             ("sharded", lambda: phase_sharded(SHARDED_N, PUSHSUM_N,
                                               SHARDED_BIG_N)),
             ("faults", lambda: phase_faults(FULL_N, FAULT_PAIR_N,
-                                            TWIN_N))):
+                                            TWIN_N)),
+            ("rumors_event", lambda: phase_rumors_event(
+                RUMOR_N, RUMOR_BIG_N, TWIN_N))):
         if name in phases:
             runs.update(phase())
             lap(name)

@@ -201,7 +201,12 @@ class TorchStepper(Stepper):
         # Push-pull draws fresh peers every round: nothing is ever "in
         # flight", and its wave never dies in the ring.  Healing can revive
         # an empty ring (a pending dead-friend detection re-sends from an
-        # infected healer), so heal-on runs never report exhaustion.
+        # infected healer), so heal-on runs never report exhaustion.  As in
+        # the JAX package's windowed loop (-telemetry off), a stream whose
+        # ring empties between two injections is exhausted here; its
+        # device loop's rule (an empty ring is not exhaustion up to the
+        # last injection's tick) is run_simulation's, in
+        # _telemetry_windows.
         self.exhausted = (not live and self.cfg.protocol != "pushpull"
                           and not self.cfg.overlay_heal_resolved)
         stats.exhausted = self.exhausted

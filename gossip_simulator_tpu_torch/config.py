@@ -10,13 +10,15 @@ on its friends table), static graphs (``-graph kout``, ``erdos`` or
 pushpull``, ``-engine ring -rumors R``), SI or SIR, and PushSum numeric
 gossip (``-model pushsum``) on one device, each under fault scenarios
 and overlay healing (``-scenario``, ``-overlay-heal``,
-``-heal-detect-ms``; ``scenario.py``).  Flag spellings, defaults
+``-heal-detect-ms``; ``scenario.py``), and multi-rumor traffic on the
+event engine (``-rumors R``, ``-traffic stream`` with ``-stream-rate``
+and ``-arrivals``; ``arrivals.py``).  Flag spellings, defaults
 and the reference-format parameter dump are the JAX package's, so a
 run's transcript matches it byte for byte.
 
 Every flag of the JAX package's parser is parsed here, and ``validate``
 rejects a value outside the slices by name with the ROADMAP item that
-ports it, e.g. ``-traffic stream ... is not yet ported (ROADMAP A11)``.
+ports it, e.g. ``-serve ... is not yet ported (ROADMAP A14)``.
 ``-telemetry on`` (the default) reports phase 2 as the JAX package's
 device loop and replay do, ``-telemetry off`` as its windowed loop.
 
@@ -321,6 +323,20 @@ class Config:
         return (self.rumors + 31) // 32 if self.multi_rumor else 1
 
     @property
+    def last_inject_tick(self) -> int:
+        """Tick of the final rumor's injection under stream traffic (rumor
+        r enters at r * 1000 // stream_rate on the fixed schedule; the
+        other arrival processes consult their table); 0 for oneshot."""
+        if self.traffic != "stream":
+            return 0
+        from gossip_simulator_tpu_torch import arrivals as _arrivals
+
+        table = _arrivals.table_or_none(self)
+        if table is not None:
+            return int(table[-1])
+        return (self.rumors - 1) * 1000 // max(self.stream_rate, 1)
+
+    @property
     def deliver_kernel_resolved(self) -> str:
         """"xla" (index_put_) or "pallas" (the fused_unique_set kernel on the
         card, its plain version on the CPU)."""
@@ -485,6 +501,10 @@ class Config:
             raise ValueError(
                 f"traffic must be oneshot|stream, got {self.traffic!r}")
         if self.multi_rumor:
+            if self.backend not in ("jax", "sharded"):
+                raise ValueError(
+                    "-rumors > 1 / -traffic stream require backend=jax or "
+                    "sharded (the discrete-event oracles are single-rumor)")
             if self.protocol != "si":
                 raise ValueError(
                     "-rumors > 1 / -traffic stream support protocol=si only "
@@ -501,15 +521,26 @@ class Config:
                     "-dup-suppress on is unsound with a rumor axis: an "
                     "already-infected destination can still gain new rumor "
                     "bits, so 'guaranteed duplicate' edges carry information")
-            if (self.engine_resolved == "ring"
-                    and self.overlay_heal_resolved):
+            if self.engine_resolved == "ring":
+                if self.backend == "sharded":
+                    raise ValueError(
+                        "-rumors > 1 on the ring engine is single-device "
+                        "only (use -engine event for -backend sharded)")
+                if self.overlay_heal_resolved:
+                    raise ValueError(
+                        "-overlay-heal with -rumors > 1 requires the event "
+                        "engine (ring-engine heal re-sends are single-rumor)")
+        if self.traffic == "stream":
+            if not 1 <= self.stream_rate <= 1_000_000:
+                # The upper bound keeps the injection schedule's clamped
+                # tick * rate product in int32 (event.injection_batch).
                 raise ValueError(
-                    "-overlay-heal with -rumors > 1 requires the event "
-                    "engine (ring-engine heal re-sends are single-rumor)")
-        if self.traffic == "stream" and self.engine_resolved != "event":
-            raise ValueError(
-                "-traffic stream requires the event engine (the jitted "
-                "injection schedule rides the event window step)")
+                    f"stream_rate must be in [1, 1000000], got "
+                    f"{self.stream_rate}")
+            if self.engine_resolved != "event":
+                raise ValueError(
+                    "-traffic stream requires the event engine (the jitted "
+                    "injection schedule rides the event window step)")
 
     def _validate_pushsum(self) -> None:
         """The JAX package's numeric-gossip rules, as written there."""
@@ -627,12 +658,11 @@ class Config:
                                           or self.overlay_heal_resolved):
             raise NotYetPorted(
                 "-backend sharded with -scenario or -overlay-heal", "A13")
+        if self.backend == "sharded" and self.multi_rumor:
+            raise NotYetPorted(
+                "-backend sharded with -rumors or -traffic stream", "A13")
         if self.graph == "overlay":
             self._reject_unported_overlay()
-        if self.traffic != "oneshot" or (
-                self.multi_rumor and self.engine_resolved == "event"):
-            raise NotYetPorted("-rumors on the event engine / -traffic "
-                               "stream", "A11")
         defaults = Config()
         for name, (flag, item) in UNPORTED_FLAGS.items():
             value = getattr(self, name)
@@ -681,8 +711,6 @@ class Config:
 # Fields whose value away from the default is not yet ported: the flag's
 # spelling and the ROADMAP item that ports it.
 UNPORTED_FLAGS = {
-    "stream_rate": ("-stream-rate", "A11"),
-    "arrivals": ("-arrivals", "A11"),
     "telemetry_spatial": ("-telemetry-spatial", "A6"),
     "telemetry_summary": ("-telemetry-summary", "A6"),
     "profile": ("-profile", "A6"),
@@ -743,7 +771,8 @@ def _build_parser() -> argparse.ArgumentParser:
     _flag(p, "crashrate", type=float, default=d.crashrate,
           help="machine crash rate")
     _flag(p, "backend", choices=BACKENDS, default=d.backend,
-          help="jax = the single-device stepper (the only ported backend)")
+          help="jax = the single-device stepper, sharded = S shards laid "
+               "out on one device")
     _flag(p, "protocol", choices=PROTOCOLS, default=d.protocol)
     _flag(p, "graph", choices=GRAPHS, default=d.graph)
     _flag(p, "seed", type=int, default=d.seed)

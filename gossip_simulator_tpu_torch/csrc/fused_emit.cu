@@ -16,6 +16,9 @@
 //                  trigger tb + id*b + off) at slot*cap + start + col when
 //                  it is a kept lane of an okr row, else its value (0 for a
 //                  non-edge) at the unique trash lane dw*cap + i*kw + kk.
+//   rumor words    (swords != null, multi-rumor traffic) every lane also
+//                  writes W words at its cell of the (L, W) word ring: its
+//                  row's swords[i] where it is a kept lane, else 0.
 //
 // Replaces the TPU kernel gossip_simulator_tpu/ops/pallas_megakernel.py
 // fused_emit (_emit_kernel), one serial loop over senders whose per-slot
@@ -54,7 +57,14 @@
 // and the last block to finish writes them out whole and zeroes them.
 // The partition mask (the scenario's send-time partition_blocked, computed
 // by the caller as the JAX package computes it outside its kernel) is one
-// more byte a lane, read only when given.  Past DW_LIMIT (1024) window
+// more byte a lane, read only when given.  The rumor words: a row's kept
+// lanes are contiguous cells, so its words are one run of kept * W ints;
+// the words go after the ids, a thread a (lane, word) pair in the tile's
+// (row, lane, word) order, so a warp's stores fall on a few rows' runs
+// and the tile's trash lanes, and its loads of swords on a few rows.
+// Launches with words or with a mask are compiled with that code; the
+// others do not carry it (it cost the single-rumor launch 8.5 % when the
+// mask's test ran in every launch).  Past DW_LIMIT (1024) window
 // slots the per-slot tables move to global memory (lookback.cuh's global
 // form).
 //
@@ -79,12 +89,26 @@ struct Emit {
   const int32_t* wslot;
   const int32_t* off;
   const uint8_t* flags;
-  const uint8_t* strig;
-  const int32_t* sids;
+  // The rumor words share the SIR trigger lane's fields (multi-rumor
+  // traffic is SI only): the struct keeps the single-rumor form's layout,
+  // whose launches a larger struct slowed by 4 % (PERF.md section 6).
+  union {
+    const uint8_t* strig;
+    const int32_t* sw;  // (m, W) rumor words of the rows (WD)
+  };
+  union {
+    const int32_t* sids;
+    int32_t* wring;  // (L, W) word ring (WD)
+  };
   const uint8_t* pmask;
   long long m;
   long long cap;
-  int rbit, tb, k, kw, dw, b;
+  int rbit;
+  union {
+    int tb;
+    int W;  // words a lane (WD)
+  };
+  int k, kw, dw, b;
 };
 
 // Lane kk of U rows (row i[u], in range in[u], valid v[u]): e[u] whether
@@ -92,8 +116,8 @@ struct Emit {
 // edge the duplicate filter suppressed, f[u] the friend.  Every row's loads
 // are issued before the first is used (the friends, drops and mask, then
 // the flags they name).  PM: the call has a partition mask (a launch
-// without one compiles no mask code).
-template <int U, bool PM>
+// without one compiles no mask code); WD: rumor words (no trigger lane).
+template <int U, bool PM, bool WD>
 __device__ __forceinline__ void kept_lanes(const Emit& a,
                                            const long long (&i)[U],
                                            const bool (&in)[U],
@@ -120,12 +144,12 @@ __device__ __forceinline__ void kept_lanes(const Emit& a,
   for (int u = 0; u < U; ++u) {
     dup[u] = (fl[u] & a.rbit) != 0;
     e[u] = e[u] && !dup[u];
-    if (in[u] && kk == a.k && a.strig != nullptr)  // the SIR trigger lane
+    if (!WD && in[u] && kk == a.k && a.strig != nullptr)  // SIR trigger
       e[u] = a.strig[i[u]] != 0;
   }
 }
 
-template <int G, bool GLB, bool PM>
+template <int G, bool GLB, bool PM, bool WD>
 __global__ void __launch_bounds__(THREADS)
 emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws, int* aux,
      long long nb, unsigned epoch) {
@@ -180,7 +204,7 @@ emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws, int* aux,
       for (int c = 0; c < a.kw; c += G) {
         bool e[U], bl[U], dup[U];
         int f[U];
-        kept_lanes<U, PM>(a, i, in, v, c + sub, e, bl, dup, f);
+        kept_lanes<U, PM, WD>(a, i, in, v, c + sub, e, bl, dup, f);
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const unsigned eb =
@@ -289,6 +313,24 @@ emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws, int* aux,
         a.ring[kept && dst >= 0 ? dst + __popc(km & ((1u << kk) - 1u))
                                 : trash0 + e] = pay;
       }
+      if (WD) {
+        // The words, a thread a (lane, word) pair.
+        const int wl = lanes * a.W;
+        for (int q = t; q < wl; q += THREADS) {
+          const int e = q / a.W;
+          const int j = q - e * a.W;
+          const int rr = e / a.kw;
+          const int kk = e - rr * a.kw;
+          const unsigned km = s_mask[rr];
+          const long long dst = s_dst[rr];
+          const bool kept = ((km >> kk) & 1u) != 0;
+          const long long cell =
+              kept && dst >= 0 ? dst + __popc(km & ((1u << kk) - 1u))
+                               : trash0 + e;
+          a.wring[cell * a.W + j] =
+              kept ? a.sw[(tile0 + rr) * a.W + j] : 0;
+        }
+      }
     } else {
       for (int p0 = 0; p0 < PASSES; p0 += U) {
         long long i[U], dst[U];
@@ -308,7 +350,7 @@ emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws, int* aux,
           const int kk = c + sub;
           bool e[U], bl[U], dup[U];
           int f[U];
-          kept_lanes<U, PM>(a, i, in, v, kk, e, bl, dup, f);
+          kept_lanes<U, PM, WD>(a, i, in, v, kk, e, bl, dup, f);
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             const unsigned eb =
@@ -318,9 +360,19 @@ emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws, int* aux,
               if (e[u])
                 pay = kk < a.k ? f[u] * a.b + o[u]
                                : a.tb + a.sids[i[u]] * a.b + o[u];
-              a.ring[(e[u] && dst[u] >= 0)
-                         ? dst[u] + col[u] + __popc(eb & below)
-                         : (long long)dw * a.cap + i[u] * a.kw + kk] = pay;
+              if (WD) {
+                const long long cell =
+                    (e[u] && dst[u] >= 0)
+                        ? dst[u] + col[u] + __popc(eb & below)
+                        : (long long)dw * a.cap + i[u] * a.kw + kk;
+                a.ring[cell] = pay;
+                for (int j = 0; j < a.W; ++j)
+                  a.wring[cell * a.W + j] = e[u] ? a.sw[i[u] * a.W + j] : 0;
+              } else {
+                a.ring[(e[u] && dst[u] >= 0)
+                           ? dst[u] + col[u] + __popc(eb & below)
+                           : (long long)dw * a.cap + i[u] * a.kw + kk] = pay;
+              }
             }
             col[u] += __popc(eb);
           }
@@ -351,53 +403,60 @@ emit(Emit a, int32_t* __restrict__ out, u64* __restrict__ ws, int* aux,
   lookback::reset_counters(ws);
 }
 
-template <int G, bool GLB, bool PM>
+template <int G, bool GLB, bool PM, bool WD>
 cudaError_t launch(const Emit& a, int32_t* out, u64* ws, int* aux,
                    unsigned epoch, cudaStream_t st) {
   const long long nb = a.m > 0 ? (a.m + EMIT_TILE - 1) / EMIT_TILE : 1;
   const size_t shmem = GLB ? 0 : lookback::slots_bytes(a.dw);
-  cudaError_t e = allow_smem((const void*)emit<G, GLB, PM>, shmem);
+  cudaError_t e = allow_smem((const void*)emit<G, GLB, PM, WD>, shmem);
   if (e != cudaSuccess) return e;
-  emit<G, GLB, PM><<<lookback::grid_of(nb, a.dw), THREADS, shmem, st>>>(
+  emit<G, GLB, PM, WD><<<lookback::grid_of(nb, a.dw), THREADS, shmem, st>>>(
       a, out, ws, aux, nb, epoch);
   return cudaGetLastError();
 }
 
 // The form of a call: G threads a row, the global form past DW_LIMIT
-// slots, the mask code when the call has a mask.
-template <int G>
+// slots, the mask code when the call has a mask, the word stores when it
+// has rumor words.
+template <int G, bool WD>
 cudaError_t pick(const Emit& a, int32_t* out, u64* ws, int* aux,
                  unsigned epoch, cudaStream_t st) {
   const bool pm = a.pmask != nullptr;
   if (a.dw > DW_LIMIT)
-    return pm ? launch<G, true, true>(a, out, ws, aux, epoch, st)
-              : launch<G, true, false>(a, out, ws, aux, epoch, st);
-  return pm ? launch<G, false, true>(a, out, ws, aux, epoch, st)
-            : launch<G, false, false>(a, out, ws, aux, epoch, st);
+    return pm ? launch<G, true, true, WD>(a, out, ws, aux, epoch, st)
+              : launch<G, true, false, WD>(a, out, ws, aux, epoch, st);
+  return pm ? launch<G, false, true, WD>(a, out, ws, aux, epoch, st)
+            : launch<G, false, false, WD>(a, out, ws, aux, epoch, st);
 }
 
 }  // namespace
 
 // out: int32[2 * dw + 2], written whole (adds, sup, lost, blocked).  flags
-// (dup filter), pmask (partition mask, uint8 (m, k)) and strig/sender_ids
-// (SIR trigger lane) may be null; at m = 0 the per-sender inputs may be
-// null.  group: the threads that serve a row (1 or 8; ops/megakernel.py
-// emit_group).  ws is the int64 workspace of at least WS_HEAD + max(1,
-// ceil(m / EMIT_TILE)) * dw words (ops/deliver.py workspace_words), zeroed
-// when it was made; epoch in [1, EPOCH_MAX), new for every call that uses
-// ws.  Past DW_LIMIT slots aux is the workspace's second part,
-// int32[aux_words >= aux_ints(dw, nb)], zeroed when it was made; else it
-// may be null.
+// (dup filter), pmask (partition mask, uint8 (m, k)), strig/sender_ids
+// (SIR trigger lane) and swords/wring (rumor words: int32 (m, width) rows
+// and the (L, width) word ring, not with the trigger lane) may be null; at
+// m = 0 the per-sender inputs may be null.  group: the threads that serve
+// a row (1 or 8; ops/megakernel.py emit_group).  ws is the int64
+// workspace of at least WS_HEAD + max(1, ceil(m / EMIT_TILE)) * dw words
+// (ops/deliver.py workspace_words), zeroed when it was made; epoch in [1,
+// EPOCH_MAX), new for every call that uses ws.  Past DW_LIMIT slots aux is
+// the workspace's second part, int32[aux_words >= aux_ints(dw, nb)],
+// zeroed when it was made; else it may be null.
 extern "C" int gossip_fused_emit(
     void* ring, const void* base, const void* sf, const void* drop,
     const void* svalid, const void* wslot, const void* off,
     const void* flags, int rbit, const void* strig, const void* sender_ids,
-    const void* pmask, int tb, int m, int k, int dw, int cap, int b,
-    int group, void* out, void* ws, long long ws_words, int epoch, void* aux,
-    long long aux_words, void* stream) {
+    const void* pmask, const void* swords, void* wring, int tb, int m, int k,
+    int dw, int cap, int b, int width, int group, void* out, void* ws,
+    long long ws_words, int epoch, void* aux, long long aux_words,
+    void* stream) {
   if (dw < 1 || k < 1 || m < 0 || cap < 0 || out == nullptr)
     return (int)cudaErrorInvalidValue;
   if ((strig == nullptr) != (sender_ids == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool words = wring != nullptr;  // swords may be null at m = 0
+  if ((swords != nullptr && !words)
+      || (words && (width < 1 || strig || (m > 0 && swords == nullptr))))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = lookback::check_ws(m, dw, ws, ws_words, epoch, aux,
                                      aux_words, EMIT_TILE);
@@ -411,13 +470,21 @@ extern "C" int gossip_fused_emit(
   a.wslot = (const int32_t*)wslot;
   a.off = (const int32_t*)off;
   a.flags = (const uint8_t*)flags;
-  a.strig = (const uint8_t*)strig;
-  a.sids = (const int32_t*)sender_ids;
+  if (words) {
+    a.sw = (const int32_t*)swords;
+    a.wring = (int32_t*)wring;
+  } else {
+    a.strig = (const uint8_t*)strig;
+    a.sids = (const int32_t*)sender_ids;
+  }
   a.pmask = (const uint8_t*)pmask;
   a.m = m;
   a.cap = cap;
   a.rbit = rbit;
-  a.tb = tb;
+  if (words)
+    a.W = width;
+  else
+    a.tb = tb;
   a.k = k;
   a.kw = k + (strig != nullptr ? 1 : 0);
   a.dw = dw;
@@ -428,8 +495,12 @@ extern "C" int gossip_fused_emit(
   int* x = (int*)aux;
   const unsigned ep = (unsigned)epoch;
   switch (group) {
-    case 1: return (int)pick<1>(a, o, w, x, ep, st);
-    case 8: return (int)pick<8>(a, o, w, x, ep, st);
+    case 1:
+      return (int)(words ? pick<1, true>(a, o, w, x, ep, st)
+                         : pick<1, false>(a, o, w, x, ep, st));
+    case 8:
+      return (int)(words ? pick<8, true>(a, o, w, x, ep, st)
+                         : pick<8, false>(a, o, w, x, ep, st));
     default: return (int)cudaErrorInvalidValue;
   }
 }

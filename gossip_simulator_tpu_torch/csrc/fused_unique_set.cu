@@ -22,6 +22,14 @@
 // and the kernel ran 5.6 us against the scalar form's 4.5 (NVIDIA H100
 // 80GB HBM3, 700 W; PERF.md).
 //
+// The word ring (multi-rumor traffic): one launch writes the id ring and
+// the (L, W) word ring at the same cells, wring[flat[i] * W + j] =
+// wvals[i * W + j], a thread an id lane and then a thread a (lane, word)
+// pair in (lane, word) order, so a warp's loads of wvals are coalesced
+// and its stores fall on the rows of a few neighbouring lanes (a sender's
+// contiguous cells).  Bound: bytes, 12 + 8 W B a lane (flat read again
+// with each word row).
+//
 // Plain C interface (built with nvcc, loaded with ctypes): returns the
 // cudaError_t of the launch.
 
@@ -80,6 +88,30 @@ unique_set_kernel(int32_t* __restrict__ ring,
   if (tail + gid < m) ring[flat[tail + gid]] = vals[tail + gid];
 }
 
+// Both rings: ring[flat[i]] = vals[i], then the W words of each lane.
+template <bool kOne>
+__global__ void __launch_bounds__(THREADS)
+unique_set_words_kernel(int32_t* __restrict__ ring,
+                        int32_t* __restrict__ wring,
+                        const int32_t* __restrict__ flat,
+                        const int32_t* __restrict__ vals,
+                        const int32_t* __restrict__ wvals, long long m,
+                        int w) {
+  const long long gid = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * THREADS;
+  for (long long i = gid; i < m; i += stride) ring[flat[i]] = vals[i];
+  if (kOne) {
+    for (long long i = gid; i < m; i += stride) wring[flat[i]] = wvals[i];
+    return;
+  }
+  const long long mw = m * w;
+  for (long long q = gid; q < mw; q += stride) {
+    const long long i = q / w;
+    const int j = (int)(q - i * w);
+    wring[(long long)flat[i] * w + j] = wvals[q];
+  }
+}
+
 int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -114,5 +146,29 @@ extern "C" int gossip_fused_unique_set(void* ring, const void* flat,
   else
     unique_set_kernel<false><<<(unsigned)blocks, THREADS, 0, st>>>(
         (int32_t*)ring, (const int32_t*)flat, (const int32_t*)vals, m, 0);
+  return (int)cudaGetLastError();
+}
+
+// The id ring and the (L, width) word ring in one launch (wvals: (m,
+// width) rows, width >= 1).
+extern "C" int gossip_fused_unique_set_words(void* ring, void* wring,
+                                             const void* flat,
+                                             const void* vals,
+                                             const void* wvals, long long m,
+                                             int width, void* stream) {
+  if (width < 1) return (int)cudaErrorInvalidValue;
+  if (m <= 0) return (int)cudaGetLastError();
+  long long blocks = (m * width + THREADS - 1) / THREADS;
+  const long long most = 8LL * sm_count();
+  if (blocks > most) blocks = most;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (width == 1)
+    unique_set_words_kernel<true><<<(unsigned)blocks, THREADS, 0, st>>>(
+        (int32_t*)ring, (int32_t*)wring, (const int32_t*)flat,
+        (const int32_t*)vals, (const int32_t*)wvals, m, 1);
+  else
+    unique_set_words_kernel<false><<<(unsigned)blocks, THREADS, 0, st>>>(
+        (int32_t*)ring, (int32_t*)wring, (const int32_t*)flat,
+        (const int32_t*)vals, (const int32_t*)wvals, m, width);
   return (int)cudaGetLastError();
 }

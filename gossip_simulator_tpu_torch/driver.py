@@ -10,8 +10,9 @@ windowed loop under ``-telemetry off``, each with its max-rounds bound),
 and the final totals, on one device (``TorchStepper``) or on S shards of it
 (``ShardedStepper``, ``-backend sharded``).  JSONL, traces, checkpoints,
 serving and supervision are not yet ported; a PushSum run's result
-payload (the JAX package's JSONL-only ``pushsum.report``) comes back in
-``RunResult.report``.
+payload (the JAX package's JSONL-only ``pushsum.report``) and a
+multi-rumor run's serving report (its ``_multi_rumor_report``) come back
+in ``RunResult.report``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
+
+from gossip_simulator_tpu_torch import arrivals as _arrivals
 from gossip_simulator_tpu_torch.backends import (ShardedStepper, Stepper,
                                                  TorchStepper, WINDOW_MS)
 from gossip_simulator_tpu_torch.config import Config
@@ -35,7 +39,8 @@ class RunResult:
     overlay_windows: int
     gossip_windows: int
     # -model pushsum: models.pushsum.report's dict (converged_eps,
-    # eps_ticks, relerr_ppb); None for the SI family.
+    # eps_ticks, relerr_ppb); -rumors R / -traffic stream: the serving
+    # report (multi_rumor_report); None otherwise.
     report: Optional[dict] = None
 
 
@@ -119,6 +124,8 @@ def run_simulation(cfg: Config, printer: Optional[ProgressPrinter] = None,
     printer.done(coverage_ms, stats, target_pct=target * 100.0,
                  converged=converged, reason=reason)
     report = None
+    if cfg.multi_rumor:
+        report = multi_rumor_report(cfg, stepper, stats, coverage_ms)
     if cfg.model == "pushsum":
         from gossip_simulator_tpu_torch.models import pushsum
 
@@ -127,6 +134,48 @@ def run_simulation(cfg: Config, printer: Optional[ProgressPrinter] = None,
                      coverage_ms=coverage_ms, converged=converged,
                      overlay_windows=overlay_windows,
                      gossip_windows=gossip_windows, report=report)
+
+
+def latency_summary(lat) -> dict:
+    """Interpolated per-rumor latency summary: np.percentile's linear
+    interpolation between order statistics, with the exact min, max and
+    mean."""
+    a = np.asarray(lat, np.int64)
+    p50, p90, p99 = np.percentile(a, [50, 90, 99])
+    return {
+        "min": int(a.min()), "max": int(a.max()),
+        "p50": round(float(p50), 2),
+        "p90": round(float(p90), 2),
+        "p99": round(float(p99), 2),
+        "mean": round(float(a.mean()), 2),
+    }
+
+
+def multi_rumor_report(cfg: Config, stepper: Stepper, stats: Stats,
+                       coverage_ms: float) -> dict:
+    """The serving report of a multi-rumor run (the JAX package's
+    result-record fields, simulated time): traffic, rumors and deliveries
+    a simulated second, and each done rumor's latency (its rumor_done
+    stamp minus its scheduled inject tick: arrivals.arrival_ticks under
+    stream traffic, 0 under oneshot) as a summary and a histogram."""
+    r = cfg.rumors
+    done = stepper.state.rumor_done[:r].cpu().numpy()
+    inject = (np.asarray(_arrivals.arrival_ticks(cfg), np.int64)
+              if cfg.traffic == "stream" else np.zeros(r, np.int64))
+    out: dict = {"traffic": cfg.traffic}
+    secs = coverage_ms / 1000.0
+    if secs > 0:
+        out["rumors_per_sec"] = round(stats.rumors_done / secs, 4)
+        out["deliveries_per_sec"] = round(stats.total_message / secs, 1)
+    lat = (done.astype(np.int64) - inject)[done >= 0]
+    if lat.size:
+        out["rumor_latency_ms"] = latency_summary(lat)
+        counts, edges = np.histogram(lat, bins=min(10, max(1, lat.size)))
+        out["rumor_latency_hist"] = {
+            "edges_ms": [round(float(e), 1) for e in edges],
+            "counts": [int(c) for c in counts],
+        }
+    return out
 
 
 def _windowed(cfg: Config, stepper: Stepper,
@@ -159,24 +208,31 @@ def _telemetry_windows(cfg: Config, stepper: Stepper,
     the target count ``ceil(coverage_target * n)`` is unmet (the worst
     rumor's count under ``-rumors``), the tick below ``-max-rounds`` and a
     message in flight (PushSum: or the first batch not yet sent; not under
-    ``-overlay-heal on``, where healing can revive an empty ring), and its
-    replay (``telemetry.replay_gossip``) prints each window's coverage as
+    ``-overlay-heal on``, where healing can revive an empty ring; on the
+    event engine under ``-rumors`` or ``-traffic stream``, or while the
+    tick is at most the last injection's), and its replay
+    (``telemetry.replay_gossip``) prints each window's coverage as
     ``total_received / n``.  So a broadcast that dies at once prints no
     window line.  Exhaustion is the final state's empty ring (under
-    ``-rumors``, past tick 0; never under healing).  Returns the windows
-    run."""
+    ``-rumors``, past the last injection's tick; never under healing).
+    Returns the windows run."""
     from gossip_simulator_tpu_torch.models import event
 
     target = math.ceil(cfg.coverage_target * cfg.n)
     first_batch = event.batch_ticks(cfg) if cfg.model == "pushsum" else 0
     pushpull = cfg.protocol == "pushpull"
     heal = cfg.overlay_heal_resolved
+    # The event engine injects its rumors inside the window step.
+    last_inj = (cfg.last_inject_tick
+                if cfg.multi_rumor and cfg.engine_resolved == "event"
+                else -1)
     stats, live = stepper.stats_and_inflight()
     windows = 0
     while True:
         recv = (stats.rumor_min_recv if cfg.multi_rumor
                 else stats.total_received)
-        alive = live or pushpull or heal or stats.round < first_batch
+        alive = (live or pushpull or heal or stats.round < first_batch
+                 or stats.round <= last_inj)
         if recv >= target or stats.round >= cfg.max_rounds or not alive:
             break
         stats = stepper.gossip_window()
@@ -185,5 +241,6 @@ def _telemetry_windows(cfg: Config, stepper: Stepper,
         pct = (stats.total_received / cfg.n if cfg.n else 0.0) * 100.0
         printer.coverage_window(round(pct, 4), float(stats.round))
     stepper.exhausted = (not live and not pushpull and not heal
-                         and (not cfg.multi_rumor or stats.round > 0))
+                         and (not cfg.multi_rumor
+                              or stats.round > cfg.last_inject_tick))
     return windows

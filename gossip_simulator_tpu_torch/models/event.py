@@ -1,7 +1,8 @@
 """Event-list epidemic engine: cost O(arrivals), not O(n x ticks).
 
-The port of the JAX package's ``models/event.py``, SI and SIR with one
-rumor.  Messages themselves are stored, batched by delivery time:
+The port of the JAX package's ``models/event.py``, SI and SIR, and SI
+with a rumor axis (``-rumors R``, ``-traffic stream``).  Messages
+themselves are stored, batched by delivery time:
 
 * A WINDOW is B = min(10, delaylow) ticks.  Every network delay is
   >= delaylow >= B, so a message delivered inside a window cannot cause
@@ -23,6 +24,18 @@ rumor.  Messages themselves are stored, batched by delivery time:
 
 Random draws reproduce the JAX package's streams bit for bit
 (``utils/rng.py``), so a run here gives the JAX package's trajectory.
+
+Multi-rumor traffic (``Config.multi_rumor``): every ring entry carries
+W = ceil(R/32) words of rumor bits in ``mail_words``, a ring of the id
+ring's length, at the same flat position; ``rumor_words`` holds each
+node's bits.  Words are carried as the int32 view of the JAX package's
+uint32 bit patterns (AND, OR and NOT commute with the view; no word is
+shifted, compared or sorted).  The window step injects each rumor due in
+its window as a self-addressed entry (``injection_batch``) before it
+reads the slot count, so a source counts as infected when its entry
+drains; the drain folds each node-run's words with a segmented OR
+(``segmented_or``, by bit lanes), and the node's NEW bits update
+``rumor_words``, the per-rumor counts and the payload it forwards.
 
 Fault scenarios (``scenario.py``): crash, churn and recovery apply at
 each window step's start on the flags' crashed bit
@@ -46,8 +59,10 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
+from gossip_simulator_tpu_torch import arrivals as _arrivals
 from gossip_simulator_tpu_torch import config as _config
 from gossip_simulator_tpu_torch import scenario as _scen
 from gossip_simulator_tpu_torch.config import Config
@@ -91,12 +106,14 @@ class EventState:
     scen_recovered: torch.Tensor  # int64[]
     part_dropped: torch.Tensor  # int64[]
     heal_repaired: torch.Tensor  # int64[]
-    # Multi-rumor leaves: the JAX package's 1-element placeholders (not
-    # yet ported on this engine, ROADMAP A11).
-    mail_words: torch.Tensor  # uint32[1, 1]
-    rumor_words: torch.Tensor  # uint32[1, 1]
-    rumor_recv: torch.Tensor  # int32[1]
-    rumor_done: torch.Tensor  # int32[1]
+    # Multi-rumor leaves (init_rumor_leaves): full size under
+    # Config.multi_rumor, the JAX package's 1-element placeholders
+    # otherwise.  Words are the int32 view of its uint32 bits; rumor_words
+    # has one trash row at n, like flags.
+    mail_words: torch.Tensor  # int32[dw * cap + ring_tail, W | 1x1]
+    rumor_words: torch.Tensor  # int32[n + 1, W | 1x1]
+    rumor_recv: torch.Tensor  # int32[W * 32 | 1]  infected count a rumor
+    rumor_done: torch.Tensor  # int32[W * 32 | 1]  tick the target was hit
     exch_counts: torch.Tensor  # int32[1, 1]
     # (slot_cap, drain_chunk) the ring was sized with.
     geom: tuple = (0, 0)
@@ -239,11 +256,104 @@ def batch_schedule(count: int, scap: int) -> list[tuple[int, int]]:
 # --- state -----------------------------------------------------------------
 
 
+def init_rumor_leaves(cfg: Config, n: int, device,
+                      ring_len: int | None = None):
+    """(mail_words, rumor_words, rumor_recv, rumor_done): full size under
+    Config.multi_rumor (words int32, rumor_words with its trash row),
+    1-element placeholders otherwise."""
+    if not cfg.multi_rumor:
+        return (torch.zeros((1, 1), dtype=I32, device=device),
+                torch.zeros((1, 1), dtype=I32, device=device),
+                torch.zeros((1,), dtype=I32, device=device),
+                torch.full((1,), -1, dtype=I32, device=device))
+    w = cfg.rumor_word_count
+    if ring_len is None:
+        ring_len = ring_windows(cfg) * slot_cap(cfg, n) + ring_tail(cfg, n)
+    return (torch.zeros((ring_len, w), dtype=I32, device=device),
+            torch.zeros((n + 1, w), dtype=I32, device=device),
+            torch.zeros((w * 32,), dtype=I32, device=device),
+            torch.full((w * 32,), -1, dtype=I32, device=device))
+
+
+def injection_lanes(cfg: Config) -> int:
+    """Injection lanes a B-tick window: all R for oneshot (only window 0's
+    lanes are valid), else the most rumors whose schedule tick can land in
+    one window (with an arrival table, the largest count of rumors in one
+    b-aligned bucket)."""
+    if not cfg.multi_rumor:
+        return 0
+    if cfg.traffic != "stream":
+        return cfg.rumors
+    b = batch_ticks(cfg)
+    table = _arrivals.table_or_none(cfg)
+    if table is not None:
+        counts = np.unique(np.asarray(table, np.int64) // b,
+                           return_counts=True)[1]
+        return int(counts.max()) if len(counts) else 1
+    return min(cfg.rumors, (b * cfg.stream_rate + 999) // 1000 + 1)
+
+
+def injection_batch(cfg: Config, tick: int, base_key, b: int, dw: int):
+    """The rumors whose schedule tick lands in the window [tick, tick + b)
+    as self-addressed entries (dst = the source row, delivered at the
+    rumor's tick), so they enter through the ring and the drain like every
+    relayed message.  Rumor r's tick is 0 (oneshot), r * 1000 //
+    stream_rate (stream, fixed), or its arrival table's.  Source draws are
+    keyed by the rumor index alone (OP_INJECT).  The schedule is host
+    arithmetic (the window's tick is a host int).  Returns (payload,
+    words, wslot, valid) of injection_lanes(cfg) lanes on the key's
+    device; words int32[lanes, W] with the lane's rumor bit."""
+    m = injection_lanes(cfg)
+    r_total = cfg.rumors
+    w = cfg.rumor_word_count
+    stream = cfg.traffic == "stream"
+    table = _arrivals.table_or_none(cfg) if stream else None
+    lanes = np.arange(m, dtype=np.int64)
+    if table is not None:
+        tab = np.asarray(table, np.int64)
+        rr = int(np.searchsorted(tab, tick, side="left")) + lanes
+        t_r = tab[np.minimum(rr, r_total - 1)]
+    elif stream:
+        rate = cfg.stream_rate
+        # The clamp keeps tick * rate in int32 in the JAX package; past
+        # last_inject_tick every lane is invalid anyway.
+        tickc = min(tick, cfg.last_inject_tick + 1)
+        rr = (tickc * rate + 999) // 1000 + lanes
+        t_r = rr * 1000 // rate
+    else:
+        rr = lanes
+        t_r = np.zeros(m, np.int64)
+    valid = (rr < r_total) & (t_r >= tick) & (t_r < tick + b)
+    dev = base_key.device
+    rr_t = torch.from_numpy(rr).to(dev)
+    ik = _rng.fold_in(base_key, _rng.OP_INJECT)
+    src = _rng.randint(_rng.fold_in(ik, rr_t), (), 0, cfg.n)
+    t_t = torch.from_numpy(t_r).to(device=dev, dtype=I32)
+    payload = src * b + t_t % b
+    wslot = (t_t // b) % dw
+    bit = np.where(rr % 32 == 31, -2**31, 1 << (rr % 32))  # int32 view
+    words = np.where((rr[:, None] // 32) == np.arange(w)[None, :],
+                     bit[:, None], 0).astype(np.int32)
+    return (payload, torch.from_numpy(words).to(dev), wslot,
+            torch.from_numpy(valid).to(dev))
+
+
+def stamp_rumor_done(cfg: Config, rumor_recv, rumor_done, tick: int):
+    """Rumor r is done at the first window-end tick where its infected
+    count reaches ceil(coverage_target * n); in place."""
+    target = int(math.ceil(cfg.coverage_target * cfg.n))
+    hit = (rumor_recv >= target) & (rumor_done < 0)
+    rumor_done.masked_fill_(hit, tick)
+    return rumor_done
+
+
 def init_state(cfg: Config, friends: torch.Tensor,
                friend_cnt: torch.Tensor) -> EventState:
     n = friends.shape[0]
     dev = friends.device
     dw = ring_windows(cfg)
+    mail_words, rumor_words, rumor_recv, rumor_done = init_rumor_leaves(
+        cfg, n, dev)
 
     def z():
         return torch.zeros((), dtype=I64, device=dev)
@@ -260,10 +370,8 @@ def init_state(cfg: Config, friends: torch.Tensor,
         down_since=_scen.init_down_since(cfg.faults_enabled, n, dev),
         scen_crashed=z(), scen_recovered=z(), part_dropped=z(),
         heal_repaired=z(),
-        mail_words=torch.zeros((1, 1), dtype=torch.uint32, device=dev),
-        rumor_words=torch.zeros((1, 1), dtype=torch.uint32, device=dev),
-        rumor_recv=torch.zeros((1,), dtype=I32, device=dev),
-        rumor_done=torch.full((1,), -1, dtype=I32, device=dev),
+        mail_words=mail_words, rumor_words=rumor_words,
+        rumor_recv=rumor_recv, rumor_done=rumor_done,
         exch_counts=torch.zeros((1, 1), dtype=I32, device=dev),
         geom=(slot_cap(cfg, n), drain_chunk(cfg, n)),
     )
@@ -280,7 +388,8 @@ def _sender_keys(base_key, op: int, ticks, rows):
 
 def append_messages(cfg: Config, mail_ids, mail_cnt, dropped, sender_ids,
                     svalid, sticks, friends, base_key, strig=None,
-                    flags=None, kernel: str = "xla", phase2: str = "xla"):
+                    flags=None, kernel: str = "xla", phase2: str = "xla",
+                    swords=None, mail_words=None):
     """Emit each sender's broadcast (k sends, ONE shared delay drawn at its
     delivery tick -- simulator.go:141-142) into the packed mail ring, in
     place.  Returns (mail_ids, mail_cnt, dropped, sup_adds[dw], blocked):
@@ -291,6 +400,11 @@ def append_messages(cfg: Config, mail_ids, mail_cnt, dropped, sender_ids,
     an edge whose destination already has the received bit never enters
     the ring; its count is returned per arrival window for the caller to
     bank in sup_cnt.  `strig` (SIR) adds the re-broadcast trigger lane.
+
+    Multi-rumor (`swords` int32 (m, W), the senders' new bits, and
+    `mail_words` (L, W)): every lane writes its sender's words at the same
+    flat cell as its id (0 where the id is 0), and the return gains
+    mail_words.
 
     `phase2` "pallas" emits through ``megakernel.fused_emit``; "xla" runs
     the unfused chain and writes through ``deliver.fused_unique_set``
@@ -323,19 +437,30 @@ def append_messages(cfg: Config, mail_ids, mail_cnt, dropped, sender_ids,
                 sender_ids=sender_ids if strig is not None else None,
                 pmask=pmask, flags=flags, received_bit=RECEIVED)
     if phase2 == "pallas":
-        mail_ids, adds, sup_adds, lost, blocked = megakernel.fused_emit(
-            mail_ids, mail_cnt, sf, drop, svalid, wslot, off, **emit)
+        out = megakernel.fused_emit(
+            mail_ids, mail_cnt, sf, drop, svalid, wslot, off, swords=swords,
+            mail_words=mail_words, **emit)
+        mail_ids, adds, sup_adds, lost, blocked = out[:5]
     else:
-        flat, ivals, adds, sup_adds, lost, blocked = megakernel.emit_layout(
-            mail_cnt, sf, drop, svalid, wslot, off, **emit)
-        if kernel == "pallas":
+        flat, ivals, adds, sup_adds, lost, blocked, wvals = \
+            megakernel.emit_layout(mail_cnt, sf, drop, svalid, wslot, off,
+                                   swords=swords, **emit)
+        if kernel == "pallas" and swords is not None:
+            deliver.fused_unique_set((mail_ids, mail_words), flat,
+                                     (ivals, wvals))
+        elif kernel == "pallas":
             deliver.fused_unique_set(mail_ids, flat, ivals)
         else:
             mail_ids.index_put_((flat.long(),), ivals)
+            if swords is not None:
+                mail_words.index_put_((flat.long(),), wvals)
     mail_cnt += adds[None, :]
     # CAVEAT (SIR): an overflowed reservation loses the sender's
     # re-broadcast trigger with its data messages; slot_cap budgets
     # mean_degree+1 per sender so this stays at zero.
+    if swords is not None:
+        return (mail_ids, mail_cnt, dropped + lost, sup_adds, blocked,
+                mail_words)
     return mail_ids, mail_cnt, dropped + lost, sup_adds, blocked
 
 
@@ -375,10 +500,45 @@ def predrain_compact(b: int, n_rows: int, dw: int, cap: int, ccap: int,
     return mail_ids, kept, fdat
 
 
+def segmented_or(key_s, words_s):
+    """Each run's OR of `words_s` (int32 (L, W)) over the runs of equal
+    `key_s` (sorted, so a run is contiguous), at every lane of the run:
+    the words unpacked to W * 32 bit lanes (uint8, a byte of a word at a
+    time), each run's ``scatter_reduce`` amax, packed back to int32.  Exact
+    and order-free (a max of 0s and 1s), so the first lanes hold the JAX
+    package's reversed associative scan's values bit for bit; no host
+    read.  Faster on the card than a doubling scan over the run
+    (``tests/torch_segor_times.py``, ``PERF.md``)."""
+    m, w = words_s.shape
+    dev = key_s.device
+    newrun = torch.ones(m, dtype=torch.bool, device=dev)
+    newrun[1:] = key_s[1:] != key_s[:-1]
+    seg = torch.cumsum(newrun, dim=0) - 1
+    sh = torch.arange(8, dtype=torch.uint8, device=dev)
+    by = words_s.contiguous().view(torch.uint8).reshape(m, 4 * w, 1)
+    bits = ((by >> sh) & 1).reshape(m, 32 * w)
+    acc = torch.zeros_like(bits).scatter_reduce_(
+        0, seg[:, None].expand(m, 32 * w), bits, "amax")
+    runs = (acc.reshape(m, 4 * w, 8) << sh).sum(dim=2, dtype=torch.uint8)
+    return runs.view(torch.int32)[seg]
+
+
+def bit_counts(words) -> torch.Tensor:
+    """int32[W * 32]: for each bit r (word r // 32, bit r % 32) of the
+    int32 (L, W) `words`, the lanes that have it set.  Counted a byte at a
+    time (the little-endian bytes of each word), a quarter of the memory
+    of 32 int32 lanes a word."""
+    lanes, w = words.shape
+    by = words.contiguous().view(torch.uint8).reshape(lanes, w * 4, 1)
+    sh = torch.arange(8, dtype=torch.uint8, device=words.device)
+    bits = (by >> sh) & 1
+    return bits.sum(dim=0, dtype=I32).reshape(w * 32)
+
+
 def drain_chunk_core(crash_p: float, b: int, n_rows: int, flags, packed,
                      evalid, entry_pos, ckey, sir: bool = False,
                      track_crashed: bool = False, down_since=None,
-                     win_tick: int = 0):
+                     win_tick: int = 0, words=None, rumor_words=None):
     """Crash/infect/dedupe one drained chunk of packed entries; updates
     `flags` (and `down_since`) in place.
 
@@ -395,6 +555,16 @@ def drain_chunk_core(crash_p: float, b: int, n_rows: int, flags, packed,
     nodes a reception crash fells (the crash clock of the reboot and
     detection timeline).
 
+    Multi-rumor (`words` int32 (ccap, W), the entries' payload words, and
+    `rumor_words` (n_rows + 1, W), SI only): the words ride the sort; each
+    node-run's OR (``segmented_or``) lands on its first lane; a winner is a
+    run's first lane that is counted and not crash-fired (received or
+    not: first touch wins per rumor), and its NEW bits (run OR minus the
+    node's words) update `rumor_words` in place, add to the per-rumor
+    counts and become its forwarded payload.  Returns two more values,
+    (delta_w int32 (ccap, W), drecv int32[W * 32]), and `senders` becomes
+    the winners with new bits.
+
     Returns (flags, dm, dr, dc, ids_s, toff_s, senders); senders is
     newly-infected for SI, newly | firing for SIR."""
     ccap = packed.shape[0]
@@ -402,6 +572,9 @@ def drain_chunk_core(crash_p: float, b: int, n_rows: int, flags, packed,
     tb = trigger_base(n_rows, b)
     sentinel = tb + n_rows * b if sir else n_rows * b
     packed = torch.where(evalid, packed, sentinel)  # sentinel sorts last
+    if words is not None:
+        # Stale ring lanes past the count carry old words: zero them.
+        words = torch.where(evalid[:, None], words, 0)
     if crash_p > 0.0:
         draw = _rng.bernoulli(_rng.row_keys(ckey, entry_pos), crash_p)
         crash_e = draw & evalid
@@ -411,13 +584,13 @@ def drain_chunk_core(crash_p: float, b: int, n_rows: int, flags, packed,
         # One int64 key id*2b + sub (sub < 2b): the JAX package sorts the
         # same key as uint32; both orders agree on these nonnegative keys.
         comb = (packed.to(I64) // b) * (2 * b) + sub
-        comb_s = torch.sort(comb, stable=True).values
+        comb_s, order = torch.sort(comb, stable=True)
         key1_s = (comb_s // (2 * b) * b).to(I32)
         sub_s = (comb_s % (2 * b)).to(I32)
         toff_s = sub_s % b
         crash_s = sub_s < b
     else:
-        packed_s = torch.sort(packed, stable=True).values
+        packed_s, order = torch.sort(packed, stable=True)
         key1_s = packed_s // b * b
         toff_s = packed_s % b
         crash_s = torch.zeros(ccap, dtype=torch.bool, device=dev)
@@ -462,14 +635,28 @@ def drain_chunk_core(crash_p: float, b: int, n_rows: int, flags, packed,
     if sir:
         fire = is_trig & pre_recv & ~pre_crash & ~((pre & REMOVED) > 0)
         senders = newly | fire
-    return flags, dm, dr, dc, ids_s, toff_s, senders
+    if words is None:
+        return flags, dm, dr, dc, ids_s, toff_s, senders
+    run_or = segmented_or(key1_s, words[order])
+    win = first & counted & ~crash_s  # newly without the ~pre_recv gate
+    idxw = torch.where(win, ids_s, n_rows).long()
+    old = rumor_words[idxw]
+    delta_w = torch.where(win[:, None], run_or & ~old, 0)
+    # Winners are unique node ids; the others write 0 to the trash row.
+    rumor_words.index_put_((idxw,), torch.where(win[:, None], old | delta_w,
+                                                0))
+    senders = win & (delta_w != 0).any(dim=1)
+    return (flags, dm, dr, dc, ids_s, toff_s, senders, delta_w,
+            bit_counts(delta_w))
 
 
 def sender_batch(senders, srank, scnt: int, spacked, b: int, scap: int,
-                 jb: int, lo: int | None = None):
+                 jb: int, lo: int | None = None, sdelta=None):
     """Compacted sender batch `jb`: rows with rank in [lo, lo+scap) land at
     rank-relative positions via one scatter (trash cell at scap, sliced
-    off).  Returns (sids, stoff, svalid) of width scap."""
+    off).  Returns (sids, stoff, svalid) of width scap; with `sdelta`
+    (int32 (ccap, W), the lanes' new rumor words) a fourth value, each
+    compacted sender's word row."""
     if lo is None:
         lo = jb * scap
     dev = senders.device
@@ -483,7 +670,11 @@ def sender_batch(senders, srank, scnt: int, spacked, b: int, scap: int,
     sids = buf // b
     stoff = buf - sids * b
     svalid = torch.arange(scap, dtype=I32, device=dev) < (scnt - lo)
-    return sids, stoff, svalid
+    if sdelta is None:
+        return sids, stoff, svalid
+    bufw = torch.zeros((scap + 1, sdelta.shape[1]), dtype=I32, device=dev)
+    bufw.index_put_((idx.long(),), torch.where(sel[:, None], sdelta, 0))
+    return sids, stoff, svalid, bufw[:scap]
 
 
 def _remove_draw(flags, base_key, removal_p, sticks, ids, live, n):
@@ -547,15 +738,32 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
     # reception crashes stamp the crash clock when it is carried.
     track_crashed = cfg.faults_enabled
     track_down = cfg.faults_enabled and crash_p > 0.0
+    # Multi-rumor: the payload words ride beside every entry, and the step
+    # injects the window's rumors (the seed is an identity).
+    multi = cfg.multi_rumor
 
-    def append(st, base_key, sids, svalid, sticks, strig):
-        _, _, st.mail_dropped, sa, blk = append_messages(
+    def append(st, base_key, sids, svalid, sticks, strig, sw=None):
+        out = append_messages(
             cfg, st.mail_ids, st.mail_cnt, st.mail_dropped, sids, svalid,
             sticks, st.friends, base_key, strig=strig,
-            flags=st.flags if suppress else None, kernel=dkern, phase2=p2)
+            flags=st.flags if suppress else None, kernel=dkern, phase2=p2,
+            swords=sw, mail_words=st.mail_words if multi else None)
+        st.mail_dropped, sa, blk = out[2:5]
         st.sup_cnt += sa[None, :]
         if scen.has_partitions:
             st.part_dropped += blk
+
+    def inject(st, base_key, cap: int) -> None:
+        """The window's injections, appended before the slot count is
+        read, so a rumor due this window drains (and its source starts
+        forwarding) this window."""
+        pay, words, wslot, valid = injection_batch(cfg, st.tick, base_key,
+                                                   b, dw)
+        dropped = torch.zeros((), dtype=I32, device=st.mail_ids.device)
+        mailbox.ring_append((st.mail_ids, st.mail_words), st.mail_cnt,
+                            dropped, (pay, words), wslot, valid, dw, cap,
+                            kernel=dkern)
+        st.mail_dropped += dropped
 
     def step_fn(st: EventState, base_key: torch.Tensor) -> EventState:
         n = st.friends.shape[0]
@@ -563,6 +771,8 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
         w = st.tick // b
         slot = w % dw
         cap = (st.mail_ids.shape[0] - tail) // dw
+        if multi:
+            inject(st, base_key, cap)
         # One host read per window step: the slot's entry count (and,
         # under suppression, the received count that gates pre-drain).
         m, recv = (int(x) for x in torch.stack(
@@ -578,6 +788,7 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
         ckey = _rng.tick_key(base_key, w, _rng.OP_CRASH)
         dr = torch.zeros((), dtype=I64, device=dev)
         dc = torch.zeros((), dtype=I64, device=dev)
+        rrecv = torch.zeros_like(st.rumor_recv) if multi else None
         lane = torch.arange(ccap, dtype=I32, device=dev)
         for j in range((m + ccap - 1) // ccap):
             off0 = j * ccap
@@ -585,11 +796,20 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
             evalid = entry_pos < m
             start = slot * cap + off0
             packed = st.mail_ids[start:start + ccap]
-            _, cdm, cdr, cdc, ids_s, toff_s, senders = drain_chunk_core(
+            rw = {}
+            if multi:
+                rw = dict(words=st.mail_words[start:start + ccap],
+                          rumor_words=st.rumor_words)
+            out = drain_chunk_core(
                 crash_p, b, n, st.flags, packed, evalid, entry_pos, ckey,
                 sir=sir, track_crashed=track_crashed,
                 down_since=st.down_since if track_down else None,
-                win_tick=st.tick)
+                win_tick=st.tick, **rw)
+            _, cdm, cdr, cdc, ids_s, toff_s, senders = out[:7]
+            delta_w = None
+            if multi:
+                delta_w = out[7]
+                rrecv += out[8]
             dm, dr, dc = dm + cdm, dr + cdr, dc + cdc
             if scap:
                 # Compact senders to <= scap-row batches, then append at
@@ -599,14 +819,16 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
                 scnt = int(senders.sum())  # host read: batch schedule
                 spacked = ids_s * b + toff_s
                 for width, lo in batch_schedule(scnt, scap):
-                    sids, stoff, svalid = sender_batch(
-                        senders, srank, scnt, spacked, b, width, 0, lo=lo)
+                    sids, stoff, svalid, *sw = sender_batch(
+                        senders, srank, scnt, spacked, b, width, 0, lo=lo,
+                        sdelta=delta_w)
                     sticks = w * b + stoff
                     strig = None
                     if sir:
                         strig = _remove_draw(st.flags, base_key, removal_p,
                                              sticks, sids, svalid, n)
-                    append(st, base_key, sids, svalid, sticks, strig)
+                    append(st, base_key, sids, svalid, sticks, strig,
+                           sw[0] if sw else None)
                 continue
             # Dense append (low-degree configs): senders in ascending-id
             # order, the same reservation order compaction would give.
@@ -616,12 +838,18 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
                 strig = _remove_draw(st.flags, base_key, removal_p,
                                      sticks, ids_s, senders, n)
             append(st, base_key, torch.where(senders, ids_s, 0), senders,
-                   sticks, strig)
+                   sticks, strig, delta_w)
         # Appends during this drain target later windows only (delay >=
-        # B), so the slot accrued nothing new before it is zeroed.
+        # B), so the slot accrued nothing new before it is zeroed.  The
+        # slot's stale words are never read: later appends rewrite the
+        # [0, count) prefix and the drain zeroes the lanes past it.
         st.mail_cnt[0, slot] = 0
         st.sup_cnt[0, slot] = 0
         st.tick += b
+        if multi:
+            # Stamped at the window's end tick.
+            st.rumor_recv += rrecv
+            stamp_rumor_done(cfg, st.rumor_recv, st.rumor_done, st.tick)
         st.total_message += dm
         st.total_received += dr
         st.total_crashed += dc
@@ -636,7 +864,15 @@ def make_window_step_fn(cfg: Config, n_local: int | None = None):
 def make_seed_fn(cfg: Config):
     """Uniform-random sender's initial broadcast (simulator.go:240-241),
     through a dedicated one-sender append keyed at SEED_TICK so its draws
-    do not depend on tick-0 window state."""
+    do not depend on tick-0 window state.  An identity under the rumor
+    axis: the window step injects every source."""
+
+    if cfg.multi_rumor:
+        # The window step injects the sources (injection_batch).
+        def seed_noop(st: EventState, base_key: torch.Tensor) -> EventState:
+            return st
+
+        return seed_noop
 
     def seed_fn(st: EventState, base_key: torch.Tensor) -> EventState:
         n, k = st.friends.shape
@@ -705,7 +941,8 @@ def make_heal_fn(cfg: Config, n_local: int | None = None):
     them through the phase-1 makeup draw, and append the infected healers'
     re-sends and the rejoin pulls' responses into the mail ring at their
     drawn arrival ticks (scenario.heal_and_wave): two ring appends of
-    n * k lanes, one slot a row."""
+    n * k lanes, one slot a row.  Under the rumor axis a re-send carries
+    the healer's full rumor words and a pull response the friend's."""
     if not cfg.overlay_heal_resolved:
         return None
     b = batch_ticks(cfg, n_local)
@@ -713,6 +950,7 @@ def make_heal_fn(cfg: Config, n_local: int | None = None):
     tail = ring_tail(cfg, n_local)
     detect = cfg.heal_detect_ms
     dkern = cfg.deliver_kernel_resolved
+    multi = cfg.multi_rumor
 
     def heal_fn(st: EventState, base_key: torch.Tensor) -> EventState:
         n, k = st.friends.shape
@@ -733,13 +971,21 @@ def make_heal_fn(cfg: Config, n_local: int | None = None):
         off = (arrive % b)[:, None]
         cap = (st.mail_ids.shape[0] - tail) // dw
         dropped = torch.zeros((), dtype=I32, device=dev)
-        mailbox.ring_append((st.mail_ids,), st.mail_cnt, dropped,
-                            ((friends * b + off).reshape(-1),), wslot,
-                            resend.reshape(-1), dw, cap, kernel=dkern)
+        rings = (st.mail_ids,)
+        spay = ((friends * b + off).reshape(-1),)
         # Rejoin pull responses deliver to the puller's own row.
-        ppay = ((ids * b)[:, None] + off).expand(n, k).reshape(-1)
-        mailbox.ring_append((st.mail_ids,), st.mail_cnt, dropped, (ppay,),
-                            wslot, pull.reshape(-1), dw, cap, kernel=dkern)
+        ppay = (((ids * b)[:, None] + off).expand(n, k).reshape(-1),)
+        if multi:
+            wc = st.rumor_words.shape[1]
+            rings += (st.mail_words,)
+            spay += (st.rumor_words[:n, None, :].expand(n, k, wc)
+                     .reshape(-1, wc),)
+            ppay += (st.rumor_words[torch.where(friends >= 0, friends, 0)
+                                    .long()].reshape(-1, wc),)
+        mailbox.ring_append(rings, st.mail_cnt, dropped, spay, wslot,
+                            resend.reshape(-1), dw, cap, kernel=dkern)
+        mailbox.ring_append(rings, st.mail_cnt, dropped, ppay, wslot,
+                            pull.reshape(-1), dw, cap, kernel=dkern)
         st.friends = friends
         st.mail_dropped += dropped
         st.down_since = torch.where(clear, -1, st.down_since)

@@ -38,7 +38,7 @@ KERNELS = ("fused_emit", "fused_unique_set", "fused_ring_append",
            "erdos_pallas", "fused_recv_land")
 # Counts of one form of a kernel, beside the kernel's own count.
 FORMS = ("fused_chunk_step:spill", "fused_deposit_add:dense",
-         "fused_emit:pmask")
+         "fused_emit:pmask", "fused_emit:words", "fused_unique_set:words")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS + FORMS}
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -3,7 +3,9 @@
 * ``fused_unique_set`` -- the event engine's unique-index ring write,
   ``ring[flat] = vals`` where the indices are unique and in bounds by
   construction (live reservations are disjoint, dead lanes divert to
-  per-lane trash cells); plain version ``index_put_``.
+  per-lane trash cells), on the id ring alone or on the id ring and the
+  multi-rumor (L, W) word ring at the same cells; plain version
+  ``index_put_``.
 * ``fused_ring_append`` -- ``mailbox.ring_append``'s one-hot rank chain
   (each valid lane takes the next position of its window slot, in lane
   order, if it is below the slot capacity) into a flat id ring and an
@@ -53,6 +55,11 @@ NAME = "fused_unique_set"
 # The C entry points' parameter types (csrc/<name>.cu, extern "C").
 UNIQUE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
                                            ctypes.c_void_p]
+UNIQUE_WORDS_ARGTYPES = ([ctypes.c_void_p] * 5
+                         + [ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_void_p])
+# fused_unique_set's launches over the id and word rings.
+UNIQUE_WORDS = NAME + ":words"
 RING_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
                                             ctypes.c_void_p,
@@ -106,12 +113,59 @@ def _launch(ring, flat, vals) -> torch.Tensor:
     return ring
 
 
-def fused_unique_set(ring: torch.Tensor, flat: torch.Tensor,
-                     vals: torch.Tensor) -> torch.Tensor:
+def _words_check(wring, flat, wvals) -> None:
+    """Raise on a word ring the kernel does not take: int32 (L, W) rows
+    beside int32 (m, W) values, on the id ring's device."""
+    if wring.dtype is not I32 or wvals.dtype is not I32 \
+            or wring.ndim != 2 or wvals.ndim != 2 \
+            or wvals.shape != (flat.shape[0], wring.shape[1]) \
+            or wring.shape[1] < 1:
+        raise ValueError(f"{NAME}: the word ring must be int32 (L, W) and "
+                         f"its values int32 ({flat.shape[0]}, W), got "
+                         f"{wring.dtype} {tuple(wring.shape)}, "
+                         f"{wvals.dtype} {tuple(wvals.shape)}")
+    if wring.device != flat.device or wvals.device != flat.device:
+        raise ValueError(f"{NAME}: tensors on different devices "
+                         f"{wring.device}, {wvals.device}, {flat.device}")
+
+
+@functools.cache
+def _unique_words_fn():
+    """The two-ring entry point, held once it is built."""
+    return _build.function(NAME, "gossip_fused_unique_set_words",
+                           UNIQUE_WORDS_ARGTYPES)
+
+
+def _launch_words(ring, wring, flat, vals, wvals):
+    if not (ring.is_contiguous() and wring.is_contiguous()):
+        raise ValueError(f"{NAME}: the rings must be contiguous")
+    fn = _unique_words_fn()
+    _build.count_launch(NAME)
+    _build.count_launch(UNIQUE_WORDS)
+    rc = fn(ring.data_ptr(), wring.data_ptr(), flat.data_ptr(),
+            vals.data_ptr(), wvals.data_ptr(), flat.shape[0],
+            wring.shape[1], _stream(ring.get_device()))
+    if rc:
+        _build.check(rc, NAME)
+    return ring, wring
+
+
+def fused_unique_set(ring, flat: torch.Tensor, vals):
     """``ring[flat] = vals`` in place; returns `ring`.  The JAX package's
-    form takes tuples of aligned rings (id ring plus rumor-word ring); the
-    word ring belongs to multi-rumor traffic, not yet ported (ROADMAP
-    A11), so this takes the id ring alone."""
+    tuple form, ``(ids, words)`` rings and ``(ivals, wvals)`` values (the
+    multi-rumor word ring, int32 (L, W), written a row a lane at the same
+    cells), writes both in one launch and returns the tuple of rings."""
+    if isinstance(ring, tuple):
+        (ids, wring), (ivals, wvals) = ring, vals
+        _check(ids, flat, ivals)
+        _words_check(wring, flat, wvals)
+        if ids.is_cuda:
+            return _launch_words(ids, wring, flat.contiguous(),
+                                 ivals.contiguous(), wvals.contiguous())
+        if ids.is_cpu:
+            return (unique_set_plain(ids, flat, ivals),
+                    unique_set_plain(wring, flat, wvals))
+        raise ValueError(f"{NAME}: no kernel for device {ids.device}")
     _check(ring, flat, vals)
     if ring.is_cuda:
         return _launch(ring, flat.contiguous(), vals.contiguous())

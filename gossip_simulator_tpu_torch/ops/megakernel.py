@@ -21,6 +21,11 @@ version, ``emit_plain``: the JAX package's unfused chain
 the engine's ``-phase2-kernel xla`` path also runs.  A tensor on any
 other device raises.
 
+Under multi-rumor traffic every lane also writes its sender's W rumor
+words (the int32 view of the JAX package's uint32 words) at its id cell
+of the (L, W) word ring: the kept lanes' words at their reserved cells,
+every other lane's (0 where its id is 0) at its trash cell.
+
 ``fused_deposit_both`` (``csrc/fused_deposit_both.cu``) adds, for every
 kept edge, the +1 arrival count and the sender's row of new rumor bits
 (``newbits[i // k]``, read in the kernel: one add a set bit) at the shared
@@ -59,17 +64,23 @@ from gossip_simulator_tpu_torch.ops.deliver import (ring_append_plain,
 
 NAME = "fused_emit"
 I32 = torch.int32
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-             + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+             + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_void_p])
+# fused_emit's launches with a partition mask, and with rumor words.
+PMASK = NAME + ":pmask"
+WORDS = NAME + ":words"
 
 
 def emit_layout(mail_cnt, sf, drop, svalid, wslot, off, *, dw: int,
                 cap: int, b: int, tb=None, strig=None, sender_ids=None,
-                pmask=None, flags=None, received_bit: int = 1):
+                pmask=None, flags=None, received_bit: int = 1, swords=None):
     """The unfused chain without its final write: returns (flat, ivals,
-    adds[dw], sup[dw], lost, blocked) with flat/ivals of m*kw lanes, int32.
+    adds[dw], sup[dw], lost, blocked, wvals) with flat/ivals of m*kw
+    lanes, int32; wvals (m*kw, W) holds each lane's sender row of
+    `swords` (int32 (m, W), the rumor words) where the lane's id value is
+    its payload, 0 elsewhere (None without `swords`).
 
     `pmask` (bool (m, k), the raw partition_blocked matrix) blocks the
     edges it marks before the duplicate filter; `blocked` counts them (0
@@ -121,20 +132,28 @@ def emit_layout(mail_cnt, sf, drop, svalid, wslot, off, *, dw: int,
     adds = torch.zeros(dw, dtype=I32, device=dev)
     adds.index_add_(0, slot, torch.where(ok, ec, 0))
     lost = (edge & ~ok[:, None]).sum()
-    return flat.reshape(-1), ivals.reshape(-1), adds, sup, lost, blocked
+    wvals = None
+    if swords is not None:
+        wvals = torch.where(edge[:, :, None], swords[:, None, :],
+                            0).reshape(m * kw, swords.shape[1])
+    return (flat.reshape(-1), ivals.reshape(-1), adds, sup, lost, blocked,
+            wvals)
 
 
 def emit_plain(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *,
                dw: int, cap: int, b: int, tb=None, strig=None,
                sender_ids=None, pmask=None, flags=None,
-               received_bit: int = 1):
-    """Plain version: ``emit_layout`` plus one ``index_put_``."""
-    flat, ivals, adds, sup, lost, blocked = emit_layout(
+               received_bit: int = 1, swords=None, mail_words=None):
+    """Plain version: ``emit_layout`` plus one ``index_put_`` a ring."""
+    flat, ivals, adds, sup, lost, blocked, wvals = emit_layout(
         mail_cnt, sf, drop, svalid, wslot, off, dw=dw, cap=cap, b=b,
         tb=tb, strig=strig, sender_ids=sender_ids, pmask=pmask, flags=flags,
-        received_bit=received_bit)
+        received_bit=received_bit, swords=swords)
     mail_ids.index_put_((flat.long(),), ivals)
-    return mail_ids, adds, sup, lost, blocked
+    if swords is None:
+        return mail_ids, adds, sup, lost, blocked
+    mail_words.index_put_((flat.long(),), wvals)
+    return mail_ids, adds, sup, lost, blocked, mail_words
 
 
 # Senders a block of the kernel takes (csrc/fused_emit.cu EMIT_TILE).
@@ -149,8 +168,37 @@ def emit_group(kw: int) -> int:
     return 1 if kw <= 8 else 8
 
 
+def _words_check(mail_ids, sf, swords, mail_words, strig) -> None:
+    """Raise on rumor words the emission does not take (either version):
+    int32 (m, W) sender rows and an int32 (L, W) word ring as long as the
+    id ring, on its device; not with the SIR trigger lane (the rumor axis
+    is SI only)."""
+    if (swords is None) != (mail_words is None):
+        raise ValueError(f"{NAME}: swords and mail_words go together")
+    if swords is None:
+        return
+    if strig is not None:
+        raise ValueError(f"{NAME}: rumor words are SI only (no trigger "
+                         "lane)")
+    m = sf.shape[0]
+    if swords.dtype is not I32 or swords.ndim != 2 \
+            or swords.shape[0] != m or swords.shape[1] < 1:
+        raise ValueError(f"{NAME}: swords must be int32 ({m}, W), got "
+                         f"{swords.dtype} {tuple(swords.shape)}")
+    if mail_words.dtype is not I32 or mail_words.ndim != 2 \
+            or mail_words.shape != (mail_ids.shape[0], swords.shape[1]):
+        raise ValueError(f"{NAME}: mail_words must be int32 "
+                         f"({mail_ids.shape[0]}, {swords.shape[1]}), got "
+                         f"{mail_words.dtype} {tuple(mail_words.shape)}")
+    for t in (swords, mail_words):
+        if t.device != mail_ids.device:
+            raise ValueError(f"{NAME}: words on {t.device}, the ring on "
+                             f"{mail_ids.device}")
+
+
 def _emit_check(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, dw, cap,
-                flags, strig, sender_ids, pmask=None) -> None:
+                flags, strig, sender_ids, pmask=None, swords=None,
+                mail_words=None) -> None:
     """Raise on what the kernel does not take, in attribute reads (the call
     is short: its host path is most of its time)."""
     card = mail_ids.get_device()
@@ -186,7 +234,7 @@ def _emit_check(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, dw, cap,
         raise TypeError(f"{NAME}: flags must be 1-D uint8, got "
                         f"{flags.dtype} {tuple(flags.shape)}")
     for t in (mail_ids, mail_cnt, sf, drop, svalid, wslot, off, flags,
-              strig, sender_ids, pmask):
+              strig, sender_ids, pmask, swords, mail_words):
         if t is not None and (t.get_device() != card
                               or not t.is_contiguous()):
             raise ValueError(f"{NAME}: every tensor must be contiguous on "
@@ -201,13 +249,13 @@ def _emit_fn():
 
 def _launch(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *, dw, cap,
             b, tb, strig, sender_ids, flags, received_bit, pmask=None,
-            group=None):
+            swords=None, mail_words=None, group=None):
     """One launch on the (card, stream) workspace of the single-pass
     appends; the outputs (adds, sup, lost, blocked) come from one
     torch.empty, the call's only allocation.  `group` overrides
     emit_group (the card's measurements of the three forms)."""
     _emit_check(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, dw, cap,
-                flags, strig, sender_ids, pmask)
+                flags, strig, sender_ids, pmask, swords, mail_words)
     m, k = sf.shape
     dev = mail_ids.device
     stream = deliver._stream(dev.index)
@@ -221,19 +269,25 @@ def _launch(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *, dw, cap,
     fn = _emit_fn()
     _build.count_launch(NAME)
     if pmask is not None:
-        _build.count_launch(NAME + ":pmask")
+        _build.count_launch(PMASK)
+    if swords is not None:
+        _build.count_launch(WORDS)
     rc = fn(mail_ids.data_ptr(), mail_cnt.data_ptr(), sf.data_ptr(),
             drop.data_ptr(), svalid.data_ptr(), wslot.data_ptr(),
             off.data_ptr(), None if flags is None else flags.data_ptr(),
             received_bit, None if strig is None else strig.data_ptr(),
             None if strig is None else sender_ids.data_ptr(),
             None if pmask is None else pmask.data_ptr(),
-            0 if tb is None else tb, m, k, dw, cap, b, group,
+            None if swords is None else swords.data_ptr(),
+            None if swords is None else mail_words.data_ptr(),
+            0 if tb is None else tb, m, k, dw, cap, b,
+            0 if swords is None else swords.shape[1], group,
             out.data_ptr(), ws.data_ptr(), ws.numel(), epoch, aux, aux_n,
             stream)
     if rc:
         _build.check(rc, NAME)
-    return mail_ids, out[:dw], out[dw:2 * dw], out[2 * dw], out[2 * dw + 1]
+    res = (mail_ids, out[:dw], out[dw:2 * dw], out[2 * dw], out[2 * dw + 1])
+    return res if swords is None else res + (mail_words,)
 
 
 def fused_emit(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *,
@@ -245,18 +299,18 @@ def fused_emit(mail_ids, mail_cnt, sf, drop, svalid, wslot, off, *,
     `pmask` (bool (m, k), the raw partition_blocked matrix) blocks the
     edges it marks, counted in `blocked` (0 without it); `flags` enables
     the duplicate filter; `tb`/`strig`/`sender_ids` the SIR trigger lane.
-    Rumor words (`swords`/`mail_words`, multi-rumor traffic) are not yet
-    ported."""
-    if swords is not None or mail_words is not None:
-        raise ValueError(f"{NAME}: rumor words are not yet ported "
-                         "(ROADMAP A11)")
+    Rumor words (`swords` int32 (m, W), `mail_words` int32 (L, W): the
+    multi-rumor word ring) write each lane's sender row at the lane's id
+    cell, in place, and the return gains mail_words."""
     if (tb is None) != (strig is None) or \
             (strig is not None and sender_ids is None):
         raise ValueError(f"{NAME}: the trigger lane needs tb, strig and "
                          "sender_ids together")
+    _words_check(mail_ids, sf, swords, mail_words, strig)
     kw = dict(dw=dw, cap=cap, b=b, tb=tb, strig=strig,
               sender_ids=sender_ids, pmask=pmask, flags=flags,
-              received_bit=received_bit)
+              received_bit=received_bit, swords=swords,
+              mail_words=mail_words)
     dev = mail_ids.device
     if dev.type == "cpu":
         return emit_plain(mail_ids, mail_cnt, sf, drop, svalid, wslot, off,

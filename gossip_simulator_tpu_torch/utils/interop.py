@@ -6,6 +6,9 @@ names and dtypes, plus ``mail_geom`` and ``host_mailbox_dropped``).
 ``state_from_numpy`` turns such a dict into the port's ``EventState`` on a
 device; ``state_to_numpy`` turns one back, with the same names, dtypes and
 ``mail_geom``, so a state can cross in either direction and continue.
+The multi-rumor leaves cross at either shape; the uint32 rumor words
+cross as the port's int32 view of the same bits (``rumor_words`` gains
+or loses the port's trash row at n).
 The friends table crosses at its own width: max_degree columns on kout,
 ring and the overlay, ``config.er_cap(lam)`` columns ``-1``-padded past
 each row's degree on erdos.
@@ -53,16 +56,14 @@ _COUNTERS = ("total_received", "total_crashed", "mail_dropped",
 # Array leaves with one dtype on both sides.
 _ARRAYS = {"friends": np.int32, "friend_cnt": np.int32,
            "mail_ids": np.int32, "mail_cnt": np.int32, "sup_cnt": np.int32,
-           "down_since": np.int32, "mail_words": np.uint32,
-           "rumor_words": np.uint32, "rumor_recv": np.int32,
+           "down_since": np.int32, "rumor_recv": np.int32,
            "rumor_done": np.int32, "exch_counts": np.int32}
-# Multi-rumor and spatial-telemetry leaves: placeholders only (ROADMAP
-# A11, A6).  The scenario leaves cross at either shape: the crash clock
-# down_since is int32[n] under faults (Config.faults_enabled), int32[1]
-# otherwise, and the four counters are scalars.
-_PLACEHOLDERS = {"mail_words": (1, 1), "rumor_words": (1, 1),
-                 "rumor_recv": (1,), "rumor_done": (1,),
-                 "exch_counts": (1, 1)}
+# Spatial-telemetry leaf: a placeholder only (ROADMAP A6).  The scenario
+# leaves cross at either shape: the crash clock down_since is int32[n]
+# under faults (Config.faults_enabled), int32[1] otherwise, and the four
+# counters are scalars; so do the multi-rumor leaves (full size under
+# Config.multi_rumor, 1-element placeholders otherwise).
+_PLACEHOLDERS = {"exch_counts": (1, 1)}
 
 
 def state_from_numpy(tree: dict, device) -> EventState:
@@ -74,22 +75,30 @@ def state_from_numpy(tree: dict, device) -> EventState:
         if np.shape(tree[name]) != shape:
             raise ValueError(
                 f"leaf {name} has shape {np.shape(tree[name])}: "
-                "multi-rumor and spatial-telemetry state is not yet "
-                "ported (ROADMAP A11, A6)")
+                "spatial-telemetry state is not yet ported (ROADMAP A6)")
     dev = torch.device(device)
 
     def arr(name):
         a = np.ascontiguousarray(np.asarray(tree[name], _ARRAYS[name]))
         return torch.from_numpy(a.copy()).to(dev)
 
+    def words(name):
+        a = np.ascontiguousarray(np.asarray(tree[name], np.uint32))
+        return torch.from_numpy(a.view(np.int32).copy()).to(dev)
+
     flags = np.asarray(tree["flags"], np.uint8)
     geom = np.asarray(tree["mail_geom"], np.int64)
+    rumor_words = words("rumor_words")
+    if rumor_words.shape[0] == flags.shape[0]:  # full size: the trash row
+        rumor_words = torch.cat([rumor_words, torch.zeros_like(
+            rumor_words[:1])])
     return EventState(
         flags=torch.from_numpy(np.append(flags, np.uint8(0))).to(dev),
         tick=int(np.asarray(tree["tick"])),
         total_message=torch.tensor(msg64_value(tree["total_message"]),
                                    dtype=torch.int64, device=dev),
         geom=(int(geom[0]), int(geom[1])),
+        mail_words=words("mail_words"), rumor_words=rumor_words,
         **{k: arr(k) for k in _ARRAYS},
         **{k: torch.tensor(int(np.asarray(tree[k])), dtype=torch.int64,
                            device=dev) for k in _COUNTERS})
@@ -102,6 +111,12 @@ def state_to_numpy(st: EventState) -> dict:
     tree = {"flags": st.flags[:n].cpu().numpy().copy()}
     for k, dt in _ARRAYS.items():
         tree[k] = getattr(st, k).cpu().numpy().astype(dt, copy=True)
+    rumor_words = st.rumor_words
+    if rumor_words.shape[0] == n + 1:
+        rumor_words = rumor_words[:n]
+    for k, t in (("mail_words", st.mail_words),
+                 ("rumor_words", rumor_words)):
+        tree[k] = t.cpu().numpy().view(np.uint32).copy()
     tree["tick"] = np.asarray(st.tick, np.int32)
     tree["total_message"] = msg64_pair(int(st.total_message))
     for k in _COUNTERS:

@@ -22,11 +22,14 @@ T = torch.from_numpy
 
 
 def _emit_inputs(seed, *, m=48, k=6, n=60, dw=3, cap=400, b=10, dup=False,
-                 sir=False, dead=0.25, pad=0.1, base_hi=None, pm=None):
+                 sir=False, dead=0.25, pad=0.1, base_hi=None, pm=None,
+                 words=None):
     """Numpy inputs of one fused_emit call (test_torch_ops.py shares them):
     -1 padded friend columns, dead rows, a random ring and base counts;
-    with `pm`, a partition mask with that share of its lanes set (drawn
-    last, so the other inputs do not depend on it)."""
+    with `pm`, a partition mask with that share of its lanes set; with
+    `words` = W, int32 (m, W) rumor words of the rows (every bit pattern)
+    and a random (L, W) word ring (drawn last, so the other inputs do not
+    depend on them)."""
     rng = np.random.default_rng(seed)
     kw = k + (1 if sir else 0)
     ring_len = dw * cap + m * kw + 7
@@ -48,6 +51,11 @@ def _emit_inputs(seed, *, m=48, k=6, n=60, dw=3, cap=400, b=10, dup=False,
         kwargs["tb"] = (n + 1) * b
     if pm is not None:
         d["pmask"] = rng.random((m, k)) < pm
+    if words is not None:
+        d["swords"] = rng.integers(-2**31, 2**31, (m, words),
+                                   dtype=np.int64).astype(np.int32)
+        d["wring"] = rng.integers(-2**31, 2**31, (ring_len, words),
+                                  dtype=np.int64).astype(np.int32)
     return d, kwargs
 
 
@@ -62,6 +70,9 @@ def _emit(d, kw, dev, group=None, sync=True):
                flags=T(d["flags"]).to(dev) if "flags" in d else None,
                pmask=T(d["pmask"]).to(dev) if "pmask" in d else None,
                received_bit=tevent.RECEIVED, **kw)
+    if "swords" in d:
+        opt.update(swords=T(d["swords"]).to(dev),
+                   mail_words=T(d["wring"].copy()).to(dev))
     if group is None:
         out = megakernel.fused_emit(ring, *args, **opt)
     else:
@@ -75,6 +86,9 @@ def _same_emit(want, got):
     assert torch.equal(want[1], got[1]) and torch.equal(want[2], got[2])
     assert int(want[3]) == int(got[3])
     assert int(want[4]) == int(got[4])  # the partition-blocked edges
+    assert len(want) == len(got)
+    if len(want) > 5:
+        assert torch.equal(want[5], got[5])  # the word ring
 
 
 EMIT_CASES = {
@@ -127,12 +141,32 @@ EMIT_CASES = {
     "dw1536_pm50_sir_dup": dict(dw=1536, pm=0.5, sir=True, dup=True,
                                 m=20_000, n=5000, cap=60),
     "dw4096_blocks": dict(dw=4096, m=100_000, n=50_000, cap=400),
+    # Multi-rumor traffic: W = 1, 2 and 32 (R = 1024) words a lane beside
+    # the ids, with and without the partition mask, at slots that
+    # overflow, past a tile, at wide rows (eight threads a row) and past
+    # 1024 ring slots.
+    "w1": dict(words=1, m=3000, n=3000, cap=9000),
+    "w2": dict(words=2, m=3000, n=3000, cap=9000),
+    "w32": dict(words=32, m=3000, n=3000, cap=9000),
+    "w1_pm50": dict(words=1, pm=0.5, m=3000, n=3000, cap=9000),
+    "w2_pm50_overflow": dict(words=2, pm=0.5, m=4000, cap=5000,
+                             base_hi=4000),
+    "w32_pm50": dict(words=32, pm=0.5, m=3000, n=3000, cap=9000),
+    "w2_m257": dict(words=2, m=257, n=3000, cap=3000),
+    "w2_many_blocks": dict(words=2, m=150_000, n=200_000, cap=400_000),
+    "w2_kw33": dict(words=2, k=33, m=2000, n=3000, cap=20_000),
+    "w32_kw112_pm50": dict(words=32, pm=0.5, k=112, m=1000, n=3000,
+                           cap=60_000, pad=0.5),
+    "w1_m0": dict(words=1, m=0),
+    "w2_dw1536_pm50": dict(words=2, pm=0.5, dw=1536, m=20_000, n=5000,
+                           cap=60),
 }
 # The kernel's two forms (threads a row): each at the widths it would not
 # be chosen for as well.
 FORM_CASES = ("si", "sir_dup", "overflow_mid_block", "kw33_sir", "kw112_sir",
               "dw40_kw112_dup", "m257_dup", "m65_kw65_sir", "dw1024",
-              "pm50_sir_dup", "pm50_kw112_sir", "dw1536_pm50_sir_dup")
+              "pm50_sir_dup", "pm50_kw112_sir", "dw1536_pm50_sir_dup",
+              "w2_pm50_overflow", "w32_kw112_pm50", "w2_dw1536_pm50")
 
 
 def _ring_inputs(seed, *, m=300, dw=3, cap=200, base_hi=None, rings=2,
@@ -524,6 +558,30 @@ def test_fused_unique_set_kernel_matches_plain_on_card():
     assert torch.equal(want, got.cpu())
 
 
+@pytest.mark.parametrize("m,w", ((0, 1), (1, 1), (1800, 1), (1801, 2),
+                                 (786_431, 1), (786_432, 2), (50_000, 32)))
+def test_fused_unique_set_word_ring_matches_plain_on_card(m, w):
+    """The tuple form: the id ring and the (L, W) word ring at the same
+    unique cells in one launch, W = 1, 2 and 32 (R = 1024)."""
+    dev = _card()
+    rng = np.random.default_rng(m + w)
+    size = 2 * m + 8
+    ring = rng.integers(-50, 50, size).astype(np.int32)
+    wring = rng.integers(-2**31, 2**31, (size, w),
+                         dtype=np.int64).astype(np.int32)
+    flat = rng.permutation(size)[:m].astype(np.int32)
+    vals = rng.integers(0, 10**6, m).astype(np.int32)
+    wvals = rng.integers(-2**31, 2**31, (m, w),
+                         dtype=np.int64).astype(np.int32)
+    want = deliver.fused_unique_set((T(ring.copy()), T(wring.copy())),
+                                    T(flat), (T(vals), T(wvals)))
+    got = deliver.fused_unique_set(
+        (T(ring).to(dev), T(wring).to(dev)), T(flat).to(dev),
+        (T(vals).to(dev), T(wvals).to(dev)))
+    for x, y in zip(want, got):
+        assert torch.equal(x, y.cpu())
+
+
 @pytest.mark.parametrize("m,flat_off,vals_off", (
     (1, 0, 0), (1799, 0, 0), (786_431, 0, 0), (1800, 1, 1), (1800, 1, 0),
     (1800, 3, 2)))
@@ -581,6 +639,17 @@ for _dw in (1, 3, 40, 512, 1024, 1025, 1536, 4096):
     for _w1 in (1, 8, 12, 36):
         RING_CASES[f"dw{_dw}_w{_w1}"] = dict(
             dw=_dw, width=_w1, m=5000, cap=2 * 5000 // _dw + 5)
+# The multi-rumor word ring beside the id ring (W = 1, 2, 32 words a
+# lane): the injection batch (a few lanes, most of them invalid), the
+# heal's n * k lanes, and a stream's ring past 1024 slots.
+RING_CASES.update({
+    "inject_w1": dict(width=1, m=3, dead=0.5, cap=400_000),
+    "inject_w2": dict(width=2, m=16, dead=0.7, cap=400_000),
+    "heal_w1": dict(width=1, m=140_000, dead=0.95, cap=400_000),
+    "heal_w2": dict(width=2, m=140_000, dead=0.95, cap=400_000),
+    "heal_w32": dict(width=32, m=70_000, dead=0.9, cap=40_000),
+    "dw1536_inject_w2": dict(dw=1536, width=2, m=16, dead=0.5, cap=50),
+})
 
 
 @pytest.mark.parametrize("case", sorted(RING_CASES))
@@ -856,7 +925,22 @@ def test_fused_chunk_step_spill_matches_plain_on_card(case, rank_major):
     ["-delaylow", "1", "-delayhigh", "40"],
     ["-fanout", "32", "-protocol", "sir"],
     ["-model", "pushsum", "-droprate", "0", "-crashrate", "0",
-     "-pushsum-dim", "8", "-phase2-kernel", "xla", "-event-chunk", "4096"]))
+     "-pushsum-dim", "8", "-phase2-kernel", "xla", "-event-chunk", "4096"],
+    # Multi-rumor traffic on the event engine: fused_emit's word rows, the
+    # word ring of fused_unique_set (-phase2-kernel xla) and of the
+    # injection's and the heal's fused_ring_append; R = 40 (W = 2).
+    ["-rumors", "16", "-crashrate", "0", "-coverage-target", "0.95"],
+    ["-rumors", "40", "-coverage-target", "0.95", "-phase2-kernel", "xla"],
+    ["-rumors", "64", "-traffic", "stream", "-stream-rate", "200",
+     "-crashrate", "0", "-coverage-target", "0.95"],
+    ["-rumors", "16", "-traffic", "stream", "-arrivals", "poisson",
+     "-crashrate", "0", "-coverage-target", "0.95", "-telemetry", "off"],
+    ["-rumors", "16", "-crashrate", "0", "-coverage-target", "0.99",
+     "-max-rounds", "600", "-overlay-heal", "on", "-scenario",
+     '{"groups": 2, "downtime": 60, "events": [{"type": "churn", '
+     '"start": 0, "end": 150, "rate": 2.0}, {"type": "crash", "at": 30, '
+     '"frac": 0.3, "group": 1}, {"type": "partition", "start": 20, '
+     '"end": 60}]}']))
 def test_run_on_card_matches_cpu(extra):
     """Each ported path on the card against its CPU twin: same transcript,
     same final leaves."""

@@ -368,13 +368,17 @@ def _c_params(path, symbol):
     ("fused_drain_sum", megakernel.DRAIN_ARGTYPES),
     ("kout_pallas", graph.KOUT_ARGTYPES),
     ("erdos_pallas", graph.ERDOS_ARGTYPES),
-    ("fused_recv_land", megakernel.RECV_ARGTYPES)))
+    ("fused_recv_land", megakernel.RECV_ARGTYPES),
+    ("fused_unique_set:words", deliver.UNIQUE_WORDS_ARGTYPES)))
 def test_ctypes_signatures_match_the_sources(name, argtypes):
     """A wrapper whose argtypes miss a parameter would have ctypes pass
     the rest as C ints and cut a pointer; hold each list to its C entry
-    point's parameters."""
-    path = _build._target(name)[0]
-    assert _c_params(path, f"gossip_{name}") == list(argtypes)
+    point's parameters (a second entry point of a source, `name:entry`,
+    is gossip_<name>_<entry>)."""
+    src, _, entry = name.partition(":")
+    path = _build._target(src)[0]
+    symbol = f"gossip_{src}_{entry}" if entry else f"gossip_{src}"
+    assert _c_params(path, symbol) == list(argtypes)
 
 
 @pytest.mark.parametrize("spill", (False, True))
@@ -965,23 +969,24 @@ def test_emit_launch_shares_the_workspace_and_allocates_its_outputs_only(
     ws = deliver._WS[None, 9][0]
     assert ws.numel() >= deliver.workspace_words(600, 3,
                                                  megakernel.EMIT_TILE)
-    assert (a[20], a[21], a[22], a[25]) == (ws.data_ptr(), ws.numel(), 1, 9)
-    assert (a[23], a[24]) == (None, 0)  # the shared form: no second part
-    assert a[19] == adds.data_ptr() and a[18] == 1  # group: kw 6
+    assert (a[23], a[24], a[25], a[28]) == (ws.data_ptr(), ws.numel(), 1, 9)
+    assert (a[26], a[27]) == (None, 0)  # the shared form: no second part
+    assert a[22] == adds.data_ptr() and a[21] == 1  # group: kw 6
     assert a[11] is None  # no partition mask
+    assert (a[12], a[13], a[20]) == (None, None, 0)  # no rumor words
     assert (adds.shape, sup.shape, lost.shape, blk.shape) == (
         (3,), (3,), (), ())
     assert sup.data_ptr() == adds.data_ptr() + 12
     allocs.clear()
     a = emit_call(k=37, sir=True, m=100)[1]
-    assert a[18] == 8 and a[22] == 2 and len(allocs) == 1
+    assert a[21] == 8 and a[25] == 2 and len(allocs) == 1
     d, kw = _ring_inputs(3, m=300)
     deliver._ring_launch(tuple(T(r.copy()) for r in d["rings"]),
                          T(d["cnt"].copy()), torch.tensor(0, dtype=torch.int32),
                          tuple(T(p) for p in d["pays"]), T(d["wslot"]),
                          T(d["valid"]), kw["dw"], kw["cap"])
     assert calls[-1][1][14] == 3  # the ring append took the next epoch
-    assert emit_call(m=0)[1][22] == 4
+    assert emit_call(m=0)[1][25] == 4
     assert deliver._build.LAUNCHES[megakernel.NAME] == 3
     assert [k for k, _ in calls] == ["emit", "emit", "ring", "emit"]
 
@@ -1014,7 +1019,7 @@ def test_global_form_takes_the_second_part_with_its_sums_zeroed(
     aux = deliver._AUX[None, 4]
     want = deliver.aux_ints(300, 1536, megakernel.EMIT_TILE)
     assert want == (2 * 1536 + 2 + 3) // 4 * 4 + 2 * 18 * 1536  # 2 tiles
-    assert (calls[-1][23], calls[-1][24]) == (aux.data_ptr(), aux.numel())
+    assert (calls[-1][26], calls[-1][27]) == (aux.data_ptr(), aux.numel())
     assert aux.numel() >= want
     aux.fill_(7)  # tables left by a call
     d, kw = _ring_inputs(3, m=5000, dw=2000, cap=9)
@@ -1054,8 +1059,29 @@ def test_unported_inputs_raise():
     with pytest.raises(ValueError, match="pmask must be"):
         megakernel._emit_check(*args, kw["dw"], kw["cap"], None, None, None,
                                pmask=torch.zeros((47, 6), dtype=torch.bool))
-    with pytest.raises(ValueError, match=r"not yet ported \(ROADMAP A11\)"):
+    # Rumor words are ported (ROADMAP A11); words without their ring, of
+    # the wrong type or shape, or beside the SIR trigger lane are refused.
+    with pytest.raises(ValueError, match="go together"):
         megakernel.fused_emit(*args, swords=torch.zeros((48, 1)), **kw)
+    ring_w = torch.zeros((args[0].shape[0], 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="swords must be int32"):
+        megakernel.fused_emit(*args, swords=torch.zeros((48, 1)),
+                              mail_words=ring_w, **kw)
+    with pytest.raises(ValueError, match="mail_words must be int32"):
+        megakernel.fused_emit(*args, swords=torch.zeros(
+            (48, 2), dtype=torch.int32), mail_words=ring_w, **kw)
+    with pytest.raises(ValueError, match="SI only"):
+        megakernel.fused_emit(
+            *args, swords=torch.zeros((48, 1), dtype=torch.int32),
+            mail_words=ring_w, strig=torch.ones(48, dtype=torch.bool),
+            sender_ids=torch.zeros(48, dtype=torch.int32), tb=610, **kw)
+    with pytest.raises(ValueError, match="the word ring must be int32"):
+        deliver.fused_unique_set(
+            (torch.zeros(8, dtype=torch.int32),
+             torch.zeros((8, 2), dtype=torch.int32)),
+            torch.arange(4, dtype=torch.int32),
+            (torch.ones(4, dtype=torch.int32),
+             torch.ones((4, 1), dtype=torch.int32)))
     # The wide companion ring is ported (PushSum's mass ring); the id ring
     # stays flat.
     z = torch.zeros(4, dtype=torch.int32)
@@ -1063,3 +1089,27 @@ def test_unported_inputs_raise():
         deliver.fused_ring_append((torch.zeros((4, 2), dtype=torch.int32), z),
                                   torch.zeros((1, 1), dtype=torch.int32),
                                   z[0], (z, z), z, z > 0, 1, 3)
+
+
+def test_direct_emit_callers_pass_every_parameter(monkeypatch):
+    """chip_smoke.py's host split of a fused_emit call (emit_host) calls
+    the C entry point itself: it passes one value for each parameter of
+    the source's signature.  CPU tensors, the entry point replaced by a
+    recorder."""
+    import chip_smoke
+
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(megakernel, "_emit_fn", lambda: entry)
+    monkeypatch.setattr(deliver, "_WS", {})
+    monkeypatch.setattr(deliver, "_stream", lambda index: 9)
+    monkeypatch.setattr(chip_smoke, "host_split",
+                        lambda label, parts: parts["ctypes call"]())
+    d, kw = _emit_inputs(2, m=40)
+    args = [T(d[x]) for x in ("cnt", "sf", "drop", "svalid", "wslot", "off")]
+    chip_smoke.emit_host("si", T(d["ring"].copy()), args, kw)
+    assert [len(a) for a in calls] == [len(megakernel._ARGTYPES)]

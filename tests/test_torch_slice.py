@@ -126,7 +126,10 @@ def test_sir_dieout_exit_status():
 
 
 @pytest.mark.parametrize("flags,item", (
-    (["-traffic", "stream"], "A11"), (["-n", "300000000"], "A18"),
+    # Multi-rumor traffic runs on one device (A11); the sharded backend's
+    # rumor words do not.
+    (["-traffic", "stream", "-backend", "sharded"], "A13"),
+    (["-n", "300000000"], "A18"),
     # Fault scenarios and healing run on one device (A10); the sharded
     # backend's fault branches do not.
     (["-overlay-mode", "rounds", "-overlay-heal", "on", "-backend",
@@ -140,10 +143,11 @@ def test_sir_dieout_exit_status():
      "A13"),
     (["-graph", "kout", "-model", "pushsum", "-droprate", "0",
       "-crashrate", "0", "-backend", "sharded", "-scenario", CHURN], "A13"),
-    (["-graph", "kout", "-rumors", "4"], "A11"),
+    (["-graph", "kout", "-rumors", "4", "-backend", "sharded"], "A13"),
     (["-graph", "kout", "-backend", "sharded", "-scenario", PARTITION],
      "A13"),
-    (["-graph", "kout", "-rumors", "4", "-overlay-heal", "on"], "A11"),
+    (["-graph", "kout", "-rumors", "4", "-overlay-heal", "on", "-backend",
+      "sharded"], "A13"),
     (["-graph", "kout", "-serve"], "A14"),
     (["-graph", "kout", "-supervise"], "A14"),
     # -backend sharded is ported for the event engine and PushSum (A13,
@@ -169,8 +173,10 @@ def test_sir_dieout_exit_status():
     (["-graph", "kout", "-telemetry-summary"], "A6"),
     (["-graph", "kout", "-backend", "sharded", "-overlay-heal", "on",
       "-heal-detect-ms", "50"], "A13"),
-    (["-graph", "kout", "-stream-rate", "200"], "A11"),
-    (["-graph", "kout", "-arrivals", "poisson"], "A11"),
+    (["-graph", "kout", "-traffic", "stream", "-stream-rate", "200",
+      "-backend", "sharded"], "A13"),
+    (["-graph", "kout", "-traffic", "stream", "-arrivals", "poisson",
+      "-backend", "sharded"], "A13"),
     (["-graph", "kout", "-serve-high", "0.9"], "A14"),
     (["-graph", "kout", "-serve-low", "0.2"], "A14"),
     (["-graph", "kout", "-serve-window", "4"], "A14"),

@@ -242,9 +242,10 @@ def emit(dev, tmp: str, calls: int) -> None:
                     checked(fn(*(t.data_ptr() for t in a),
                                ptr(kw.get("flags")), 1,
                                ptr(kw.get("strig")),
-                               ptr(kw.get("sender_ids")), None,
-                               kw.get("tb") or 0, rows, cols, kw["dw"],
-                               kw["cap"], kw["b"], group, out.data_ptr(),
+                               ptr(kw.get("sender_ids")), None, None,
+                               None, kw.get("tb") or 0, rows, cols,
+                               kw["dw"], kw["cap"], kw["b"], 0, group,
+                               out.data_ptr(),
                                ws.data_ptr(), ws.numel(), epoch[0], None, 0,
                                stream))
                 call()
