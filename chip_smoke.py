@@ -110,9 +110,9 @@ Phases, each printing its own line:
               mailbox_dropped: the kout run (n = 1e7, fanout 6, coverage
               0.99), the default run at n = 1e7 (tick-faithful overlay),
               -overlay-mode rounds at n = 1e7 (the column band), and the
-              default run at n = 1e8 (the split round, two_phase_100m),
-              whose xla twin runs as a pair at 4e7 (cut from 1e8 for the
-              time limit, TWIN_LIMIT_S); the 1e8 run also
+              default run at n = 5e7 (two_phase_100m's split round,
+              static bootstrap and cap 8, its n cut from 1e8 for the time
+              limit) with its xla twin at 5e7; the 5e7 run also
               prints its rounds, spill peak, phase seconds and peak memory;
               then the ring engine: -time-mode rounds at n = 1e7 (the
               rounds overlay, then ring rounds with 6e7-lane deposits,
@@ -172,7 +172,7 @@ Phases, each printing its own line:
               on -graph kout -fanout 6 -crashrate 0, seed 0: cuda-vs-cpu
               twins at n = 20,000 of the runs below; at n = 1e7
               churn10m_heal (-overlay-heal on -coverage-target 0.99
-              -max-rounds 1000: scen_crashed >= 0.2 n, heal_repaired > 0,
+              -max-rounds 500: scen_crashed >= 0.2 n, heal_repaired > 0,
               fused_emit with the partition mask and the heal's
               fused_ring_append launched) and churn10m_noheal (not
               converged, nothing repaired); at n = 1e6, the JAX package's
@@ -181,7 +181,7 @@ Phases, each printing its own line:
               transcript and Stats, no kernel) and churn1m_noheal (not
               converged, coverage < 0.97, nothing repaired; heal on
               converged or above it); at 1e7 ring_churn10m_heal to
-              -max-rounds 600 (-engine ring: fused_deposit_add) and
+              -max-rounds 300 (-engine ring: fused_deposit_add) and
               pushsum_churn10m (-model
               pushsum, heal on: Sigma x and Sigma w exactly the initial
               totals); each printing its wall, peak memory and fault
@@ -195,17 +195,26 @@ Phases, each printing its own line:
               bit-exact and timed as in phase 3; then, on bench.py's
               multirumor flags (-graph kout -fanout 6 -crashrate 0
               -coverage-target 0.95 -seed 0), cuda-vs-cpu twins at
-              20,000, and at n = 1e6 multirumor1m_r16 (-rumors 16) under
-              the default gates, -phase2-kernel xla and all-xla, stream1m
-              (-rumors 64 -traffic stream -stream-rate 100) under the
-              default gates and all-xla (one transcript, Stats and report
-              a run family), stream1m_poisson, and churn1m_heal_r16 (the
-              JAX package's test_churn_partition_heal_r16 at 1e6) and its
-              xla twin, those eight side by side in the worker processes;
-              then multirumor50m_r16 at n = 5e7 once, alone, with
-              -event-slot-cap 350000007 (the largest slot the JAX
-              package's sizing allows: all 16 rumors to the target), each
-              printing its wall, peak memory, rumors done and report.
+              20,000, and at n = 5e5 (bench.py's 1e6, cut for the time
+              limit) multirumor500k_r16 (-rumors 16) under the default
+              gates, -phase2-kernel xla and all-xla, stream500k (-rumors
+              64 -traffic stream -stream-rate 100) under the default gates
+              and all-xla (one transcript, Stats and report a run family),
+              stream500k_poisson, and churn500k_heal_r16 (the JAX package's
+              test_churn_partition_heal_r16 at 5e5) and its xla twin, those
+              eight side by side in the worker processes; then
+              multirumor50m_r16 at n = 5e7 once, alone, with
+              -event-slot-cap 350000007 (7 n + 7, the largest slot the JAX
+              package's sizing allows: all 16 rumors to the target; at 1e7,
+              2e7 and 3e7 8, 10 and 11 of them), each printing its wall,
+              peak memory, rumors done and report;
+11. telemetry -- the run-to-target paths' records: kout 10M (the jax_10m
+              argv) with -run-dir, -trace and -telemetry-summary, its
+              -telemetry off twin and unflagged (one transcript, one
+              fingerprint, one result.json Stats), then the default run
+              and PushSum at n = 1e5 on the card against the same argv on
+              the CPU in worker processes (equal telemetry.npz arrays and
+              fingerprints); each printing its wall and phases_s.
 
 The twins' runs, on the card and on the CPU (phases 4, 8, 9 and 10), and
 the CPU's erdos rows (phase 7, before its full runs) run in WORKERS
@@ -967,11 +976,14 @@ def negotiate_parity(dev, gen, reps: int) -> dict:
 
 
 SPLIT_N = 100_000_000  # the split-round band's full size (two_phase_100m)
-SPLIT_TWIN_N = 40_000_000  # the split band's twin pair when 100M is slow
-# The 100M run's xla twin runs at 1e8 only below this wall time, else as a
-# pair at SPLIT_TWIN_N: 0, always the pair (a depth cut for the script's
-# time limit, PERF.md section 4).
-TWIN_LIMIT_S = 0.0
+# The split band's full run, cut from SPLIT_N to 5e7 for the script's time
+# limit (PERF.md section 4; still past SPLIT_ROUND_MIN_ROWS, the static
+# bootstrap and the cap-8 band).
+SPLIT_RUN_N = 50_000_000
+SPLIT_TWIN_N = 40_000_000  # the split band's twin pair when that run is slow
+# The split run's xla twin runs at its n below this wall time, else as a
+# pair at SPLIT_TWIN_N.
+TWIN_LIMIT_S = 300.0
 
 
 def request_parity(dev, gen, reps: int) -> dict:
@@ -1868,14 +1880,15 @@ def _mass_totals(state, cfg) -> list:
 
 
 def run_port(argv, device, keep_friends: bool = False, shards=None):
-    """One run through the user entry points; returns (transcript,
+    """One run through the user entry points (the JSONL log, when the argv
+    asks for one, written as the CLI writes it); returns (transcript,
     RunResult, stepper, wall seconds).  With `shards`, the sharded backend
     lays that many shards out on the one device (``ShardedStepper(cfg,
     n_devices=shards)``).  The stepper also records the wall seconds of
-    phase 1 (`phase1_s`; 0 for a static graph), the rounds overlay's
-    largest live spill after any round (`spill_peak`, pairs of both types)
-    and, with `keep_friends`, the friends table at the end of phase 1 on
-    the host (`friends_p1`)."""
+    phase 1 (`phase1_s`, to quiescence on either phase-1 path), the rounds
+    overlay's largest live spill after any round (`spill_peak`, pairs of
+    both types) and, with `keep_friends`, the friends table at the end of
+    phase 1 on the host (`friends_p1`)."""
     from gossip_simulator_tpu_torch import run_simulation
     from gossip_simulator_tpu_torch.backends import (ShardedStepper,
                                                      TorchStepper)
@@ -1892,19 +1905,33 @@ def run_port(argv, device, keep_friends: bool = False, shards=None):
                 # Sigma x, Sigma w before the first window (ring empty).
                 self.initial_totals = _mass_totals(self.state, self.cfg)
 
-        def overlay_window(self):
-            out = super().overlay_window()
-            ostate = getattr(self, "ostate", None)
-            if isinstance(ostate, OverlayState):
-                live = int((ostate.mk_spill[1] >= 0).sum()
-                           + (ostate.bk_spill[1] >= 0).sum())
+        def _round(self, box, base_key):
+            # Every window or round of phase 1, on either path.
+            st = super()._round(box, base_key)
+            if isinstance(st, OverlayState):
+                live = int((st.mk_spill[1] >= 0).sum()
+                           + (st.bk_spill[1] >= 0).sum())
                 self.spill_peak = max(self.spill_peak, live)
-            if out[2] and not hasattr(self, "phase1_s"):
+            return st
+
+        def _quiesced(self):
+            if not hasattr(self, "phase1_s"):
                 if device == "cuda":
                     torch.cuda.synchronize()
                 self.phase1_s = time.perf_counter() - t0
                 if keep_friends:
                     self.friends_p1 = self.state.friends.cpu()
+
+        def overlay_window(self):
+            out = super().overlay_window()
+            if out[2]:
+                self._quiesced()
+            return out
+
+        def overlay_run_to_quiescence(self, *args, **kw):
+            out = super().overlay_run_to_quiescence(*args, **kw)
+            if out[1]:
+                self._quiesced()
             return out
 
     cfg, _ = parse_cli(argv)
@@ -1914,8 +1941,9 @@ def run_port(argv, device, keep_friends: bool = False, shards=None):
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = run_simulation(cfg, printer=ProgressPrinter(cfg.progress, out=out),
-                         stepper=stepper)
+    with ProgressPrinter(cfg.progress, out=out,
+                         jsonl_path=cfg.log_jsonl_resolved or None) as pr:
+        res = run_simulation(cfg, printer=pr, stepper=stepper)
     if device == "cuda":
         torch.cuda.synchronize()
     return out.getvalue(), res, stepper, time.perf_counter() - t0
@@ -2205,11 +2233,144 @@ def phase_full(n: int) -> dict:
     return runs
 
 
+# --- phase 11: the run-to-target paths' records ------------------------------
+
+TELEMETRY_N = 100_000  # the card-vs-cpu records' size
+TELEMETRY_DIR = "smoke_runs/telemetry"  # the phase's run dirs (git-ignored)
+# result.json's deterministic fields (scripts/compare_runs.py STAT_FIELDS).
+RESULT_STATS = ("round", "coverage", "converged", "reason", "stabilize_ms",
+                "coverage_ms", "overlay_windows", "gossip_windows",
+                "total_received", "total_message", "total_crashed",
+                "total_removed", "makeups", "breakups", "mailbox_dropped",
+                "exchange_overflow", "scen_crashed", "scen_recovered",
+                "part_dropped", "heal_repaired", "exhausted", "rumors",
+                "rumors_done", "shed", "fingerprint", "fingerprint_windows",
+                "converged_eps", "eps_ticks", "relerr_ppb")
+
+
+def _cpu_run_dir(argv, rdir):
+    """A worker's CPU run of `argv` through the CLI, writing `rdir`;
+    returns (exit code, stdout, wall s)."""
+    from gossip_simulator_tpu_torch.cli import main as cli_main
+
+    torch.set_num_threads(1)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv + ["-device", "cpu", "-run-dir", rdir])
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def _stats_of(run) -> dict:
+    return {k: run["result"].get(k) for k in RESULT_STATS}
+
+
+def _telemetry_line(name, wall, run, smi) -> None:
+    r = run["result"]
+    say(f"telemetry {name}: wall {wall:.3f} s, phases_s "
+        f"{json.dumps(r.get('phases_s'))}, fingerprint {r['fingerprint']} "
+        f"({r['fingerprint_basis']}, {r['fingerprint_windows']} windows), "
+        f"{r['total_message']} messages [{smi}]")
+
+
+def phase_telemetry(n_full: int, n_small: int) -> dict:
+    """The run-to-target paths' records: (a) the kout run at n_full (the
+    jax_10m shape: kout_pallas, fused_emit) on the run-to-target path
+    with -run-dir, -trace and -telemetry-summary, on its windowed twin
+    (-telemetry off, progress on) and with no recording flag: the first's
+    transcript is the third's (its summary block aside), the first two
+    give one fingerprint and one result.json Stats; (b) the default run
+    and PushSum on kout at n_small on the card, the same argv on the CPU
+    in worker processes: the same telemetry.npz arrays and fingerprints.
+    Every run prints its wall and phases_s beside the card.  Returns the
+    launches of each card run by name."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from gossip_simulator_tpu_torch.utils.artifact import load_run
+
+    shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
+    os.makedirs(TELEMETRY_DIR)
+    smi = smi_line()
+    small = {"default": ["-n", str(n_small), "-seed", "0", *OVERLAY],
+             "pushsum": pushsum_argv(n_small)}
+    runs = {}
+    with worker_pool() as pool:
+        cpu = {name: pool.submit(_cpu_run_dir, argv,
+                                 f"{TELEMETRY_DIR}/{name}_cpu")
+               for name, argv in small.items()}
+        kout = ["-graph", "kout", "-n", str(n_full), "-fanout", "6",
+                "-coverage-target", "0.99", "-seed", "0"]
+        fast_dir, win_dir = (f"{TELEMETRY_DIR}/kout_fast",
+                             f"{TELEMETRY_DIR}/kout_windowed")
+        out_f, _, _, runs["telemetry_kout"], wall_f = full_run(
+            "telemetry_kout", n_full,
+            kout + ["-run-dir", fast_dir, "-trace", f"{fast_dir}/trace.json",
+                    "-telemetry-summary"])
+        out_w, _, _, runs["telemetry_kout_windowed"], wall_w = full_run(
+            "telemetry_kout_windowed", n_full,
+            kout + ["-telemetry", "off", "-run-dir", win_dir])
+        out_p, _, _, runs["telemetry_kout_plain"], wall_p = full_run(
+            "telemetry_kout_plain", n_full, kout)
+        fast, win = load_run(fast_dir), load_run(win_dir)
+        _telemetry_line("kout_fast", wall_f, fast, smi)
+        _telemetry_line("kout_windowed", wall_w, win, smi)
+        say(f"telemetry kout_plain: wall {wall_p:.3f} s [{smi}]")
+        body, sep, block = out_f.partition("\n\n=== Telemetry ===\n")
+        if not sep or body + "\n" != out_p:
+            fail("telemetry: the recorded run's transcript is not the "
+                 "unrecorded run's")
+        say(f"telemetry kout_fast summary: {block.strip()!r}")
+        if (fast["result"]["fingerprint_basis"],
+                win["result"]["fingerprint_basis"]) != ("telemetry",
+                                                        "windows"):
+            fail("telemetry: the fingerprint bases are not telemetry and "
+                 "windows")
+        if _stats_of(fast) != _stats_of(win):
+            fail(f"telemetry: the run-to-target and windowed runs differ: "
+                 f"{_stats_of(fast)} vs {_stats_of(win)}")
+        with open(f"{fast_dir}/trace.json") as f:
+            spans = {e["name"] for e in json.load(f)["traceEvents"]}
+        if not {"init", "phase2.run_to_target",
+                "phase2.compile+run"} <= spans:
+            fail(f"telemetry: the trace lacks a span ({sorted(spans)})")
+        for k in ("kout_pallas", "fused_emit"):
+            if runs["telemetry_kout"][k] <= 0:
+                fail(f"telemetry: {k} was never launched "
+                     f"({runs['telemetry_kout']})")
+        say("telemetry kout: recorded transcript == plain transcript, "
+            "run-to-target fingerprint == windowed fingerprint "
+            f"{fast['result']['fingerprint']}, result.json Stats equal")
+        for name, argv in small.items():
+            rdir = f"{TELEMETRY_DIR}/{name}_card"
+            _, _, _, runs[f"telemetry_{name}"], wall = full_run(
+                f"telemetry_{name}", n_small, argv + ["-run-dir", rdir])
+            card = load_run(rdir)
+            _telemetry_line(f"{name}_card", wall, card, smi)
+            rc, _, cwall = cpu[name].result()
+            host = load_run(f"{TELEMETRY_DIR}/{name}_cpu")
+            _telemetry_line(f"{name}_cpu", cwall, host, "cpu, a worker")
+            tc, th = card["telemetry"], host["telemetry"]
+            bad = [k for k in th if k not in tc
+                   or not np.array_equal(tc[k], th[k])]
+            if bad or set(tc) != set(th) or rc != 0:
+                fail(f"telemetry {name}: card and cpu telemetry.npz differ "
+                     f"({bad}, rc {rc})")
+            if card["result"]["fingerprint"] != host["result"]["fingerprint"]:
+                fail(f"telemetry {name}: card and cpu fingerprints differ")
+            say(f"telemetry {name}: card == cpu (telemetry.npz "
+                f"{sorted(th)}, fingerprint "
+                f"{card['result']['fingerprint']})")
+    return runs
+
+
 def phase_rounds(n: int, n_split: int, twin_limit_s: float) -> dict:
     """The third slice's paths: the rounds overlay at n (-overlay-mode
     rounds: the column band, staggered bootstrap) under both gate
-    settings, then the default run at n_split (two_phase_100m: the split
-    round, static bootstrap, cap 8, burst spill).  The split run's xla
+    settings, then the default run at n_split (two_phase_100m's bands,
+    its n cut: the split round, static bootstrap, cap 8, burst spill).  The split run's xla
     twin runs at n_split when the default-gate run took under
     `twin_limit_s`, else the pair runs again at 40M (same bands).  Returns
     the launches of each run by name."""
@@ -2219,34 +2380,34 @@ def phase_rounds(n: int, n_split: int, twin_limit_s: float) -> dict:
     runs["rounds10m"], runs["rounds10m_xla"], _ = gate_pair(
         "rounds10m", n, rounds, ROUNDS_KERNELS + ("fused_request_round",))
     split = ["-n", str(n_split), "-seed", "0", *OVERLAY]
-    out, res, st, runs["default100m"], wall = full_run(
-        "default100m", n_split, split, keep_friends=True)
-    say(f"full default100m: {res.overlay_windows} rounds, stabilized at "
+    big = f"default{size_tag(n_split)}"
+    out, res, st, runs[big], wall = full_run(
+        big, n_split, split, keep_friends=True)
+    say(f"full {big}: {res.overlay_windows} rounds, stabilized at "
         f"{res.stabilize_ms:g} ms, mailbox_dropped "
         f"{res.stats.mailbox_dropped}, spill peak {st.spill_peak} pairs, "
         f"phase 1 {st.phase1_s:.3f} s, phase 2 {wall - st.phase1_s:.3f} s, "
         f"peak {torch.cuda.max_memory_allocated()} B")
     for k in ROUNDS_KERNELS + (SPILL, "fused_hosted_chunk"):
-        if runs["default100m"][k] <= 0:
-            fail(f"full default100m: {k} was never launched "
-                 f"({runs['default100m']})")
+        if runs[big][k] <= 0:
+            fail(f"full {big}: {k} was never launched ({runs[big]})")
     friends = st.friends_p1
     del st
     if wall < twin_limit_s:
-        out_x, res_x, st_x, runs["default100m_xla"], _ = full_run(
-            "default100m_xla", n_split,
+        out_x, res_x, st_x, runs[f"{big}_xla"], _ = full_run(
+            f"{big}_xla", n_split,
             split + XLA_GATES + ["-phase2-kernel", "xla"], keep_friends=True)
-        if any(gated(runs["default100m_xla"]).values()):
-            fail("full default100m_xla: the xla gates launched a kernel")
+        if any(gated(runs[f"{big}_xla"]).values()):
+            fail(f"full {big}_xla: the xla gates launched a kernel")
         if (strip_notes(out) != strip_notes(out_x)
                 or not torch.equal(friends, st_x.friends_p1)
                 or res.stats.mailbox_dropped != res_x.stats.mailbox_dropped):
-            fail("full default100m: default and xla-gate runs differ")
-        say("full default100m: default and xla-gate transcripts and phase-1 "
+            fail(f"full {big}: default and xla-gate runs differ")
+        say(f"full {big}: default and xla-gate transcripts and phase-1 "
             "friends tables identical")
         del st_x
     else:
-        say(f"full default100m took {wall:.1f} s >= {twin_limit_s:g} s: the "
+        say(f"full {big} took {wall:.1f} s >= {twin_limit_s:g} s: the "
             f"xla twin pair runs at n = {SPLIT_TWIN_N}")
         runs["default40m"], runs["default40m_xla"], _ = gate_pair(
             "default40m", SPLIT_TWIN_N,
@@ -2433,14 +2594,14 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     """The thirteenth slice's path, fault scenarios and overlay healing:
     first cuda-vs-cpu twins at twin_n of the runs below; then, under
     CHURN: churn10m_heal at n (the event engine, -overlay-heal on, to 0.99
-    or -max-rounds 2000: scen_crashed >= 0.2 n, heal_repaired > 0,
+    or -max-rounds 500: scen_crashed >= 0.2 n, heal_repaired > 0,
     fused_emit with the partition mask and the heal's fused_ring_append
     launched) and churn10m_noheal at n (not converged, nothing
     repaired); at n_pair the JAX package's acceptance pair, churn1m_heal
     (with its -phase2-kernel xla -deliver-kernel xla twin: one
     transcript, one Stats, no kernel) and churn1m_noheal (not converged,
     coverage < 0.97, nothing repaired; heal on converges or ends above
-    it); ring_churn10m_heal at n to -max-rounds 600 (-engine ring:
+    it); ring_churn10m_heal at n to -max-rounds 300 (-engine ring:
     fused_deposit_add) and
     pushsum_churn10m at n (-model pushsum, heal on: Sigma x and Sigma w,
     parked mass included, exactly the initial totals).  Returns the
@@ -2468,10 +2629,10 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     run_twins([(f"twin {name}", argv, (), checker(name, kernels))
                for name, argv, kernels in cases])
     runs = {}
-    # -max-rounds 2000 cut to 1000 at n (the script's time limit,
+    # -max-rounds 2000 cut to 500 at n (the script's time limit,
     # PERF.md section 4): the run stalls short of 0.99 either way.
     _, res_h, st, runs["churn10m_heal"] = fault_run(
-        "churn10m_heal", n, churn_argv(n, *HEAL_ON, "-max-rounds", "1000"))
+        "churn10m_heal", n, churn_argv(n, *HEAL_ON, "-max-rounds", "500"))
     del st
     sh = res_h.stats
     if sh.scen_crashed < 0.2 * n or sh.heal_repaired <= 0:
@@ -2522,13 +2683,13 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     say(f"faults {tag}: default and xla-gate transcripts and Stats "
         f"identical; heal on {'converged' if res_h.converged else 'stopped'}"
         f" at coverage {sh.coverage:.6f}, heal off at {sn.coverage:.6f}")
-    # The ring engine's heal run to -max-rounds 600, not 2000 (its time
+    # The ring engine's heal run to -max-rounds 300, not 2000 (its time
     # goes by the window, not by n: the script's time limit, PERF.md
     # section 4).
     rtag = "ring_churn10m_heal"
     _, res_r, st, runs[rtag] = fault_run(
         rtag, n, churn_argv(n, "-engine", "ring", *HEAL_ON, "-max-rounds",
-                            "600"))
+                            "300"))
     del st
     if runs[rtag][DEPOSIT] <= 0 or res_r.stats.heal_repaired <= 0:
         fail(f"faults {rtag}: launches {runs[rtag]}, heal_repaired "
@@ -2553,7 +2714,10 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
 # --- phase 10: multi-rumor traffic on the event engine -----------------------
 
 # bench.py's multirumor rows: multirumor_1m_r16 and stream_1m (n = 1e6,
-# capture_multirumor) and multirumor_50m_r16 (capture_multirumor_50m).
+# capture_multirumor) and multirumor_50m_r16 (capture_multirumor_50m);
+# the 1e6 family cut to 5e5 for the script's time limit (PERF.md section
+# 4).  The 5e7 run is not cut: below it, 7 n + 7 slots leave rumors short.
+RUMOR_FAMILY_N = 500_000
 RUMOR_BIG_N = 50_000_000
 RUMOR_FLAGS = ["-graph", "kout", "-fanout", "6", "-crashrate", "0",
                "-coverage-target", "0.95", "-seed", "0"]
@@ -2775,26 +2939,32 @@ def rumor_line(name, n, res, counts, wall, peak, converge=True) -> None:
         fail(f"rumors {name}: did not converge")
 
 
+def size_tag(n: int) -> str:
+    """A run name's size: 500k, 1m, 20m."""
+    return f"{n // 10**6}m" if n >= 10**6 else f"{n // 1000}k"
+
+
 def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
     """The fourteenth slice's path, multi-rumor traffic on the event engine
     (bench.py's multirumor flags: -graph kout -fanout 6 -crashrate 0
     -coverage-target 0.95 -seed 0): cuda-vs-cpu twins at twin_n (R = 16,
     R = 40 under -phase2-kernel xla, a stream, the churn timeline with
-    healing); at n multirumor1m_r16 (R = 16) under the default gates
+    healing); at n multirumor_r16 (R = 16) under the default gates
     (fused_emit with words, the injection's fused_ring_append),
     -phase2-kernel xla (fused_unique_set over the word ring) and all-xla
-    (no kernel), stream1m (R = 64 at 100 rumors a second) under the
-    default gates and all-xla, each family with one transcript, Stats and
-    report, stream1m_poisson once (-arrivals poisson), and
-    churn1m_heal_r16 (the JAX package's test_churn_partition_heal_r16 at
-    n: the partition mask and the heal's appends with words) under the
-    default gates and its -phase2-kernel xla -deliver-kernel xla twin --
-    these eight runs side by side in the worker processes (each run's
-    host, its enqueue of small launches, is what bounds it; the walls
-    printed are under that sharing); then multirumor50m_r16 at n_big
-    alone, at the largest slot capacity the JAX package's sizing allows
-    (-event-slot-cap 7 n + 7), which must bring all 16 rumors to the
-    target.  Returns the launches of each full-size run by name."""
+    (no kernel), stream (R = 64 at 100 rumors a second) under the default
+    gates and all-xla, each family with one transcript, Stats and report,
+    stream_poisson once (-arrivals poisson), and churn_heal_r16 (the JAX
+    package's test_churn_partition_heal_r16 at n: the partition mask and
+    the heal's appends with words) under the default gates and its
+    -phase2-kernel xla -deliver-kernel xla twin -- these eight runs side
+    by side in the worker processes (each run's host, its enqueue of small
+    launches, is what bounds it; the walls printed are under that
+    sharing); then multirumor_r16 at n_big alone, at the largest slot
+    capacity the JAX package's sizing allows (-event-slot-cap 7 n + 7),
+    which must bring all 16 rumors to the target.  Each run's name carries
+    its size (size_tag).  Returns the launches of each full-size run by
+    name."""
     cases = [
         ("r16", rumor_argv(twin_n, "-rumors", "16"),
          ("fused_emit", WORDS, "fused_ring_append")),
@@ -2819,17 +2989,18 @@ def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
     run_twins([(f"twin rumors {name}", argv, (), checker(name, kernels))
                for name, argv, kernels in cases])
     default = ("fused_emit", WORDS, "fused_ring_append")
+    tag = size_tag(n)
     families = {  # name: (argv, (suffix, flags, kernels) a gate, converge)
-        "stream1m": (rumor_argv(n, *STREAM_FLAGS), (
+        f"stream{tag}": (rumor_argv(n, *STREAM_FLAGS), (
             ("", [], default), ("_xla", ALL_XLA, ())), True),
-        "stream1m_poisson": (rumor_argv(n, *STREAM_FLAGS, "-arrivals",
-                                        "poisson"),
-                             (("", [], default),), False),
-        "churn1m_heal_r16": (CHURN_R16 + ["-n", str(n)], (
+        f"stream{tag}_poisson": (rumor_argv(n, *STREAM_FLAGS, "-arrivals",
+                                            "poisson"),
+                                 (("", [], default),), False),
+        f"churn{tag}_heal_r16": (CHURN_R16 + ["-n", str(n)], (
             ("", [], default + (PMASK,)),
             ("_xla", ["-phase2-kernel", "xla", "-deliver-kernel", "xla"],
              ())), False),
-        "multirumor1m_r16": (rumor_argv(n, "-rumors", "16"), (
+        f"multirumor{tag}_r16": (rumor_argv(n, "-rumors", "16"), (
             ("", [], default),
             ("_p2_xla", ["-phase2-kernel", "xla"],
              ("fused_unique_set", UNIQUE_WORDS, "fused_ring_append")),
@@ -2862,10 +3033,10 @@ def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
             say(f"rumors {name}: "
                 f"{', '.join(s or 'default' for s, _, _ in gates)}: one "
                 "transcript, one Stats, one report")
-    res = done["churn1m_heal_r16"][1].stats
+    res = done[f"churn{tag}_heal_r16"][1].stats
     if res.heal_repaired <= 0 or res.scen_crashed < 0.2 * n:
-        fail(f"rumors churn1m_heal_r16: heal_repaired {res.heal_repaired}, "
-             f"scen_crashed {res.scen_crashed}")
+        fail(f"rumors churn{tag}_heal_r16: heal_repaired "
+             f"{res.heal_repaired}, scen_crashed {res.scen_crashed}")
     del done, futs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2876,16 +3047,16 @@ def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
     # ring, n * k + k (7 n + 7): its default (the 3 GB ring budget, 2^28
     # entries a slot at 5e7) drops so many sends that 5 of the 16 rumors
     # reach the target (PERF.md section 6).
+    big = f"multirumor{size_tag(n_big)}_r16"
     big_cap = ["-event-slot-cap", str(7 * n_big + 7)]
     _, res, st, wall = run_port(rumor_argv(n_big, "-rumors", "16", *big_cap),
                                 "cuda")
-    runs["multirumor50m_r16"] = dict(_build.LAUNCHES)
+    runs[big] = dict(_build.LAUNCHES)
     del st
-    rumor_line("multirumor50m_r16", n_big, res, runs["multirumor50m_r16"],
-               wall, torch.cuda.max_memory_allocated())
+    rumor_line(big, n_big, res, runs[big], wall,
+               torch.cuda.max_memory_allocated())
     if res.stats.rumors_done != 16:
-        fail(f"rumors multirumor50m_r16: rumors_done "
-             f"{res.stats.rumors_done}")
+        fail(f"rumors {big}: rumors_done {res.stats.rumors_done}")
     return runs
 
 
@@ -3529,7 +3700,7 @@ def phase_profile(n: int, out_path: str, run: str = "default") -> None:
 
 
 PHASES = ("parity", "twins", "full", "rounds", "ring", "pushsum", "graphs",
-          "sharded", "faults", "rumors_event")
+          "sharded", "faults", "rumors_event", "telemetry")
 
 
 # The launch counts of a kernel's forms (ops/_build.py FORMS).
@@ -3657,7 +3828,8 @@ def main() -> int:
     runs = {}
     for name, phase in (
             ("full", lambda: phase_full(FULL_N)),
-            ("rounds", lambda: phase_rounds(FULL_N, SPLIT_N, TWIN_LIMIT_S)),
+            ("rounds", lambda: phase_rounds(FULL_N, SPLIT_RUN_N,
+                                            TWIN_LIMIT_S)),
             ("ring", lambda: phase_ring(RING_N, RUMOR_N)),
             ("pushsum", lambda: phase_pushsum(PUSHSUM_N)),
             ("graphs", lambda: phase_graphs(KOUT_N, ERDOS_N,
@@ -3667,7 +3839,8 @@ def main() -> int:
             ("faults", lambda: phase_faults(FULL_N, FAULT_PAIR_N,
                                             TWIN_N)),
             ("rumors_event", lambda: phase_rumors_event(
-                RUMOR_N, RUMOR_BIG_N, TWIN_N))):
+                RUMOR_FAMILY_N, RUMOR_BIG_N, TWIN_N)),
+            ("telemetry", lambda: phase_telemetry(FULL_N, TELEMETRY_N))):
         if name in phases:
             runs.update(phase())
             lap(name)

@@ -2,12 +2,15 @@
 
 One ``gossip_window()`` call advances 10 simulated milliseconds -- the
 reference driver's poll cadence (simulator.go:223,244) -- so the driver's
-printing loop is backend-agnostic.
+printing loop is backend-agnostic.  ``run_bounded_to_target`` is the
+run-to-target path both steppers share.
 """
 
 from __future__ import annotations
 
 import abc
+import math
+import time
 
 from gossip_simulator_tpu_torch.config import Config
 from gossip_simulator_tpu_torch.utils.metrics import Stats
@@ -45,11 +48,6 @@ class Stepper(abc.ABC):
         """Current counters snapshot (host-side)."""
 
     @abc.abstractmethod
-    def stats_and_inflight(self) -> tuple[Stats, bool]:
-        """``stats()`` and whether any message is still in flight, in one
-        device-to-host read."""
-
-    @abc.abstractmethod
     def sim_time_ms(self) -> float:
         """Simulated milliseconds elapsed in the current phase."""
 
@@ -60,3 +58,48 @@ class Stepper(abc.ABC):
     def load_state_pytree(self, tree) -> None:
         raise NotImplementedError(
             f"{self.name} does not support state restore")
+
+
+def run_bounded_to_target(stepper) -> Stats:
+    """The run-to-target path (the JAX package's host loop over its
+    bounded device calls): re-enter the engine's run loop
+    (``stepper._run_fn(state, key, target, until, hist)``, a bounded call
+    of at most ``epidemic.run_call_budget`` ticks) until the coverage
+    target, max_rounds or exhaustion.  Exhaustion is an empty ring, not
+    under push-pull, never under healing, and under -rumors only past
+    the last injection's tick.  With a TelemetrySession
+    (``stepper._telem``) the loop carries its History and tallies each
+    call's wall seconds: the first as compile_s (on the card it includes
+    the kernels' first build), the rest as execute_s."""
+    from gossip_simulator_tpu_torch.models import epidemic
+    from gossip_simulator_tpu_torch.utils import trace as _trace
+
+    cfg = stepper.cfg
+    target = int(math.ceil(cfg.coverage_target * cfg.n))
+    budget = epidemic.run_call_budget(cfg)
+    telem = getattr(stepper, "_telem", None)
+    hist = telem.begin_gossip() if telem is not None else None
+    calls = 0
+    while True:
+        until = min(cfg.max_rounds, stepper.tick + budget)
+        t0 = time.perf_counter()
+        with _trace.span("phase2.compile+run" if calls == 0
+                         else "phase2.bounded_call", cat="device") as sp:
+            stepper.state, hist = stepper._run_fn(
+                stepper.state, stepper.key, target, until, hist)
+            tick, recv, live = stepper.progress()
+            if sp is not None:
+                sp.update(until=int(until), tick=tick, received=recv,
+                          in_flight=int(live))
+        calls += 1
+        if telem is not None:
+            telem.tally_gossip_call(time.perf_counter() - t0)
+        if (not live and cfg.protocol != "pushpull"
+                and not cfg.overlay_heal_resolved
+                and (not cfg.multi_rumor or tick > cfg.last_inject_tick)):
+            stepper.exhausted = True
+        if recv >= target or tick >= cfg.max_rounds or stepper.exhausted:
+            break
+    if telem is not None:
+        telem.end_gossip(hist)
+    return stepper.stats()

@@ -12,7 +12,10 @@ on one card or on ``-device cpu`` (the JAX package on one chip does the
 same); a caller asks for S > 1 shards on the one device by passing
 ``n_devices``, as the JAX package's tests and bench pass it to their
 ``ShardedStepper``.  Static graphs only: the sharded overlay and ring
-engines are not yet ported (ROADMAP A13).
+engines are not yet ported (ROADMAP A13).  ``run_to_target`` is the
+run-to-target path (``base.run_bounded_to_target`` over the engine's
+``make_run_to_coverage_fn``), recording a telemetry row a window under
+``-telemetry on``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gossip_simulator_tpu_torch.backends.base import Stepper, WINDOW_MS
+from gossip_simulator_tpu_torch.backends.base import (Stepper, WINDOW_MS,
+                                                     run_bounded_to_target)
 from gossip_simulator_tpu_torch.backends.torch_backend import resolve_device
 from gossip_simulator_tpu_torch.config import Config
 from gossip_simulator_tpu_torch.models import event, pushsum
@@ -30,6 +34,7 @@ from gossip_simulator_tpu_torch.parallel.mesh import node_mesh, shard_size
 from gossip_simulator_tpu_torch.utils import interop
 from gossip_simulator_tpu_torch.utils import rng as _rng
 from gossip_simulator_tpu_torch.utils.metrics import Stats
+from gossip_simulator_tpu_torch.utils.telemetry import TelemetrySession
 
 
 class ShardedStepper(Stepper):
@@ -48,6 +53,9 @@ class ShardedStepper(Stepper):
         engine = pushsum_sharded if cfg.model == "pushsum" else event_sharded
         self._window_fn = engine.make_window_fn(cfg, self.mesh, WINDOW_MS)
         self._seed_fn = engine.make_seed_fn(cfg, self.mesh)
+        self._run_fn = engine.make_run_to_coverage_fn(cfg, self.mesh)
+        self._telem = (TelemetrySession(cfg, self.device)
+                       if cfg.telemetry_enabled else None)
         init_fn = (pushsum_sharded.make_sharded_pushsum_init
                    if cfg.model == "pushsum"
                    else event_sharded.make_sharded_event_init)
@@ -59,6 +67,13 @@ class ShardedStepper(Stepper):
     def overlay_window(self) -> tuple[int, int, bool]:
         """Static graphs are built at init: quiesced at once."""
         return 0, 0, True
+
+    def overlay_run_to_quiescence(self, max_windows: int
+                                  ) -> tuple[int, bool]:
+        """Static graphs are built at init: quiesced without a window."""
+        return 0, True
+
+    overlay_clock_scale = 1.0
 
     def seed(self) -> None:
         self._seeded = True
@@ -90,6 +105,23 @@ class ShardedStepper(Stepper):
             total_crashed=tc, total_removed=trm,
             mailbox_dropped=self._mailbox_dropped + dropped,
             exchange_overflow=xo, exhausted=self.exhausted), bool(live)
+
+    def run_to_target(self) -> Stats:
+        """The run-to-target path (base.run_bounded_to_target)."""
+        return run_bounded_to_target(self)
+
+    @property
+    def tick(self) -> int:
+        return self.state[0].tick
+
+    def progress(self) -> tuple[int, int, bool]:
+        """(tick, total received, a message in flight on any shard) in
+        one host read."""
+        st = self.state[0]
+        live = torch.stack([in_flight(x) for x in self.state]).any()
+        recv, live = torch.stack([st.total_received,
+                                  live.to(torch.int64)]).tolist()
+        return st.tick, recv, bool(live)
 
     def stats(self) -> Stats:
         return self.stats_and_inflight()[0]

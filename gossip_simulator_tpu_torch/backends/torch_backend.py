@@ -1,4 +1,4 @@
-"""Single-device PyTorch backend: the windowed stepper.
+"""Single-device PyTorch backend.
 
 Phase 1 (``-graph overlay``): one ``overlay_window()`` runs one 10 ms poll
 window of the tick-faithful overlay, or one round of the rounds overlay
@@ -12,18 +12,27 @@ picks, or PushSum (``models/pushsum.py``, ``-model pushsum``); one
 ``gossip_window()`` runs 10 simulated ms (one round in rounds mode), and
 with ``-overlay-heal on`` one healing pass after it (the engine's
 ``make_window_fn``), and reads the counters back once, the fault
-counters into ``Stats``.  The JAX package's bounded
-device-side fast paths (``run_to_target``, ``overlay_run_to_quiescence``)
-are not yet ported (ROADMAP A6); the driver runs the windowed loop, whose
-transcript the JAX package pins equal to its fast path's.
+counters into ``Stats``.
+
+The run-to-target paths, which the driver takes unless a printer
+observes every window without telemetry: ``overlay_run_to_quiescence``
+(bounded calls of the overlay's run loop; the split round's host loop
+at memory scale) and ``run_to_target`` (``base.run_bounded_to_target``
+over the engine's ``make_run_to_coverage_fn``).  Under ``-telemetry
+on`` (``Config.telemetry_enabled``) they record one row a window into
+the ``TelemetrySession``'s device histories (``_telem``), which the
+driver fetches once and replays through the printer.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from gossip_simulator_tpu_torch.backends.base import Stepper, WINDOW_MS
+from gossip_simulator_tpu_torch.backends.base import (Stepper, WINDOW_MS,
+                                                     run_bounded_to_target)
 from gossip_simulator_tpu_torch.config import Config
 from gossip_simulator_tpu_torch.models import (epidemic, event, graphs,
                                                overlay, overlay_ticks,
@@ -31,7 +40,9 @@ from gossip_simulator_tpu_torch.models import (epidemic, event, graphs,
 from gossip_simulator_tpu_torch.models.state import in_flight
 from gossip_simulator_tpu_torch.utils import interop
 from gossip_simulator_tpu_torch.utils import rng as _rng
+from gossip_simulator_tpu_torch.utils import trace as _trace
 from gossip_simulator_tpu_torch.utils.metrics import Stats
+from gossip_simulator_tpu_torch.utils.telemetry import TelemetrySession
 
 
 class DeviceUnavailable(RuntimeError):
@@ -77,6 +88,9 @@ class TorchStepper(Stepper):
         self._seed_fn = self._engine.make_seed_fn(cfg)
         window = 1 if cfg.effective_time_mode == "rounds" else WINDOW_MS
         self._window_fn = self._engine.make_window_fn(cfg, window)
+        self._run_fn = self._engine.make_run_to_coverage_fn(cfg)
+        self._telem = (TelemetrySession(cfg, dev) if cfg.telemetry_enabled
+                       else None)
         self._mailbox_dropped = 0
         self._seeded = False
         self.exhausted = False
@@ -102,14 +116,32 @@ class TorchStepper(Stepper):
         engine's round (the split round from SPLIT_ROUND_MIN_ROWS)."""
         cfg = self.cfg
         self._faithful = cfg.overlay_mode_resolved == "ticks"
+        self._osplit = False
         if self._faithful:
             self._omod = overlay_ticks
             self._oround = overlay_ticks.make_poll_fn(cfg)
         else:
             self._omod = overlay
+            self._osplit = overlay.use_split_round(cfg)
             self._oround = (overlay.make_split_round_fn(cfg)
-                            if overlay.use_split_round(cfg)
-                            else overlay.make_round_fn(cfg))
+                            if self._osplit else overlay.make_round_fn(cfg))
+        self._orun = None
+
+    def _round(self, box, base_key):
+        """One poll window (tick-faithful, in place) or one round (rounds
+        engine) on the state popped from `box`; returns the new state."""
+        if self._faithful:
+            return self._oround(box.pop(), base_key)
+        return self._oround(box, base_key)
+
+    def _advance_overlay(self) -> None:
+        """One window or round of overlay construction, the state handed
+        over in a popped box: no frame here keeps the old state's buffers
+        alive through the round."""
+        box = [self.ostate]
+        self.ostate = None
+        self.ostate = self._round(box, self.key)
+        self._overlay_rounds += 1
 
     def overlay_window(self) -> tuple[int, int, bool]:
         """One 10 ms poll window (tick-faithful) or one round (rounds
@@ -118,15 +150,8 @@ class TorchStepper(Stepper):
         once."""
         if self._overlay_done:
             return 0, 0, True
-        if self._faithful:
-            st = self._oround(self.ostate, self.key)
-        else:
-            # Handed over in a popped box: no frame here keeps the old
-            # state's buffers alive through the round.
-            box = [self.ostate]
-            self.ostate = None
-            self.ostate = st = self._oround(box, self.key)
-            self._overlay_rounds += 1
+        self._advance_overlay()
+        st = self.ostate
         # The split round reports quiescence from its write-time counts.
         q = getattr(self._oround, "last_quiesced", None)
         if q is None:
@@ -143,6 +168,86 @@ class TorchStepper(Stepper):
         if q:
             self._finish_overlay()
         return mk, bk, q
+
+    def overlay_run_to_quiescence(self, max_windows: int
+                                  ) -> tuple[int, bool]:
+        """Phase 1's run-to-quiescence path: bounded calls of the overlay's
+        run loop (``overlay.make_bounded_run`` on this stepper's window or
+        round, ``run_call_budget`` windows a call), recording one row a
+        window into the telemetry history; the split round (memory scale)
+        runs its host loop instead, its row recorded from the counters it
+        reads back every round anyway.  The trajectory is the windowed
+        loop's.  Returns (windows run, quiesced)."""
+        if self._overlay_done:
+            return 0, True
+        telem = self._telem
+        if self._osplit:
+            return self._split_run_to_quiescence(max_windows)
+        if self._orun is None:
+            self._orun = overlay.make_bounded_run(self._round,
+                                                  self._omod.quiesced)
+        budget = self._omod.run_call_budget(self.cfg)
+        hist = telem.begin_overlay(max_windows) if telem is not None else None
+        q = False
+        calls = 0
+        while True:
+            lim = min(budget, max_windows - self._overlay_rounds)
+            if lim <= 0:
+                break
+            t0 = time.perf_counter()
+            with _trace.span("phase1.compile+run" if calls == 0
+                             else "phase1.bounded_call",
+                             cat="device") as sp:
+                self.ostate, polls, q, hist = self._orun(
+                    [self.ostate], self.key, lim, hist)
+                if sp is not None:
+                    sp.update(windows=int(polls))
+            calls += 1
+            if telem is not None:
+                telem.tally_overlay_call(time.perf_counter() - t0)
+            self._overlay_rounds += polls
+            self._phase1_ms = (float(self.ostate.tick) if self._faithful
+                               else self._overlay_rounds * self._mean_delay)
+            if q:
+                break
+        if hist is not None:
+            telem.end_overlay(hist)
+        if q:
+            self._finish_overlay()
+        return self._overlay_rounds, q
+
+    def _split_run_to_quiescence(self, max_windows: int) -> tuple[int, bool]:
+        """The split round's host loop: a round, then its quiescence (from
+        the round's write-time counts, else one read) and, with
+        telemetry, its row read back and kept on the host."""
+        telem = self._telem
+        q = False
+        while self._overlay_rounds < max_windows:
+            t0 = time.perf_counter()
+            with _trace.span("phase1.split_round", cat="device"):
+                self._advance_overlay()
+            self._phase1_ms = self._overlay_rounds * self._mean_delay
+            st = self.ostate
+            q = getattr(self._oround, "last_quiesced", None)
+            if telem is not None:
+                mk, bk, dr = torch.stack([
+                    st.win_makeups, st.win_breakups,
+                    st.mailbox_dropped]).tolist()
+                telem.overlay_host_row([self._overlay_rounds, mk, bk, dr])
+                telem.tally_overlay_call(time.perf_counter() - t0)
+            if q is None:
+                q = bool(self._omod.quiesced(st))
+            if q:
+                break
+        if q:
+            self._finish_overlay()
+        return self._overlay_rounds, bool(q)
+
+    @property
+    def overlay_clock_scale(self) -> float:
+        """Simulated ms per recorded overlay clock unit: the tick-faithful
+        engine records ticks, the rounds engine rounds of mean delay."""
+        return 1.0 if getattr(self, "_faithful", True) else self._mean_delay
 
     def _finish_overlay(self) -> None:
         """Freeze the phase-1 clock, carry its drop count into the Stats,
@@ -204,13 +309,44 @@ class TorchStepper(Stepper):
         # infected healer), so heal-on runs never report exhaustion.  As in
         # the JAX package's windowed loop (-telemetry off), a stream whose
         # ring empties between two injections is exhausted here; its
-        # device loop's rule (an empty ring is not exhaustion up to the
-        # last injection's tick) is run_simulation's, in
-        # _telemetry_windows.
+        # run-to-target loop's rule (an empty ring is not exhaustion up to
+        # the last injection's tick) is base.run_bounded_to_target's.
         self.exhausted = (not live and self.cfg.protocol != "pushpull"
                           and not self.cfg.overlay_heal_resolved)
         stats.exhausted = self.exhausted
         return stats
+
+    def run_to_target(self) -> Stats:
+        """Phase 2's run-to-target path (base.run_bounded_to_target)."""
+        return run_bounded_to_target(self)
+
+    @property
+    def tick(self) -> int:
+        return self.state.tick
+
+    def progress(self) -> tuple[int, int, bool]:
+        """(tick, the loop's received count -- the worst rumor's under
+        -rumors --, a message in flight) in one host read."""
+        st, r = self.state, self.cfg.rumors
+        recv = (st.rumor_recv[:r].min() if self.cfg.multi_rumor
+                else st.total_received)
+        recv, live = torch.stack([recv.to(torch.int64),
+                                  in_flight(st).to(torch.int64)]).tolist()
+        return st.tick, recv, bool(live)
+
+    def reset_state(self) -> None:
+        """Rebuild phase-2 state from scratch on a static graph (same seed,
+        same trajectory) and drop the phase-2 history."""
+        cfg = self.cfg
+        if cfg.graph == "overlay":
+            raise ValueError("reset_state requires a static graph")
+        self.state = None
+        friends, cnt = graphs.generate(cfg, graphs.graph_key(cfg,
+                                                             self.device))
+        self.state = self._engine.init_state(cfg, friends, cnt)
+        self.exhausted = False
+        if self._telem is not None:
+            self._telem.reset_gossip()
 
     def stats_and_inflight(self) -> tuple[Stats, bool]:
         """All progress-window scalars in ONE device-to-host read."""

@@ -22,8 +22,11 @@ def main(argv: Optional[list[str]] = None) -> int:
     except DeviceUnavailable as e:
         print(f"gossip_simulator_tpu_torch: {e}", file=sys.stderr)
         return 1
-    result = run_simulation(cfg, printer=ProgressPrinter(enabled=cfg.progress),
-                            device=device)
+    # Context-managed, so a run that raises still flushes its JSONL log.
+    with ProgressPrinter(enabled=cfg.progress,
+                         jsonl_path=cfg.log_jsonl_resolved or None
+                         ) as printer:
+        result = run_simulation(cfg, printer=printer, device=device)
     return 0 if result.converged else 2
 
 

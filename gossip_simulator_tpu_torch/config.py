@@ -19,8 +19,12 @@ run's transcript matches it byte for byte.
 Every flag of the JAX package's parser is parsed here, and ``validate``
 rejects a value outside the slices by name with the ROADMAP item that
 ports it, e.g. ``-serve ... is not yet ported (ROADMAP A14)``.
-``-telemetry on`` (the default) reports phase 2 as the JAX package's
-device loop and replay do, ``-telemetry off`` as its windowed loop.
+The recording flags are the JAX package's too: ``-log-jsonl``,
+``-run-dir``, ``-trace``, ``-telemetry-summary``, ``-profile``,
+``-profile-dir`` and ``-xprof`` (``log_jsonl_resolved``,
+``trace_resolved``, ``resolved_gates``); ``-telemetry on`` (the
+default) runs the run-to-target paths with a device-recorded history,
+``-telemetry off`` the windowed loop.
 
 The engines' tuned constants (``tuning.py``'s registry defaults in the
 JAX package) are copied below as plain constants; the port has no tuning
@@ -32,6 +36,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import os
 from typing import Optional
 
 BACKENDS = ("native", "cpp", "jax", "sharded")
@@ -173,13 +178,16 @@ class Config:
     model: str = "si"
     pushsum_dim: int = 2  # value-vector length (1..8)
     pushsum_eps: float = 1e-3  # convergence: max relative error
-    # Parsed with the JAX package's spellings and defaults; a value away
-    # from its default names the ROADMAP item that ports it
-    # (UNPORTED_FLAGS).  "-telemetry" picks which of the JAX package's
-    # phase-2 transcripts the driver reproduces (driver.py).
+    # Device-recorded per-window telemetry (utils/telemetry.py): with it
+    # an observing run takes the run-to-target paths and replays the
+    # recorded windows; "off" keeps the windowed loop.  The spatial
+    # panels are not yet ported (UNPORTED_FLAGS).
     telemetry: str = "on"
     telemetry_spatial: str = "off"
     telemetry_summary: bool = False
+    # torch.profiler around phase 2 (-profile, its Chrome trace into
+    # -profile-dir) or around the whole run (-xprof DIR, one
+    # record_function a -trace span).
     profile: bool = False
     profile_dir: str = "/tmp/gossip-trace"
     xprof_dir: str = ""
@@ -404,6 +412,65 @@ class Config:
         kernel on the card, its plain version on the CPU)."""
         return "xla" if self.phase2_kernel == "xla" else "pallas"
 
+    @property
+    def telemetry_enabled(self) -> bool:
+        """Whether the run-to-target loops record a per-window history."""
+        return self.telemetry != "off" and self.backend in ("jax", "sharded")
+
+    @property
+    def telemetry_spatial_enabled(self) -> bool:
+        """Whether they would also record the spatial panels (not yet
+        ported: validate rejects -telemetry-spatial on)."""
+        return self.telemetry_spatial == "on" and self.telemetry_enabled
+
+    def resolved_gates(self) -> dict:
+        """The resolved gate set, stamped into run artifacts and the
+        terminal `result` record, in the JAX package's keys.  The kernel
+        gates are this port's resolution ("pallas": the kernel on the
+        card, its plain version on the CPU, where the JAX package says
+        "xla"); the port has no tuning table ("defaults") and no compile
+        budget ("none").  Only trajectory-affecting gates: telemetry and
+        the recording flags stay out, so twin runs' records agree."""
+        return {
+            "engine": self.engine_resolved,
+            "overlay_mode": self.overlay_mode_resolved,
+            "compact": self.compact_resolved,
+            "overlay_adaptive_chunks": self.overlay_adaptive_chunks_resolved,
+            "overlay_dead_skip": self.overlay_dead_skip_resolved,
+            "overlay_heal": self.overlay_heal_resolved,
+            "dup_suppress": self.dup_suppress_resolved,
+            "multi_rumor": self.multi_rumor,
+            "time_mode": self.effective_time_mode,
+            "model": self.model,
+            "deliver_kernel": self.deliver_kernel_resolved,
+            "phase2_kernel": self.phase2_kernel_resolved,
+            "phase1_kernel": self.phase1_kernel_resolved,
+            "exchange_pipeline": (self.exchange_pipeline_resolved
+                                  if self.backend == "sharded" else "off"),
+            "tuning_table": "defaults",
+            "compile_budget": "none",
+        }
+
+    @property
+    def log_jsonl_resolved(self) -> str:
+        """JSONL destination: -log-jsonl, else a -run-dir run's own
+        metrics.jsonl."""
+        if self.log_jsonl:
+            return self.log_jsonl
+        if self.run_dir:
+            return os.path.join(self.run_dir, "metrics.jsonl")
+        return ""
+
+    @property
+    def trace_resolved(self) -> str:
+        """Trace destination: -trace, else a -run-dir run's own
+        trace.json."""
+        if self.trace:
+            return self.trace
+        if self.run_dir:
+            return os.path.join(self.run_dir, "trace.json")
+        return ""
+
     def validate(self) -> "Config":
         if self.n < 2:
             raise ValueError(f"n must be >= 2, got {self.n}")
@@ -486,6 +553,16 @@ class Config:
                 or self.effective_time_mode != "ticks"):
             raise ValueError(
                 "engine=event supports protocol=si|sir in ticks mode only")
+        if self.telemetry not in ("on", "off"):
+            raise ValueError(
+                f"telemetry must be on|off, got {self.telemetry!r}")
+        if self.telemetry_spatial not in ("on", "off"):
+            raise ValueError(f"telemetry_spatial must be on|off, got "
+                             f"{self.telemetry_spatial!r}")
+        if self.telemetry_spatial == "on" and self.telemetry == "off":
+            raise ValueError(
+                "-telemetry-spatial on records panels on the telemetry "
+                "fast path; it cannot run with -telemetry off")
         self._validate_rumors()
         self._validate_pushsum()
         self._validate_faults()
@@ -712,13 +789,6 @@ class Config:
 # spelling and the ROADMAP item that ports it.
 UNPORTED_FLAGS = {
     "telemetry_spatial": ("-telemetry-spatial", "A6"),
-    "telemetry_summary": ("-telemetry-summary", "A6"),
-    "profile": ("-profile", "A6"),
-    "profile_dir": ("-profile-dir", "A6"),
-    "xprof_dir": ("-xprof", "A6"),
-    "run_dir": ("-run-dir", "A6"),
-    "trace": ("-trace", "A6"),
-    "log_jsonl": ("-log-jsonl", "A6"),
     "checkpoint_every": ("-checkpoint-every", "A7"),
     "checkpoint_dir": ("-checkpoint-dir", "A7"),
     "resume": ("-resume", "A7"),
@@ -843,8 +913,9 @@ def _build_parser() -> argparse.ArgumentParser:
     _flag(p, "exchange-pipeline", dest="exchange_pipeline",
           choices=("auto", "off", "double"), default=d.exchange_pipeline)
     _flag(p, "telemetry", choices=("on", "off"), default=d.telemetry,
-          help="on: phase 2 reported as the JAX package's device loop "
-               "replays it; off: as its windowed loop")
+          help="on: the run-to-target paths record every poll window "
+               "on the device and replay it through the printer; off: the "
+               "windowed loop")
     _flag(p, "telemetry-spatial", dest="telemetry_spatial",
           choices=("on", "off"), default=d.telemetry_spatial)
     _flag(p, "telemetry-summary", dest="telemetry_summary",

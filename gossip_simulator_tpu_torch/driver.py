@@ -1,24 +1,32 @@
 """Two-phase driver: overlay construction, then epidemic broadcast.
 
-The port's trimmed copy of the JAX package's ``driver.py``: the
-reference-format transcript (simulator.go:207-255), the explicit-gate
-and estimated-clock notes, the windowed phase-1 loop (one line per poll
-window or round until the overlay quiesces; a static graph quiesces at
-once), phase 2 as the JAX package's default run reports it (the
-transcript of its device loop's replay under ``-telemetry on``, its
-windowed loop under ``-telemetry off``, each with its max-rounds bound),
-and the final totals, on one device (``TorchStepper``) or on S shards of it
-(``ShardedStepper``, ``-backend sharded``).  JSONL, traces, checkpoints,
-serving and supervision are not yet ported; a PushSum run's result
-payload (the JAX package's JSONL-only ``pushsum.report``) and a
-multi-rumor run's serving report (its ``_multi_rumor_report``) come back
-in ``RunResult.report``.
+The port's copy of the JAX package's ``driver.py`` (simulator.go:207-255):
+the reference-format transcript, the explicit-gate and estimated-clock
+notes, phase 1 to quiescence and phase 2 to the coverage target with its
+max-rounds bound, and the final totals, on one device (``TorchStepper``)
+or on S shards of it (``ShardedStepper``, ``-backend sharded``).
+
+Each phase takes the stepper's run-to-target path (phase 1
+``overlay_run_to_quiescence``, phase 2 ``run_to_target``) unless a
+printer observes every window without telemetry; under ``-telemetry on``
+the path records every window on the device and the driver replays the
+fetched history through the printer, so stdout and JSONL are the
+windowed loop's (``_windowed``, kept for ``-telemetry off``).  The run
+leaves the JAX package's records: the JSONL log (``-log-jsonl``) with its
+terminal ``result`` record (Stats, gates, the multi-rumor or PushSum
+report, ``phases_s``) and ``telemetry`` record, the ``-telemetry-summary``
+block, the ``-run-dir`` artifact with its trajectory fingerprint, the
+``-trace`` spans, and ``torch.profiler`` traces (``-profile`` around
+phase 2, ``-xprof`` around the run).  Checkpoints, serving and
+supervision are not yet ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import math
+import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -27,6 +35,8 @@ from gossip_simulator_tpu_torch import arrivals as _arrivals
 from gossip_simulator_tpu_torch.backends import (ShardedStepper, Stepper,
                                                  TorchStepper, WINDOW_MS)
 from gossip_simulator_tpu_torch.config import Config
+from gossip_simulator_tpu_torch.utils import telemetry as _telemetry
+from gossip_simulator_tpu_torch.utils import trace as _trace
 from gossip_simulator_tpu_torch.utils.metrics import ProgressPrinter, Stats
 
 
@@ -40,7 +50,8 @@ class RunResult:
     gossip_windows: int
     # -model pushsum: models.pushsum.report's dict (converged_eps,
     # eps_ticks, relerr_ppb); -rumors R / -traffic stream: the serving
-    # report (multi_rumor_report); None otherwise.
+    # report (multi_rumor_report); None otherwise.  Both are also in the
+    # JSONL result record.
     report: Optional[dict] = None
 
 
@@ -50,7 +61,27 @@ def run_simulation(cfg: Config, printer: Optional[ProgressPrinter] = None,
     """Run both phases on `device` ("cuda" by default; "cpu" on request).
     A missing card raises; nothing falls back to the CPU."""
     cfg = cfg.validate()
-    printer = printer or ProgressPrinter(enabled=cfg.progress)
+    own_printer = printer is None
+    printer = printer or ProgressPrinter(
+        enabled=cfg.progress, jsonl_path=cfg.log_jsonl_resolved or None)
+    tracer = None
+    if cfg.trace_resolved or cfg.xprof_dir:
+        tracer = _trace.Tracer(path=cfg.trace_resolved,
+                               xprof_dir=cfg.xprof_dir)
+    try:
+        with _trace.activated(tracer):
+            return _run(cfg, printer, stepper, device)
+    finally:
+        # On any exit, so a raised run still writes what it got through.
+        if tracer is not None and tracer.path:
+            tracer.write(metadata={"n": cfg.n, "backend": cfg.backend,
+                                   "seed": cfg.seed})
+        if own_printer:
+            printer.close()
+
+
+def _run(cfg: Config, printer: ProgressPrinter, stepper: Optional[Stepper],
+         device) -> RunResult:
     if stepper is None:
         stepper = (ShardedStepper(cfg, device=device)
                    if cfg.backend == "sharded"
@@ -80,7 +111,16 @@ def run_simulation(cfg: Config, printer: Optional[ProgressPrinter] = None,
     if cfg.phase1_kernel != "auto":
         printer.note(f"phase1-kernel: {cfg.phase1_kernel_resolved} "
                      f"(requested {cfg.phase1_kernel})")
-    stepper.init()
+    t_init = time.perf_counter()
+    with _trace.span("init", cat="phase"):
+        stepper.init()
+    # The telemetry session lets an observing run take the run-to-target
+    # paths: they record every window on the device, replayed below
+    # through the same printer calls.
+    telem = getattr(stepper, "_telem", None)
+    if telem is not None:
+        telem.add_phase("init_s", time.perf_counter() - t_init)
+    fast_ok = not printer.observing or telem is not None
 
     # --- Phase 1: overlay (simulator.go:219-235) ----------------------------
     printer.section("Constructing Overlay")
@@ -95,15 +135,35 @@ def run_simulation(cfg: Config, printer: Optional[ProgressPrinter] = None,
                      "faithful timing at ~2x the cost")
     max_overlay_windows = max(cfg.max_rounds, 1000)
     overlay_windows = 0
-    while True:
-        makeups, breakups, quiesced = stepper.overlay_window()
-        overlay_windows += 1
-        if quiesced:
-            break
-        printer.overlay_window(breakups, makeups, stepper.sim_time_ms())
-        if overlay_windows >= max_overlay_windows:
+    if fast_ok and hasattr(stepper, "overlay_run_to_quiescence"):
+        with _trace.span("phase1.quiesce", cat="phase") as sp:
+            overlay_windows, oq = stepper.overlay_run_to_quiescence(
+                max_overlay_windows)
+            if sp is not None:
+                sp["windows"] = int(overlay_windows)
+        if not oq:
             raise RuntimeError(f"overlay did not stabilize within "
                                f"{max_overlay_windows} windows")
+        # A static graph quiesces without a window; the windowed loop
+        # counts its one quiesced poll.
+        overlay_windows = max(overlay_windows, 1)
+        if telem is not None and printer.observing:
+            _telemetry.replay_overlay(
+                printer, telem.overlay_snapshot(),
+                clock_scale=getattr(stepper, "overlay_clock_scale", 1.0))
+    else:
+        while True:
+            with _trace.span("phase1.window", cat="window") as sp:
+                makeups, breakups, quiesced = stepper.overlay_window()
+                if sp is not None:
+                    sp.update(makeups=int(makeups), breakups=int(breakups))
+            overlay_windows += 1
+            if quiesced:
+                break
+            printer.overlay_window(breakups, makeups, stepper.sim_time_ms())
+            if overlay_windows >= max_overlay_windows:
+                raise RuntimeError(f"overlay did not stabilize within "
+                                   f"{max_overlay_windows} windows")
     stabilize_ms = stepper.sim_time_ms()
     printer.stabilized(stabilize_ms)
 
@@ -111,11 +171,29 @@ def run_simulation(cfg: Config, printer: Optional[ProgressPrinter] = None,
     printer.section("Broadcast one message")
     stepper.seed()
     target = cfg.coverage_target
-    if cfg.telemetry == "on":
-        gossip_windows = _telemetry_windows(cfg, stepper, printer)
-        converged = False
-    else:
-        gossip_windows, converged = _windowed(cfg, stepper, printer)
+    window_rounds = WINDOW_MS if cfg.effective_time_mode == "ticks" else 1
+    # Per-window trajectory rows for the run artifact, when the windowed
+    # loop runs (the run-to-target path's come from its history).
+    window_rows: list = []
+    with _maybe_profile(cfg):
+        if fast_ok and hasattr(stepper, "run_to_target"):
+            with _trace.span("phase2.run_to_target", cat="phase") as sp:
+                stats = stepper.run_to_target()
+                if sp is not None:
+                    sp.update(rounds=int(stats.round),
+                              messages=int(stats.total_message),
+                              received=int(stats.total_received))
+            hist2 = telem.gossip_snapshot() if telem is not None else None
+            if hist2 and printer.observing:
+                _telemetry.replay_gossip(printer, hist2, n=cfg.n)
+            gossip_windows = (hist2["count"]
+                              if hist2 and not hist2["truncated"]
+                              else -(-stats.round // window_rounds))
+            converged = stats.coverage >= target
+        else:
+            gossip_windows, converged = _windowed(
+                cfg, stepper, printer,
+                window_rows if cfg.run_dir else None)
     coverage_ms = stepper.sim_time_ms()
     stats = stepper.stats()
     converged = converged or stats.coverage >= target
@@ -130,10 +208,84 @@ def run_simulation(cfg: Config, printer: Optional[ProgressPrinter] = None,
         from gossip_simulator_tpu_torch.models import pushsum
 
         report = pushsum.report(stepper)
+    # The terminal record: the RunResult, attribution (artifact dir,
+    # resolved gates) and the wall breakdown, JSONL-only.
+    payload = {
+        "converged": converged,
+        "stabilize_ms": stabilize_ms, "coverage_ms": coverage_ms,
+        "overlay_windows": overlay_windows,
+        "gossip_windows": gossip_windows,
+        "reason": None if converged else reason,
+        "run_dir": os.path.abspath(cfg.run_dir) if cfg.run_dir else None,
+        "gates": cfg.resolved_gates(),
+        **stats.to_dict(),
+        **(report or {}),
+    }
+    if telem is not None:
+        payload["phases_s"] = {k: round(v, 6)
+                               for k, v in sorted(telem.phases.items())}
+    printer.result(payload)
+    if telem is not None:
+        summary = _telemetry.TelemetryReport(
+            n=cfg.n, phases=telem.phases, overlay=telem.overlay_snapshot(),
+            gossip=telem.gossip_snapshot(),
+            overlay_clock_scale=getattr(stepper, "overlay_clock_scale", 1.0))
+        printer.telemetry(summary.summary())
+        if cfg.telemetry_summary:
+            printer.block(summary.summary_block())
+    if cfg.run_dir:
+        _write_run_dir(cfg, telem, window_rows, payload, stats,
+                       getattr(stepper, "device", None))
     return RunResult(stats=stats, stabilize_ms=stabilize_ms,
                      coverage_ms=coverage_ms, converged=converged,
                      overlay_windows=overlay_windows,
                      gossip_windows=gossip_windows, report=report)
+
+
+def _write_run_dir(cfg: Config, telem, window_rows: list, payload: dict,
+                   stats: Stats, device=None) -> None:
+    """Write the -run-dir artifact (utils/artifact.py).  The trajectory is
+    the device-recorded history's ("telemetry"), else the windowed loop's
+    rows ("windows"), else one final-Stats row ("final"), and the basis is
+    named so compare_runs never takes one for another."""
+    from gossip_simulator_tpu_torch.utils import artifact
+
+    rdir = artifact.RunDir(cfg.run_dir)
+    hist_o = telem.overlay_snapshot() if telem is not None else None
+    hist_g = telem.gossip_snapshot() if telem is not None else None
+    traj = artifact.trajectory_from_history(hist_g)
+    basis = "telemetry"
+    if traj is None:
+        traj = artifact.trajectory_from_rows(window_rows)
+        basis = "windows"
+    if traj is None:
+        traj = artifact.trajectory_from_rows(
+            [(stats.round, stats.total_received, stats.total_message,
+              stats.total_crashed, stats.total_removed)])
+        basis = "final"
+    rdir.write_config(cfg)
+    rdir.write_env(device=device)
+    rdir.write_telemetry(hist_o, hist_g, traj)
+    rdir.write_result({
+        **payload,
+        "fingerprint": artifact.fingerprint_rows(traj),
+        "fingerprint_windows": int(traj.shape[0]),
+        "fingerprint_basis": basis,
+    })
+
+
+@contextlib.contextmanager
+def _maybe_profile(cfg: Config):
+    """-profile: phase 2 under torch.profiler, its Chrome trace written
+    into -profile-dir (inside an -xprof profile, that one records it)."""
+    tracer = _trace.active()
+    if not cfg.profile or (tracer is not None and tracer.xprof_dir):
+        yield
+        return
+    prof = _trace.start_profile()
+    with prof:
+        yield
+    _trace.write_profile(prof, cfg.profile_dir)
 
 
 def latency_summary(lat) -> dict:
@@ -178,11 +330,12 @@ def multi_rumor_report(cfg: Config, stepper: Stepper, stats: Stats,
     return out
 
 
-def _windowed(cfg: Config, stepper: Stepper,
-              printer: ProgressPrinter) -> tuple[int, bool]:
-    """The windowed loop (the JAX package's under ``-telemetry off``): a
+def _windowed(cfg: Config, stepper: Stepper, printer: ProgressPrinter,
+              rows: Optional[list] = None) -> tuple[int, bool]:
+    """The windowed loop (``-telemetry off`` with an observing printer): a
     window, its coverage line (``Stats.coverage``: the worst rumor's under
-    ``-rumors``), then the target and exhaustion checks; returns (windows,
+    ``-rumors``), then the target and exhaustion checks; each window's
+    trajectory row is appended to `rows` when given.  Returns (windows,
     converged)."""
     # max_rounds caps simulated time at window granularity: windows of
     # WINDOW_MS ticks, or of one round in rounds mode.
@@ -190,8 +343,18 @@ def _windowed(cfg: Config, stepper: Stepper,
     max_windows = max(0, -(-cfg.max_rounds // window_rounds))
     windows = 0
     while windows < max_windows:
-        stats = stepper.gossip_window()
+        with _trace.span("phase2.window", cat="window") as sp:
+            stats = stepper.gossip_window()
+            if sp is not None:
+                sp.update(round=int(stats.round),
+                          received=int(stats.total_received),
+                          messages=int(stats.total_message),
+                          dropped=int(stats.mailbox_dropped))
         windows += 1
+        if rows is not None:
+            rows.append((stats.round, stats.total_received,
+                         stats.total_message, stats.total_crashed,
+                         stats.total_removed))
         printer.coverage_window(round(stats.coverage * 100.0, 4),
                                 stepper.sim_time_ms())
         if stats.coverage >= cfg.coverage_target:
@@ -199,48 +362,3 @@ def _windowed(cfg: Config, stepper: Stepper,
         if getattr(stepper, "exhausted", False):
             break  # no messages in flight and nothing can change
     return windows, False
-
-
-def _telemetry_windows(cfg: Config, stepper: Stepper,
-                       printer: ProgressPrinter) -> int:
-    """What the JAX package's default run (``-telemetry on``) prints: its
-    device loop (``run_bounded_to_target``) tests before each window that
-    the target count ``ceil(coverage_target * n)`` is unmet (the worst
-    rumor's count under ``-rumors``), the tick below ``-max-rounds`` and a
-    message in flight (PushSum: or the first batch not yet sent; not under
-    ``-overlay-heal on``, where healing can revive an empty ring; on the
-    event engine under ``-rumors`` or ``-traffic stream``, or while the
-    tick is at most the last injection's), and its replay
-    (``telemetry.replay_gossip``) prints each window's coverage as
-    ``total_received / n``.  So a broadcast that dies at once prints no
-    window line.  Exhaustion is the final state's empty ring (under
-    ``-rumors``, past the last injection's tick; never under healing).
-    Returns the windows run."""
-    from gossip_simulator_tpu_torch.models import event
-
-    target = math.ceil(cfg.coverage_target * cfg.n)
-    first_batch = event.batch_ticks(cfg) if cfg.model == "pushsum" else 0
-    pushpull = cfg.protocol == "pushpull"
-    heal = cfg.overlay_heal_resolved
-    # The event engine injects its rumors inside the window step.
-    last_inj = (cfg.last_inject_tick
-                if cfg.multi_rumor and cfg.engine_resolved == "event"
-                else -1)
-    stats, live = stepper.stats_and_inflight()
-    windows = 0
-    while True:
-        recv = (stats.rumor_min_recv if cfg.multi_rumor
-                else stats.total_received)
-        alive = (live or pushpull or heal or stats.round < first_batch
-                 or stats.round <= last_inj)
-        if recv >= target or stats.round >= cfg.max_rounds or not alive:
-            break
-        stats = stepper.gossip_window()
-        live = not stepper.exhausted
-        windows += 1
-        pct = (stats.total_received / cfg.n if cfg.n else 0.0) * 100.0
-        printer.coverage_window(round(pct, 4), float(stats.round))
-    stepper.exhausted = (not live and not pushpull and not heal
-                         and (not cfg.multi_rumor
-                              or stats.round > cfg.last_inject_tick))
-    return windows

@@ -37,8 +37,8 @@ Fault scenarios (``scenario.py``) apply at each tick's start
 crash clock in ``down_since``), the partition mask drops the wave's
 edges at their send tick (``part_dropped``), and with ``-overlay-heal
 on`` a healing pass (``make_heal_fn``) deposits the re-sends and rejoin
-pulls after each window.  The device-side fast path is not yet ported
-(ROADMAP A6).
+pulls after each window.  ``make_run_to_coverage_fn`` is the
+run-to-target loop (poll windows, tested before each).
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ import torch
 
 from gossip_simulator_tpu_torch import scenario as _scen
 from gossip_simulator_tpu_torch.config import Config
-from gossip_simulator_tpu_torch.models.state import SimState
+from gossip_simulator_tpu_torch.models.state import SimState, in_flight
 from gossip_simulator_tpu_torch.ops import deliver, megakernel
 from gossip_simulator_tpu_torch.utils import rng as _rng
 
@@ -689,3 +689,57 @@ def make_window_fn(cfg: Config, window: int):
         return st
 
     return window_fn
+
+
+def run_call_budget(cfg: Config) -> int:
+    """Ticks per bounded call of the run-to-target loop (the JAX package's
+    budget, which kept one device call under its runtime's watchdog):
+    push-pull by lanes (n * 2 fanout peer draws a round), the rest by
+    3.3e9 / n, both capped at 1024.  The trajectory does not depend on
+    it: keys are by tick."""
+    if cfg.protocol == "pushpull":
+        return max(1, min(cfg.max_rounds, 1024,
+                          int(1.5e9 // max(1, 2 * cfg.fanout * cfg.n))))
+    return max(64, min(cfg.max_rounds, 1024, int(3.3e9 // max(cfg.n, 1))))
+
+
+def make_run_to_coverage_fn(cfg: Config):
+    """The JAX package's run-to-target while_loop as a host loop of poll
+    windows (one round in rounds mode, 10 ticks in ticks mode): before
+    each window, the target count (the worst rumor's under -rumors), the
+    tick below max_rounds and below `until`, and a message in flight (not
+    under push-pull, which draws fresh peers every round, nor under
+    -overlay-heal on); then the window and its heal, and with a History
+    one gossip_probe row.  One host read a window for the test.
+    run_fn(st, key, target, until, hist) -> (st, hist)."""
+    from gossip_simulator_tpu_torch.utils import telemetry as telem
+
+    window = make_window_fn(
+        cfg, 1 if cfg.effective_time_mode == "rounds" else 10)
+    max_steps = cfg.max_rounds
+    check_in_flight = (cfg.protocol != "pushpull"
+                       and not cfg.overlay_heal_resolved)
+    multi = cfg.multi_rumor
+    rumors = cfg.rumors
+    sir = cfg.protocol == "sir"
+
+    def live(st: SimState, target_count: int, until: int) -> bool:
+        if st.tick >= max_steps or st.tick >= until:
+            return False
+        recv = st.rumor_recv[:rumors].min() if multi else st.total_received
+        if not check_in_flight:
+            return int(recv) < target_count
+        recv, alive = torch.stack([recv.to(torch.int64),
+                                   in_flight(st).to(torch.int64)]).tolist()
+        return recv < target_count and bool(alive)
+
+    def run_fn(st: SimState, base_key, target_count: int, until: int,
+               hist=None):
+        while live(st, target_count, until):
+            window(st, base_key)
+            if hist is not None:
+                telem.record(hist, telem.gossip_probe(
+                    st, sir, rumors=rumors if multi else 0))
+        return st, hist
+
+    return run_fn

@@ -67,6 +67,7 @@ from gossip_simulator_tpu_torch import config as _config
 from gossip_simulator_tpu_torch import scenario as _scen
 from gossip_simulator_tpu_torch.config import Config
 from gossip_simulator_tpu_torch.models import epidemic
+from gossip_simulator_tpu_torch.models.state import in_flight
 from gossip_simulator_tpu_torch.ops import deliver, mailbox, megakernel
 from gossip_simulator_tpu_torch.utils import rng as _rng
 
@@ -1012,6 +1013,50 @@ def make_window_fn(cfg: Config, window: int):
         return st
 
     return window_fn
+
+
+def make_run_to_coverage_fn(cfg: Config):
+    """The run-to-target loop of the JAX package's device while_loop, as a
+    host loop of poll windows: before each window, the target count (the
+    worst rumor's under -rumors), the tick below max_rounds and below
+    `until`, and a message in flight (not under -overlay-heal on, where
+    healing can revive an empty ring; under -rumors also while the tick
+    is at most the last injection's); then the window and its heal, and
+    with a History one gossip_probe row.  The test reads its two device
+    scalars in one host read a window; a window the JAX package's loop
+    would not run is never run.  run_fn(st, key, target, until, hist)
+    -> (st, hist)."""
+    from gossip_simulator_tpu_torch.utils import telemetry as telem
+
+    window = make_window_fn(cfg, 10)
+    max_steps = cfg.max_rounds
+    check_in_flight = not cfg.overlay_heal_resolved
+    multi = cfg.multi_rumor
+    rumors = cfg.rumors
+    last_inj = cfg.last_inject_tick
+    sir = cfg.protocol == "sir"
+
+    def live(st: EventState, target_count: int, until: int) -> bool:
+        if st.tick >= max_steps or st.tick >= until:
+            return False
+        recv = st.rumor_recv[:rumors].min() if multi else st.total_received
+        if not check_in_flight:
+            return int(recv) < target_count
+        recv, alive = torch.stack([recv.to(I64),
+                                   in_flight(st).to(I64)]).tolist()
+        return recv < target_count and bool(
+            alive or (multi and st.tick <= last_inj))
+
+    def run_fn(st: EventState, base_key, target_count: int, until: int,
+               hist=None):
+        while live(st, target_count, until):
+            window(st, base_key)
+            if hist is not None:
+                telem.record(hist, telem.gossip_probe(
+                    st, sir, rumors=rumors if multi else 0))
+        return st, hist
+
+    return run_fn
 
 
 def removed_count(st) -> torch.Tensor:

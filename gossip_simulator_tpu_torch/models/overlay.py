@@ -516,3 +516,37 @@ def quiesced(st: OverlayState) -> torch.Tensor:
     round 0."""
     return ((st.win_makeups == 0) & (st.win_breakups == 0)
             & (pending_emissions(st) == 0) & (st.round > 0))
+
+
+def run_call_budget(cfg: Config) -> int:
+    """Rounds per bounded call of overlay_run_to_quiescence (the JAX
+    package's watchdog budget: 4e7 / n, capped at 1024)."""
+    return max(1, min(1024, int(4e7 // max(cfg.n, 1))))
+
+
+def make_bounded_run(round_fn, quiesced_fn):
+    """The phase-1 run-to-quiescence loop: up to `max_polls` windows a
+    call, testing quiescence before each (so an overlay already quiesced
+    runs none), each window's quiescence read back in one host read, and
+    with a History one overlay_probe row a window.  `round_fn(box, key)`
+    pops the state from its one-element list (no caller frame keeps the
+    old buffers alive through a round).  run_fn(box, key, max_polls,
+    hist) -> (st, polls, quiesced, hist); keys are by round or tick, so
+    the trajectory is the windowed loop's."""
+    from gossip_simulator_tpu_torch.utils import telemetry as telem
+
+    def run_fn(box, base_key, max_polls: int, hist=None):
+        st = box.pop()
+        polls = 0
+        q = bool(quiesced_fn(st))
+        while polls < max_polls and not q:
+            box = [st]
+            st = None
+            st = round_fn(box, base_key)
+            polls += 1
+            if hist is not None:
+                telem.record(hist, telem.overlay_probe(st))
+            q = bool(quiesced_fn(st))
+        return st, polls, q, hist
+
+    return run_fn

@@ -322,3 +322,9 @@ def quiesced(st: OverlayTickState) -> torch.Tensor:
     return ((st.win_makeups == 0) & (st.win_breakups == 0)
             & ~torch.any(st.ring_cnt > 0) & ~torch.any(st.spill[1] >= 0)
             & (st.tick > 0))
+
+
+def run_call_budget(cfg: Config) -> int:
+    """Poll windows per bounded call of overlay_run_to_quiescence (the
+    JAX package's watchdog budget: 2e7 / n, capped at 1024)."""
+    return max(1, min(1024, int(2e7 // max(cfg.n, 1))))

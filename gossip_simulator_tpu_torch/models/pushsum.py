@@ -53,6 +53,7 @@ import torch
 from gossip_simulator_tpu_torch import scenario as _scen
 from gossip_simulator_tpu_torch.config import Config
 from gossip_simulator_tpu_torch.models import event
+from gossip_simulator_tpu_torch.models.state import in_flight
 from gossip_simulator_tpu_torch.ops import mailbox, megakernel
 from gossip_simulator_tpu_torch.utils import rng as _rng
 
@@ -524,6 +525,39 @@ def make_window_fn(cfg: Config, window: int):
         return st
 
     return window_fn
+
+
+def make_run_to_coverage_fn(cfg: Config):
+    """event.make_run_to_coverage_fn's loop for PushSum: total_received
+    counts the converged-or-crashed nodes, and the in-flight term holds
+    only past the first batch (the ring is empty before the first
+    emission); each row carries the relerr_ppb column."""
+    from gossip_simulator_tpu_torch.utils import telemetry as telem
+
+    window = make_window_fn(cfg, 10)
+    max_steps = cfg.max_rounds
+    check_in_flight = not cfg.overlay_heal_resolved
+    b = batch_ticks(cfg)
+
+    def live(st: PushSumState, target_count: int, until: int) -> bool:
+        if st.tick >= max_steps or st.tick >= until:
+            return False
+        if not check_in_flight or st.tick < b:
+            return int(st.total_received) < target_count
+        recv, alive = torch.stack([st.total_received,
+                                   in_flight(st).to(torch.int64)]).tolist()
+        return recv < target_count and bool(alive)
+
+    def run_fn(st: PushSumState, base_key, target_count: int, until: int,
+               hist=None):
+        while live(st, target_count, until):
+            window(st, base_key)
+            if hist is not None:
+                telem.record(hist, telem.gossip_probe(
+                    st, False, relerr=st.relerr_ppb))
+        return st, hist
+
+    return run_fn
 
 
 def report(stepper) -> dict:

@@ -36,8 +36,9 @@ Differences from the single-device engine, as in the JAX package:
 Not yet ported: the pipelined schedule (``-exchange-pipeline double``,
 ROADMAP A13), the sharded fault branches (scenarios and healing run on
 one device; their sharded heal and exchange-route partition mask are
-A13), the rumor words (A11), the device fast path and spatial panels
-(A6).
+A13), the rumor words (A11) and the spatial panels (the rest of A6,
+with A13).  The run-to-target loop (``make_run_to_coverage_fn``) runs
+the lockstep shard list a poll window at a time.
 """
 
 from __future__ import annotations
@@ -403,3 +404,37 @@ def make_window_fn(cfg: Config, mesh: Mesh, window: int):
         return states
 
     return window_fn
+
+
+def make_run_to_coverage_fn(cfg: Config, mesh: Mesh):
+    """The sharded event engine's run-to-target loop
+    (event.make_run_to_coverage_fn's test, the in-flight term over every
+    shard), the lockstep shard list run a poll window at a time; the
+    probe reads the replicated totals from shard 0, the removed count
+    summed and the mail high-water largest over the shards."""
+    from gossip_simulator_tpu_torch.models.state import in_flight
+    from gossip_simulator_tpu_torch.utils import telemetry as telem
+
+    window = make_window_fn(cfg, mesh, 10)
+    max_steps = cfg.max_rounds
+    ihwm = exchange.inflight_hwm(mesh.n_shards)
+    sir = cfg.protocol == "sir"
+
+    def live(states, target_count: int, until: int) -> bool:
+        st = states[0]
+        if st.tick >= max_steps or st.tick >= until:
+            return False
+        alive = torch.stack([in_flight(x) for x in states]).any()
+        recv, alive = torch.stack([st.total_received,
+                                   alive.to(torch.int64)]).tolist()
+        return recv < target_count and bool(alive)
+
+    def run_fn(states, base_key, target_count: int, until: int, hist=None):
+        while live(states, target_count, until):
+            window(states, base_key)
+            if hist is not None:
+                telem.record(hist, telem.gossip_probe(
+                    states[0], sir, inflight_hwm=ihwm, shards=states))
+        return states, hist
+
+    return run_fn

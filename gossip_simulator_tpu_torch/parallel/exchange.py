@@ -41,6 +41,13 @@ RANK_MAX_SHARDS = 16
 CHERNOFF_PAD = 8
 
 
+def inflight_hwm(n_shards: int) -> int:
+    """Exchange buffers alive at once (the telemetry column
+    exchange_inflight_hwm): 0 without an exchange (S = 1 routes are the
+    identity), 1 on the serial route-then-drain schedule."""
+    return 0 if n_shards <= 1 else 1
+
+
 def _bucket_pack(payloads, dest, valid, n_shards: int, cap: int,
                  sort_buckets: bool | None):
     """One source shard's send buffers: a ``(S, cap[, W])`` buffer per

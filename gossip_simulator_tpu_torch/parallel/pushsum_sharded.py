@@ -20,8 +20,9 @@ computed per shard on the same rows, so nothing compiled by nvcc touches
 it.
 
 Not yet ported: the sharded fault branches (scenarios and healing run
-on one device; on shards they are ROADMAP A13), the device fast path and
-spatial panels (A6).
+on one device; on shards they are ROADMAP A13) and the spatial panels
+(the rest of A6).  ``make_run_to_coverage_fn`` is the run-to-target
+loop.
 """
 
 from __future__ import annotations
@@ -218,3 +219,38 @@ def make_seed_fn(cfg: Config, mesh: Mesh):
         return states
 
     return seed_fn
+
+
+def make_run_to_coverage_fn(cfg: Config, mesh: Mesh):
+    """The sharded PushSum run-to-target loop: the test of
+    pushsum.make_run_to_coverage_fn, its in-flight term over every shard
+    (past the first batch); the probe over every shard."""
+    from gossip_simulator_tpu_torch.models.state import in_flight
+    from gossip_simulator_tpu_torch.utils import telemetry as telem
+
+    window = make_window_fn(cfg, mesh, 10)
+    max_steps = cfg.max_rounds
+    ihwm = exchange.inflight_hwm(mesh.n_shards)
+    b = pushsum.batch_ticks(cfg)
+
+    def live(states, target_count: int, until: int) -> bool:
+        st = states[0]
+        if st.tick >= max_steps or st.tick >= until:
+            return False
+        if st.tick < b:
+            return int(st.total_received) < target_count
+        alive = torch.stack([in_flight(x) for x in states]).any()
+        recv, alive = torch.stack([st.total_received,
+                                   alive.to(torch.int64)]).tolist()
+        return recv < target_count and bool(alive)
+
+    def run_fn(states, base_key, target_count: int, until: int, hist=None):
+        while live(states, target_count, until):
+            window(states, base_key)
+            if hist is not None:
+                telem.record(hist, telem.gossip_probe(
+                    states[0], False, inflight_hwm=ihwm,
+                    relerr=states[0].relerr_ppb, shards=states))
+        return states, hist
+
+    return run_fn

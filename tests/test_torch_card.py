@@ -966,6 +966,45 @@ def test_run_on_card_matches_cpu(extra):
         assert np.array_equal(trees[0][key], trees[1][key]), key
 
 
+@pytest.mark.parametrize("extra", (
+    ["-graph", "overlay", "-fanout", "5", "-coverage-target", "0.9"],
+    [], ["-model", "pushsum", "-droprate", "0", "-crashrate", "0"],
+    ["-rumors", "16", "-crashrate", "0", "-coverage-target", "0.95"],
+    ["-engine", "ring", "-protocol", "sir", "-removal-rate", "0.3"]))
+def test_run_dir_on_card_matches_cpu(extra, tmp_path):
+    """The run-to-target paths' records on the card against the CPU's:
+    the same transcript (the summary's wall lines aside), the same
+    telemetry.npz arrays and trajectory fingerprint."""
+    import contextlib
+    import io
+    import json
+
+    from gossip_simulator_tpu_torch.cli import main
+    from gossip_simulator_tpu_torch.utils.artifact import load_run
+
+    _card()
+    outs, runs = [], []
+    for device in ("cpu", "cuda"):
+        rdir = tmp_path / device
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["-graph", "kout", "-n", "3000", "-fanout", "6", "-seed",
+                  "2", *extra, "-device", device, "-run-dir", str(rdir),
+                  "-telemetry-summary"])
+        outs.append([x for x in buf.getvalue().splitlines()
+                     if not x.startswith(("phases:", "throughput:"))])
+        runs.append(load_run(str(rdir)))
+        json.load(open(rdir / "trace.json"))
+    assert outs[0] == outs[1]
+    (cpu, card) = runs
+    assert card["result"]["fingerprint"] == cpu["result"]["fingerprint"]
+    assert card["result"]["fingerprint_basis"] == "telemetry"
+    assert card["env"]["backend_platform"] == "gpu"
+    assert sorted(card["telemetry"]) == sorted(cpu["telemetry"])
+    for key, arr in cpu["telemetry"].items():
+        assert np.array_equal(card["telemetry"][key], arr), key
+
+
 DEPOSIT_CASES = {
     "small": dict(), "r16": dict(r=16, n=700, k=6),
     "r33_two_words": dict(r=33, n=300, k=5),

@@ -156,9 +156,13 @@ def test_sir_dieout_exit_status():
     (["-graph", "kout", "-distributed"], "A13"),
     (["-graph", "kout", "-backend", "native"], "A16"),
     (["-graph", "kout", "-checkpoint-every", "1"], "A7"),
-    (["-graph", "kout", "-run-dir", "x"], "A6"),
-    (["-graph", "kout", "-trace", "t.json"], "A6"),
-    (["-graph", "kout", "-log-jsonl", "l.jsonl"], "A6"),
+    # The recording flags run (slice 15); the spatial panels they would
+    # carry stay refused beside each of them.
+    (["-graph", "kout", "-run-dir", "x", "-telemetry-spatial", "on"], "A6"),
+    (["-graph", "kout", "-trace", "t.json", "-telemetry-spatial", "on"],
+     "A6"),
+    (["-graph", "kout", "-log-jsonl", "l.jsonl", "-telemetry-spatial",
+      "on"], "A6"),
     # -pallas is ported (B13, B14), and so is the sharded event engine;
     # its pipelined exchange is not.
     (["-graph", "kout", "-pallas", "-backend", "sharded",
@@ -170,7 +174,8 @@ def test_sir_dieout_exit_status():
     # The reference flags the port parses without running them (C2).
     (["-graph", "kout", "-exchange-pipeline", "double"], "A13"),
     (["-graph", "kout", "-telemetry-spatial", "on"], "A6"),
-    (["-graph", "kout", "-telemetry-summary"], "A6"),
+    (["-graph", "kout", "-telemetry-summary", "-telemetry-spatial", "on"],
+     "A6"),
     (["-graph", "kout", "-backend", "sharded", "-overlay-heal", "on",
       "-heal-detect-ms", "50"], "A13"),
     (["-graph", "kout", "-traffic", "stream", "-stream-rate", "200",
@@ -185,9 +190,10 @@ def test_sir_dieout_exit_status():
     (["-graph", "kout", "-serve-force", "2@3"], "A14"),
     (["-graph", "kout", "-serve-max-defer", "100"], "A14"),
     (["-graph", "kout", "-ckpt-keep", "2"], "A7"),
-    (["-graph", "kout", "-profile"], "A6"),
-    (["-graph", "kout", "-profile-dir", "p"], "A6"),
-    (["-graph", "kout", "-xprof", "x"], "A6"),
+    (["-graph", "kout", "-profile", "-telemetry-spatial", "on"], "A6"),
+    (["-graph", "kout", "-profile-dir", "p", "-telemetry-spatial", "on"],
+     "A6"),
+    (["-graph", "kout", "-xprof", "x", "-telemetry-spatial", "on"], "A6"),
     (["-graph", "kout", "-coordinator", "localhost:1234"], "A13"),
     (["-graph", "kout", "-num-processes", "2"], "A13"),
     (["-graph", "kout", "-process-id", "0"], "A13"),
@@ -221,11 +227,26 @@ def test_every_reference_flag_parses():
         assert (port[opt].dest, port[opt].default) == (a.dest, a.default), opt
 
 
+@pytest.mark.parametrize("flags", (
+    ["-run-dir", "x"], ["-trace", "t.json"], ["-log-jsonl", "l.jsonl"],
+    ["-telemetry-summary"], ["-profile"], ["-profile-dir", "p"],
+    ["-xprof", "x"]))
+def test_recording_flags_are_ported(flags):
+    """The seven recording flags validate (slice 15) and resolve as the
+    JAX package's do: a -run-dir run logs and traces into its dir."""
+    cfg, _ = tcfg.parse_cli(["-graph", "kout", "-n", "300", *flags])
+    jc = jcfg.parse_args(["-graph", "kout", "-n", "300", *flags])
+    assert (cfg.log_jsonl_resolved, cfg.trace_resolved) == (
+        jc.log_jsonl_resolved, jc.trace_resolved)
+    assert cfg.telemetry_enabled and not cfg.telemetry_spatial_enabled
+
+
 @pytest.mark.parametrize("flags", (["-telemetry", "off"], ["-telemetry", "on"],
                                    ["-er-p", "0.01", "-graph", "erdos"]))
 def test_ported_reference_flags_run(flags):
-    """-telemetry off selects the windowed loop the port runs; -er-p sets
-    the erdos graph's mean degree."""
+    """-telemetry off selects the windowed loop, on the run-to-target
+    paths with the device history; -er-p sets the erdos graph's mean
+    degree."""
     cfg, _ = tcfg.parse_cli(["-graph", "kout", "-n", "300", *flags])
     assert cfg.er_p_resolved * cfg.n == (3.0 if "-er-p" in flags else
                                          cfg.fanout)
