@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases sharded        # the sharded backend
     python3 chip_smoke.py --phases faults         # fault scenarios, healing
     python3 chip_smoke.py --phases rumors_event   # multi-rumor traffic
+    python3 chip_smoke.py --phases checkpoint     # snapshots, -resume, SIGTERM
 
 Phases, each printing its own line:
 
@@ -110,9 +111,9 @@ Phases, each printing its own line:
               mailbox_dropped: the kout run (n = 1e7, fanout 6, coverage
               0.99), the default run at n = 1e7 (tick-faithful overlay),
               -overlay-mode rounds at n = 1e7 (the column band), and the
-              default run at n = 5e7 (two_phase_100m's split round,
+              default run at n = 3.2e7 (two_phase_100m's split round,
               static bootstrap and cap 8, its n cut from 1e8 for the time
-              limit) with its xla twin at 5e7; the 5e7 run also
+              limit) with its xla twin at 3.2e7; the 3.2e7 run also
               prints its rounds, spill peak, phase seconds and peak memory;
               then the ring engine: -time-mode rounds at n = 1e7 (the
               rounds overlay, then ring rounds with 6e7-lane deposits,
@@ -146,7 +147,8 @@ Phases, each printing its own line:
               Poisson rejection branch), each printing its transcript, wall
               seconds and peak memory; then the rows where graphs.erdos's
               table on the card parts from the CPU's at n = 1e6, lam 5, 8,
-              12 and 60, which must be none;
+              12 and 60, which must be none (the CPU's rows in the worker
+              processes, beside the four runs);
 8. sharded -- the sharded backend with SHARDS = 8 shards laid out on the
               card (config 5's mesh): fused_recv_land bit-exact to
               recv_land_plain at the sharded paths' shapes (sharded_10m's
@@ -163,7 +165,7 @@ Phases, each printing its own line:
               n = 1e7 under the default gates and -phase2-kernel xla (one
               transcript; fused_recv_land only under the first),
               pushsum10m with -backend sharded (mass conserved, nothing
-              dropped), and config 5 cut to n = 2e7 with its wall seconds,
+              dropped), and config 5 cut to n = 1.2e7 with its wall seconds,
               peak memory and the host seconds spent in the
               fused_recv_land wrapper;
 9. faults  -- fault scenarios and overlay healing under bench.py's
@@ -172,16 +174,17 @@ Phases, each printing its own line:
               on -graph kout -fanout 6 -crashrate 0, seed 0: cuda-vs-cpu
               twins at n = 20,000 of the runs below; at n = 1e7
               churn10m_heal (-overlay-heal on -coverage-target 0.99
-              -max-rounds 500: scen_crashed >= 0.2 n, heal_repaired > 0,
+              -max-rounds 250: scen_crashed >= 0.2 n, heal_repaired > 0,
               fused_emit with the partition mask and the heal's
               fused_ring_append launched) and churn10m_noheal (not
               converged, nothing repaired); at n = 1e6, the JAX package's
-              acceptance pair (bench.py's churn_1m rows): churn1m_heal
-              and its -phase2-kernel xla -deliver-kernel xla twin (one
-              transcript and Stats, no kernel) and churn1m_noheal (not
+              acceptance pair (bench.py's churn_1m rows, -max-rounds
+              1000): churn1m_heal and its -phase2-kernel xla
+              -deliver-kernel xla twin (one transcript and Stats, no
+              kernel) and churn1m_noheal (not
               converged, coverage < 0.97, nothing repaired; heal on
               converged or above it); at 1e7 ring_churn10m_heal to
-              -max-rounds 300 (-engine ring: fused_deposit_add) and
+              -max-rounds 250 (-engine ring: fused_deposit_add) and
               pushsum_churn10m (-model
               pushsum, heal on: Sigma x and Sigma w exactly the initial
               totals); each printing its wall, peak memory and fault
@@ -195,13 +198,13 @@ Phases, each printing its own line:
               bit-exact and timed as in phase 3; then, on bench.py's
               multirumor flags (-graph kout -fanout 6 -crashrate 0
               -coverage-target 0.95 -seed 0), cuda-vs-cpu twins at
-              20,000, and at n = 5e5 (bench.py's 1e6, cut for the time
-              limit) multirumor500k_r16 (-rumors 16) under the default
-              gates, -phase2-kernel xla and all-xla, stream500k (-rumors
+              20,000, and at n = 2.5e5 (bench.py's 1e6, cut for the time
+              limit) multirumor250k_r16 (-rumors 16) under the default
+              gates, -phase2-kernel xla and all-xla, stream250k (-rumors
               64 -traffic stream -stream-rate 100) under the default gates
               and all-xla (one transcript, Stats and report a run family),
-              stream500k_poisson, and churn500k_heal_r16 (the JAX package's
-              test_churn_partition_heal_r16 at 5e5) and its xla twin, those
+              stream250k_poisson, and churn250k_heal_r16 (the JAX package's
+              test_churn_partition_heal_r16 at 2.5e5) and its xla twin, those
               eight side by side in the worker processes; then
               multirumor50m_r16 at n = 5e7 once, alone, with
               -event-slot-cap 350000007 (7 n + 7, the largest slot the JAX
@@ -214,11 +217,33 @@ Phases, each printing its own line:
               fingerprint, one result.json Stats), then the default run
               and PushSum at n = 1e5 on the card against the same argv on
               the CPU in worker processes (equal telemetry.npz arrays and
-              fingerprints); each printing its wall and phases_s.
+              fingerprints); each printing its wall and phases_s;
+12. checkpoint -- snapshots, -resume and shutdown (the kout run's argv at
+              n = 1e7, 17 windows): (a) its windowed twin in phase 11
+              also takes -checkpoint-every 6 -ckpt-keep 2 (alone, the
+              phase runs it): exactly state_00000006 and state_00000012
+              are left, its transcript is the unflagged run's and its
+              result.json Stats the run-to-target run's; (b) -resume from
+              state_00000006 ends on (a)'s Stats with (a)'s lines for
+              windows 7-17, and at -event-chunk 262144 (a repack) keeps
+              every in-flight entry and converges; (c) the same snapshot
+              onto 8 shards of the card (-backend sharded) keeps every
+              in-flight (destination, slot, offset) entry, converges and
+              launches fused_recv_land; (d) the CLI in a subprocess gets
+              SIGTERM after its first coverage line: exit 2, reason
+              interrupted, one snapshot marked interrupted, from which
+              -resume ends on (a)'s Stats; (e) the default run at n = 1e6
+              (cut from 1e7: the ticks overlay's ring) with
+              -checkpoint-every 10, its state_* deleted, resumes from its
+              newest overlay_* to the same Stats and stabilize_ms and
+              launches the three phase-1 kernels; each printing the
+              snapshot bytes, the checkpoint.save and checkpoint.load
+              seconds (its -trace spans) and the wall.
 
-The twins' runs, on the card and on the CPU (phases 4, 8, 9 and 10), and
-the CPU's erdos rows (phase 7, before its full runs) run in WORKERS
-spawned worker processes, which have ended before any full run is timed;
+The twins' runs, on the card and on the CPU (phases 4, 8, 9 and 10), run
+in WORKERS spawned worker processes, which have ended before any full
+run is timed, but for phase 7's CPU erdos rows, which run beside its
+four full runs, and phase 12's two CLI processes, beside its resumes;
 "time <phase>" lines say where the script's time goes.
 
 With --profile, a full-size run (--profile-run: the default run, one
@@ -295,6 +320,13 @@ GENERATORS = ("kout_pallas", "erdos_pallas")
 def gated(counts: dict) -> dict:
     """The launches of the kernels the -*-kernel gates switch."""
     return {k: v for k, v in counts.items() if k not in GENERATORS}
+
+
+def kout_argv(n: int) -> list:
+    """The kout run of the full, telemetry and checkpoint phases (jax_10m's
+    shape at coverage 0.99, seed 0)."""
+    return ["-graph", "kout", "-n", str(n), "-fanout", "6",
+            "-coverage-target", "0.99", "-seed", "0"]
 
 
 def pushsum_argv(n: int, seed: int = 0) -> list:
@@ -976,10 +1008,10 @@ def negotiate_parity(dev, gen, reps: int) -> dict:
 
 
 SPLIT_N = 100_000_000  # the split-round band's full size (two_phase_100m)
-# The split band's full run, cut from SPLIT_N to 5e7 for the script's time
-# limit (PERF.md section 4; still past SPLIT_ROUND_MIN_ROWS, the static
-# bootstrap and the cap-8 band).
-SPLIT_RUN_N = 50_000_000
+# The split band's full run, cut from SPLIT_N to 3.2e7 for the script's
+# time limit (PERF.md section 4): SPLIT_ROUND_MIN_ROWS, where the split
+# round, the static bootstrap and the cap-8 band all begin.
+SPLIT_RUN_N = 32_000_000
 SPLIT_TWIN_N = 40_000_000  # the split band's twin pair when that run is slow
 # The split run's xla twin runs at its n below this wall time, else as a
 # pair at SPLIT_TWIN_N.
@@ -1879,6 +1911,11 @@ def _mass_totals(state, cfg) -> list:
     return [sum(col) for col in zip(*per)]
 
 
+# Called with the stepper right after each phase-2 restore of run_port's
+# runs (the checkpoint phase reads the restored state there).
+LOAD_HOOKS: list = []
+
+
 def run_port(argv, device, keep_friends: bool = False, shards=None):
     """One run through the user entry points (the JSONL log, when the argv
     asks for one, written as the CLI writes it); returns (transcript,
@@ -1933,6 +1970,11 @@ def run_port(argv, device, keep_friends: bool = False, shards=None):
             if out[1]:
                 self._quiesced()
             return out
+
+        def load_state_pytree(self, tree):
+            super().load_state_pytree(tree)
+            for hook in LOAD_HOOKS:
+                hook(self)
 
     cfg, _ = parse_cli(argv)
     out = io.StringIO()
@@ -2209,8 +2251,7 @@ def phase_full(n: int) -> dict:
     the second slice -- the default run, tick-faithful overlay -- under
     the default gates and with every gate xla (no kernel at all).
     Returns the launches of each run by name."""
-    kout = ["-graph", "kout", "-n", str(n), "-fanout", "6",
-            "-coverage-target", "0.99", "-seed", "0"]
+    kout = kout_argv(n)
     outs, runs = {}, {}
     for name, gate, kernel in (("kout", [], "fused_emit"),
                                ("kout_xla", ["-phase2-kernel", "xla"],
@@ -2225,6 +2266,7 @@ def phase_full(n: int) -> dict:
     if strip_notes(outs["kout"]) != strip_notes(outs["kout_xla"]):
         fail("full: kout default-gate and -phase2-kernel xla transcripts "
              "differ")
+    KOUT_RUNS["plain_out"] = outs["kout"]  # the telemetry phase's too
     say("full: kout default-gate and -phase2-kernel xla transcripts "
         "identical")
     base = ["-n", str(n), "-seed", "0", *OVERLAY]
@@ -2273,7 +2315,7 @@ def _telemetry_line(name, wall, run, smi) -> None:
         f"{r['total_message']} messages [{smi}]")
 
 
-def phase_telemetry(n_full: int, n_small: int) -> dict:
+def phase_telemetry(n_full: int, n_small: int, ckpt_argv=()) -> dict:
     """The run-to-target paths' records: (a) the kout run at n_full (the
     jax_10m shape: kout_pallas, fused_emit) on the run-to-target path
     with -run-dir, -trace and -telemetry-summary, on its windowed twin
@@ -2283,7 +2325,9 @@ def phase_telemetry(n_full: int, n_small: int) -> dict:
     and PushSum on kout at n_small on the card, the same argv on the CPU
     in worker processes: the same telemetry.npz arrays and fingerprints.
     Every run prints its wall and phases_s beside the card.  Returns the
-    launches of each card run by name."""
+    launches of each card run by name.  The windowed twin also takes
+    `ckpt_argv` (the checkpoint phase's case (a)); its transcript, Stats
+    and wall go into KOUT_RUNS, with the run-to-target run's."""
     import os
     import shutil
 
@@ -2293,6 +2337,8 @@ def phase_telemetry(n_full: int, n_small: int) -> dict:
 
     shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
     os.makedirs(TELEMETRY_DIR)
+    if ckpt_argv:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
     smi = smi_line()
     small = {"default": ["-n", str(n_small), "-seed", "0", *OVERLAY],
              "pushsum": pushsum_argv(n_small)}
@@ -2301,23 +2347,31 @@ def phase_telemetry(n_full: int, n_small: int) -> dict:
         cpu = {name: pool.submit(_cpu_run_dir, argv,
                                  f"{TELEMETRY_DIR}/{name}_cpu")
                for name, argv in small.items()}
-        kout = ["-graph", "kout", "-n", str(n_full), "-fanout", "6",
-                "-coverage-target", "0.99", "-seed", "0"]
+        kout = kout_argv(n_full)
         fast_dir, win_dir = (f"{TELEMETRY_DIR}/kout_fast",
                              f"{TELEMETRY_DIR}/kout_windowed")
-        out_f, _, _, runs["telemetry_kout"], wall_f = full_run(
+        out_f, res_f, _, runs["telemetry_kout"], wall_f = full_run(
             "telemetry_kout", n_full,
             kout + ["-run-dir", fast_dir, "-trace", f"{fast_dir}/trace.json",
                     "-telemetry-summary"])
-        out_w, _, _, runs["telemetry_kout_windowed"], wall_w = full_run(
+        out_w, res_w, _, runs["telemetry_kout_windowed"], wall_w = full_run(
             "telemetry_kout_windowed", n_full,
-            kout + ["-telemetry", "off", "-run-dir", win_dir])
-        out_p, _, _, runs["telemetry_kout_plain"], wall_p = full_run(
-            "telemetry_kout_plain", n_full, kout)
+            kout + ["-telemetry", "off", "-run-dir", win_dir, *ckpt_argv])
+        # The unflagged run's transcript: the full phase's kout run, the
+        # same argv, when that phase ran.
+        out_p = KOUT_RUNS.get("plain_out")
+        if out_p is None:
+            out_p, _, _, runs["telemetry_kout_plain"], wall_p = full_run(
+                "telemetry_kout_plain", n_full, kout)
         fast, win = load_run(fast_dir), load_run(win_dir)
+        KOUT_RUNS.update(
+            windowed=dict(out=out_w, stats=res_w.stats.to_dict(),
+                          wall=wall_w, run=win, trace=f"{win_dir}/trace.json"),
+            fast=dict(stats=res_f.stats.to_dict(), run=fast), plain_out=out_p)
         _telemetry_line("kout_fast", wall_f, fast, smi)
         _telemetry_line("kout_windowed", wall_w, win, smi)
-        say(f"telemetry kout_plain: wall {wall_p:.3f} s [{smi}]")
+        if "telemetry_kout_plain" in runs:
+            say(f"telemetry kout_plain: wall {wall_p:.3f} s [{smi}]")
         body, sep, block = out_f.partition("\n\n=== Telemetry ===\n")
         if not sep or body + "\n" != out_p:
             fail("telemetry: the recorded run's transcript is not the "
@@ -2363,6 +2417,381 @@ def phase_telemetry(n_full: int, n_small: int) -> dict:
             say(f"telemetry {name}: card == cpu (telemetry.npz "
                 f"{sorted(th)}, fingerprint "
                 f"{card['result']['fingerprint']})")
+    return runs
+
+
+# --- phase 12: checkpoints, -resume and shutdown -----------------------------
+
+CKPT_DIR = "smoke_runs/checkpoint"  # the phase's snapshots (git-ignored)
+# Phase-1 snapshots are taken at 1e6: at 1e7 the ticks overlay's ring alone
+# is 3 windows of 1e8 slots.
+CKPT_P1_N = 1_000_000
+# Case (a): the kout run's windowed twin saves at windows 6 and 12 and
+# keeps both.
+CKPT_A = ["-checkpoint-every", "6", "-ckpt-keep", "2", "-checkpoint-dir",
+          f"{CKPT_DIR}/kout"]
+# The telemetry phase's kout runs (filled there, or by the checkpoint
+# phase alone): the windowed twin with CKPT_A, the run-to-target run and
+# the unflagged run's transcript.
+KOUT_RUNS: dict = {}
+
+
+def _npz_bytes(d: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)
+               if f.endswith(".npz"))
+
+
+def _io_spans(trace: str) -> str:
+    """The checkpoint.save and checkpoint.load spans of a -trace file:
+    their count and seconds."""
+    with open(trace) as f:
+        evs = json.load(f)["traceEvents"]
+    out = []
+    for name in ("checkpoint.save", "checkpoint.load"):
+        durs = [e["dur"] / 1e6 for e in evs if e["name"] == name]
+        out.append(f"{name} {len(durs)} x "
+                   f"{'/'.join(f'{d:.3f}' for d in durs) or '-'} s")
+    return ", ".join(out)
+
+
+def _entry_keys(stepper) -> "np.ndarray":
+    """The sorted in-flight entries of a restored SI ring, one state or S
+    shards, each decoded to (global destination, slot, tick offset) and
+    packed into one int64 (tests/torch_ckpt.decode_entries), on the card."""
+    from gossip_simulator_tpu_torch.models import event
+
+    cfg = stepper.cfg
+    states = stepper.state if isinstance(stepper.state, list) else [
+        stepper.state]
+    b, dw = event.batch_ticks(cfg), event.ring_windows(cfg)
+    n_local = cfg.n // len(states)
+    parts = []
+    for sh, st in enumerate(states):
+        cap = st.geom[0]
+        for slot, c in enumerate(st.mail_cnt.reshape(-1).tolist()):
+            e = st.mail_ids[slot * cap:slot * cap + c].to(torch.int64)
+            parts.append(((e // b + sh * n_local) * dw + slot) * b + e % b)
+    return torch.sort(torch.cat(parts)).values.cpu().numpy()
+
+
+def _kout_alone(n: int) -> dict:
+    """Case (a) without the telemetry phase: the kout run's windowed twin
+    with CKPT_A, the run-to-target run and the unflagged one."""
+    import shutil
+
+    from gossip_simulator_tpu_torch.utils.artifact import load_run
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    kout = kout_argv(n)
+    runs = {}
+    win_dir, fast_dir = f"{CKPT_DIR}/a_windowed", f"{CKPT_DIR}/a_fast"
+    out_w, res_w, _, runs["ckpt_kout_windowed"], wall_w = full_run(
+        "ckpt_kout_windowed", n,
+        kout + ["-telemetry", "off", "-run-dir", win_dir, *CKPT_A])
+    _, res_f, _, runs["ckpt_kout_fast"], _ = full_run(
+        "ckpt_kout_fast", n, kout + ["-run-dir", fast_dir])
+    out_p, _, _, runs["ckpt_kout_plain"], _ = full_run(
+        "ckpt_kout_plain", n, kout)
+    KOUT_RUNS.update(
+        windowed=dict(out=out_w, stats=res_w.stats.to_dict(), wall=wall_w,
+                      run=load_run(win_dir), trace=f"{win_dir}/trace.json"),
+        fast=dict(stats=res_f.stats.to_dict(), run=load_run(fast_dir)),
+        plain_out=out_p)
+    return runs
+
+
+def _broadcast_lines(out: str, skip: int = 0) -> list:
+    """The transcript's lines after its broadcast section header, the
+    first `skip` coverage lines left out."""
+    lines = out.split("=== Broadcast one message ===\n", 1)[1].splitlines()
+    return lines[skip:]
+
+
+class _SigtermChild:
+    """A CLI process run in a thread: SIGTERM after its first coverage
+    line, then its rest read to the end.  `result` gets the lines, the
+    exit code and the perf_counter times of the launch, the signal and
+    the exit."""
+
+    def __init__(self, cmd: list):
+        import threading
+
+        self.cmd, self.proc, self.result = cmd, None, {}
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def join(self, timeout: float) -> None:
+        self._thread.join(timeout)
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def _run(self) -> None:
+        import signal
+
+        r = self.result
+        r["t0"] = time.perf_counter()
+        self.proc = subprocess.Popen(self.cmd, stdout=subprocess.PIPE,
+                                     text=True)
+        lines = r["lines"] = []
+        for line in self.proc.stdout:
+            lines.append(line)
+            if "% covered" in line:
+                r["t_sig"] = time.perf_counter()
+                self.proc.send_signal(signal.SIGTERM)
+                break
+        lines.append(self.proc.stdout.read())
+        r["rc"] = self.proc.wait()
+        r["t_end"] = time.perf_counter()
+
+
+def _resume_cases(n: int, kout: list, a: dict, smi: str) -> dict:
+    """Cases (b) and (c) of the checkpoint phase: -resume from (a)'s
+    window-6 snapshot at the default geometry (Stats and windows 7-17 ==
+    (a)'s), at -event-chunk 262144 (a repack keeping every in-flight
+    entry), and onto 8 shards (every entry kept, fused_recv_land
+    launched).  Returns the launches of each run by name."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    runs = {}
+    r6 = f"{CKPT_DIR}/resume6"
+    shutil.rmtree(r6, ignore_errors=True)
+    os.makedirs(r6)
+    for x in ("", ".json"):
+        shutil.copyfile(f"{CKPT_DIR}/kout/state_00000006.npz{x}",
+                        f"{r6}/state_00000006.npz{x}")
+    with open(f"{r6}/state_00000006.npz.json") as f:
+        meta6 = json.load(f)
+    snap6 = _npz_bytes(r6)
+    seen = {}
+
+    def restored(st):
+        seen.update(stats=st.stats(), geom=tuple(st.state.geom)
+                    if not isinstance(st.state, list) else None,
+                    keys=_entry_keys(st))
+
+    LOAD_HOOKS.append(restored)
+    try:
+        for name, extra in (("ckpt_resume6", []),
+                            ("ckpt_resume6_chunk262144",
+                             ["-event-chunk", "262144"])):
+            trace = f"{CKPT_DIR}/{name}.trace.json"
+            out, res, _, runs[name], wall = full_run(
+                name, n, kout + extra + ["-resume", "-checkpoint-dir", r6,
+                                         "-trace", trace])
+            head = "=== Resumed from state_00000006.npz (window 6) ==="
+            if head not in out:
+                fail(f"checkpoint {name}: no '{head}' line:\n{out}")
+            if seen["stats"].mailbox_dropped != meta6["mailbox_dropped"]:
+                fail(f"checkpoint {name}: mailbox_dropped "
+                     f"{seen['stats'].mailbox_dropped} after the load, "
+                     f"{meta6['mailbox_dropped']} in the snapshot")
+            if not extra:
+                keys1, geom1 = seen["keys"], seen["geom"]
+                if res.stats.to_dict() != a["stats"]:
+                    fail(f"checkpoint {name}: final Stats "
+                         f"{res.stats.to_dict()} differ from (a)'s "
+                         f"{a['stats']}")
+                if _broadcast_lines(out) != _broadcast_lines(a["out"], 6):
+                    fail(f"checkpoint {name}: windows 7-17 differ from "
+                         "(a)'s")
+                verdict = "Stats == (a), windows 7-17 == (a)"
+            else:
+                if seen["geom"] == geom1 or len(seen["keys"]) != len(keys1):
+                    fail(f"checkpoint {name}: geometry {seen['geom']} vs "
+                         f"{geom1}, {len(seen['keys'])} entries vs "
+                         f"{len(keys1)}: no repack, or entries lost")
+                verdict = (f"repacked {geom1} -> {seen['geom']} with all "
+                           f"{len(keys1)} in-flight entries; Stats "
+                           f"{res.stats.to_dict()} [(a): {a['stats']}]")
+            say(f"checkpoint {name}: snapshot {snap6} B, "
+                f"{_io_spans(trace)}, wall {wall:.3f} s, "
+                f"{res.gossip_windows} windows, converged; {verdict} [{smi}]")
+
+        # (c) the same snapshot onto 8 shards of the card
+        name = "ckpt_reshard_s8"
+        out, res, _, runs[name], wall = full_run(
+            name, n, kout + ["-backend", "sharded", "-resume",
+                             "-checkpoint-dir", r6, "-trace",
+                             f"{CKPT_DIR}/{name}.trace.json"], shards=8)
+        if not np.array_equal(seen["keys"], keys1):
+            fail(f"checkpoint {name}: the in-flight entries differ after "
+                 "the reshard")
+        if runs[name].get(RECV, 0) <= 0:
+            fail(f"checkpoint {name}: {RECV} was never launched "
+                 f"({runs[name]})")
+        say(f"checkpoint {name}: S 1 -> 8, all {len(keys1)} in-flight "
+            "(destination, slot, offset) entries kept, converged, "
+            f"{RECV} x {runs[name][RECV]}; "
+            f"{_io_spans(f'{CKPT_DIR}/{name}.trace.json')}, wall "
+            f"{wall:.3f} s, total_message {res.stats.total_message} [{smi}]")
+    finally:
+        LOAD_HOOKS.remove(restored)
+    return runs
+
+
+def phase_checkpoint(n: int, n_p1: int) -> dict:
+    """Checkpoints, -resume and shutdown on the card (ROADMAP A7), at the
+    kout run's size n (jax_10m: 17 windows) and the default run at n_p1:
+    (a) the kout run's windowed twin with CKPT_A keeps exactly
+    state_00000006 and state_00000012 (and sidecars), prints the
+    unflagged run's transcript and ends on the run-to-target run's
+    result.json Stats; (b) -resume from state_00000006 converges to (a)'s
+    Stats with (a)'s lines for windows 7-17, and a second resume at
+    -event-chunk 262144 (the ring's tail changes: a repack) converges with
+    no entry lost; (c) the same snapshot resumes onto 8 shards of the
+    card with every in-flight (destination, slot, offset) kept, converges
+    and launches fused_recv_land; (d) the CLI in a subprocess, SIGTERM
+    after its first coverage line: exit 2, reason interrupted, one
+    snapshot marked interrupted, from which -resume converges to (a)'s
+    Stats; (e) the default run at n_p1 with -checkpoint-every 10 (the CLI
+    in a subprocess), its state_* deleted, resumes from its newest
+    overlay_* to the same Stats and stabilize_ms, launching the three
+    phase-1 kernels.  The two CLI processes run beside (b) and (c): their
+    saves are host work, the card is shared.  Each line
+    prints the snapshot bytes, the checkpoint.save and checkpoint.load
+    spans and the wall beside the card.  Returns the launches of each
+    run by name."""
+    import os
+
+    smi = smi_line()
+    runs = {} if "windowed" in KOUT_RUNS else _kout_alone(n)
+    kout = kout_argv(n)
+    # (a) periodic snapshots, pruned to two
+    a = KOUT_RUNS["windowed"]
+    names = sorted(os.listdir(f"{CKPT_DIR}/kout"))
+    want = [f"state_{w:08d}.npz{x}" for w in (6, 12) for x in ("", ".json")]
+    if names != want:
+        fail(f"checkpoint (a): {names} left after the prune, not {want}")
+    if [x for x in a["out"].splitlines() if not x.startswith("(")] != [
+            x for x in KOUT_RUNS["plain_out"].splitlines()
+            if not x.startswith("(")]:
+        fail("checkpoint (a): the checkpointing run's transcript is not the "
+             "unflagged run's")
+    if _stats_of(a["run"]) != _stats_of(KOUT_RUNS["fast"]["run"]):
+        fail(f"checkpoint (a): result.json Stats differ from the "
+             f"run-to-target run's: {_stats_of(a['run'])} vs "
+             f"{_stats_of(KOUT_RUNS['fast']['run'])}")
+    say(f"checkpoint kout_every6_keep2: n={n} {names[::2]} kept, "
+        f"{_npz_bytes(f'{CKPT_DIR}/kout')} B on disk, "
+        f"{_io_spans(a['trace'])}, wall {a['wall']:.3f} s; transcript == "
+        f"unflagged, result.json Stats == run-to-target [{smi}]")
+
+    # (d) and (e) start as CLI processes now and run beside (b) and (c):
+    # their snapshots are host work (deflate), the card is shared.
+    term, p1 = f"{CKPT_DIR}/term", f"{CKPT_DIR}/p1"
+    cli = [sys.executable, "-u", "-m", "gossip_simulator_tpu_torch"]
+    term_child = _SigtermChild(cli + kout + [
+        "-checkpoint-every", "1000", "-checkpoint-dir", term])
+    term_child.start()
+    p1_argv = ["-n", str(n_p1), "-seed", "0", *OVERLAY]
+    p1_log = open(f"{CKPT_DIR}/ckpt_p1.out", "w")
+    p1_child = subprocess.Popen(
+        cli + p1_argv + ["-checkpoint-every", "10", "-checkpoint-dir", p1,
+                         "-trace", f"{CKPT_DIR}/ckpt_p1.trace.json",
+                         "-log-jsonl", f"{CKPT_DIR}/ckpt_p1.jsonl"],
+        stdout=p1_log, stderr=subprocess.STDOUT)
+    try:
+        runs.update(_resume_cases(n, kout, a, smi))
+        runs.update(_child_cases(n, n_p1, kout, a, smi, term_child,
+                                 p1_child, p1_argv))
+    finally:
+        for proc in (term_child.proc, p1_child):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        p1_log.close()
+    return runs
+
+
+def _child_cases(n, n_p1, kout, a, smi, term_child, p1_child,
+                 p1_argv) -> dict:
+    """Cases (d) and (e) of the checkpoint phase, once their CLI
+    processes have ended: the SIGTERM'd run's exit, reason and final
+    snapshot, and its -resume to (a)'s Stats; the phase-1 run's
+    snapshots, its state_* deleted, and its -resume from the newest
+    overlay_* to the same Stats and stabilize_ms.  Returns the launches
+    of the two resumed runs by name."""
+    import os
+
+    runs = {}
+    term, p1 = f"{CKPT_DIR}/term", f"{CKPT_DIR}/p1"
+    # (d) the SIGTERM'd CLI: its final snapshot, then -resume
+    term_child.join(timeout=900)
+    t = term_child.result
+    text = "".join(t.get("lines", []))
+    last = [x for x in text.splitlines() if x.startswith("--- ")]
+    snaps = [f for f in sorted(os.listdir(term)) if f.endswith(".npz")] \
+        if os.path.isdir(term) else []
+    meta = {}
+    if len(snaps) == 1:
+        with open(f"{term}/{snaps[0]}.json") as f:
+            meta = json.load(f)
+    if (t.get("t_sig") is None or t.get("rc") != 2 or not last
+            or "(interrupted)" not in last[-1] or len(snaps) != 1
+            or meta.get("interrupted") is not True):
+        fail(f"checkpoint sigterm: rc {t.get('rc')}, snapshots {snaps}, "
+             f"sidecar {meta}:\n{text}")
+    say(f"checkpoint sigterm: exit {t['rc']} {t['t_end'] - t['t_sig']:.3f} "
+        f"s after SIGTERM ({t['t_sig'] - t['t0']:.3f} s from launch to the "
+        f"first coverage line), '{last[-1]}', {snaps[0]} "
+        f"({_npz_bytes(term)} B, window {meta['window']}, interrupted) "
+        f"[{smi}]")
+    name = "ckpt_term_resume"
+    out, res, _, runs[name], wall = full_run(
+        name, n, kout + ["-resume", "-checkpoint-dir", term, "-trace",
+                         f"{CKPT_DIR}/{name}.trace.json"])
+    if res.stats.to_dict() != a["stats"]:
+        fail(f"checkpoint {name}: final Stats {res.stats.to_dict()} differ "
+             f"from (a)'s {a['stats']}")
+    say(f"checkpoint {name}: converged, Stats == (a), "
+        f"{_io_spans(f'{CKPT_DIR}/{name}.trace.json')}, wall {wall:.3f} s "
+        f"[{smi}]")
+
+    # (e) the CLI's phase-1 snapshots at n_p1 have been written: delete
+    # its state_*, resume from its newest overlay_*
+    rc_e = p1_child.wait(timeout=900)
+    if rc_e != 0:
+        with open(f"{CKPT_DIR}/ckpt_p1.out") as f:
+            fail(f"checkpoint ckpt_p1: exit {rc_e}:\n{f.read()}")
+    with open(f"{CKPT_DIR}/ckpt_p1.jsonl") as f:
+        rec_e = [r for r in map(json.loads, f)
+                 if r.get("event") == "result"][-1]
+    p1_bytes = _npz_bytes(p1)
+    for f in os.listdir(p1):
+        if f.startswith("state_"):
+            os.remove(f"{p1}/{f}")
+    overlays = sorted(f for f in os.listdir(p1) if f.endswith(".npz"))
+    if not overlays:
+        fail("checkpoint ckpt_p1: no overlay_* snapshot was written")
+    name = "ckpt_p1_resume"
+    out, res, _, runs[name], wall = full_run(
+        name, n_p1, p1_argv + ["-resume", "-checkpoint-dir", p1, "-trace",
+                               f"{CKPT_DIR}/{name}.trace.json"])
+    if f"(overlay window {int(overlays[-1][8:16])})" not in out:
+        fail(f"checkpoint {name}: did not resume from {overlays[-1]}")
+    got = res.stats.to_dict()
+    if (got, res.stabilize_ms) != ({k: rec_e[k] for k in got},
+                                   rec_e["stabilize_ms"]):
+        fail(f"checkpoint {name}: Stats or stabilize_ms differ from the "
+             f"checkpointed run's ({got}, {res.stabilize_ms} vs {rec_e})")
+    for k in PHASE1_KERNELS:
+        if runs[name].get(k, 0) <= 0:
+            fail(f"checkpoint {name}: {k} was never launched ({runs[name]})")
+    say(f"checkpoint ckpt_p1: n={n_p1} (the CLI) overlay snapshots "
+        f"{overlays}, {p1_bytes} B with its state_* "
+        f"({_io_spans(f'{CKPT_DIR}/ckpt_p1.trace.json')}), wall "
+        f"{rec_e['wall_s']:.3f} s; {name} from {overlays[-1]}: Stats and "
+        f"stabilize_ms ({res.stabilize_ms:g} ms) == the checkpointed run's, "
+        f"{_io_spans(f'{CKPT_DIR}/{name}.trace.json')}, wall {wall:.3f} s "
+        f"[{smi}]")
     return runs
 
 
@@ -2594,14 +3023,14 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     """The thirteenth slice's path, fault scenarios and overlay healing:
     first cuda-vs-cpu twins at twin_n of the runs below; then, under
     CHURN: churn10m_heal at n (the event engine, -overlay-heal on, to 0.99
-    or -max-rounds 500: scen_crashed >= 0.2 n, heal_repaired > 0,
+    or -max-rounds 250: scen_crashed >= 0.2 n, heal_repaired > 0,
     fused_emit with the partition mask and the heal's fused_ring_append
     launched) and churn10m_noheal at n (not converged, nothing
     repaired); at n_pair the JAX package's acceptance pair, churn1m_heal
     (with its -phase2-kernel xla -deliver-kernel xla twin: one
     transcript, one Stats, no kernel) and churn1m_noheal (not converged,
     coverage < 0.97, nothing repaired; heal on converges or ends above
-    it); ring_churn10m_heal at n to -max-rounds 300 (-engine ring:
+    it); ring_churn10m_heal at n to -max-rounds 250 (-engine ring:
     fused_deposit_add) and
     pushsum_churn10m at n (-model pushsum, heal on: Sigma x and Sigma w,
     parked mass included, exactly the initial totals).  Returns the
@@ -2629,10 +3058,11 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     run_twins([(f"twin {name}", argv, (), checker(name, kernels))
                for name, argv, kernels in cases])
     runs = {}
-    # -max-rounds 2000 cut to 500 at n (the script's time limit,
-    # PERF.md section 4): the run stalls short of 0.99 either way.
+    # -max-rounds 2000 cut to 250 at n (the script's time limit,
+    # PERF.md section 4; the timeline's last reboot is at 210 ms): the
+    # run stalls short of 0.99 either way.
     _, res_h, st, runs["churn10m_heal"] = fault_run(
-        "churn10m_heal", n, churn_argv(n, *HEAL_ON, "-max-rounds", "500"))
+        "churn10m_heal", n, churn_argv(n, *HEAL_ON, "-max-rounds", "250"))
     del st
     sh = res_h.stats
     if sh.scen_crashed < 0.2 * n or sh.heal_repaired <= 0:
@@ -2651,15 +3081,18 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     end = "converged" if res_h.converged else "stopped"
     say(f"faults at n={n}: heal on {end} at coverage {sh.coverage:.6f}, "
         f"heal off at {res_n.stats.coverage:.6f}")
-    # The acceptance pair and the gate twin at n_pair.
+    # The acceptance pair and the gate twin at n_pair, -max-rounds 2000
+    # cut to 1000 (the script's time limit, PERF.md section 4: the heal
+    # run has stalled long before).
     tag = f"churn{n_pair // 1_000_000}m"
     out_h, res_h, st, runs[f"{tag}_heal"] = fault_run(
-        f"{tag}_heal", n_pair, churn_argv(n_pair, *HEAL_ON))
+        f"{tag}_heal", n_pair, churn_argv(n_pair, *HEAL_ON, "-max-rounds",
+                                          "1000"))
     del st
     out_x, res_x, st, runs[f"{tag}_heal_xla"] = fault_run(
         f"{tag}_heal_xla", n_pair, churn_argv(
-            n_pair, *HEAL_ON, "-phase2-kernel", "xla", "-deliver-kernel",
-            "xla"))
+            n_pair, *HEAL_ON, "-max-rounds", "1000", "-phase2-kernel", "xla",
+            "-deliver-kernel", "xla"))
     del st
     if any(gated(runs[f"{tag}_heal_xla"]).values()):
         fail(f"faults {tag}_heal_xla launched a kernel "
@@ -2683,13 +3116,13 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     say(f"faults {tag}: default and xla-gate transcripts and Stats "
         f"identical; heal on {'converged' if res_h.converged else 'stopped'}"
         f" at coverage {sh.coverage:.6f}, heal off at {sn.coverage:.6f}")
-    # The ring engine's heal run to -max-rounds 300, not 2000 (its time
+    # The ring engine's heal run to -max-rounds 250, not 2000 (its time
     # goes by the window, not by n: the script's time limit, PERF.md
-    # section 4).
+    # section 4; the timeline's last reboot is at 210 ms).
     rtag = "ring_churn10m_heal"
     _, res_r, st, runs[rtag] = fault_run(
         rtag, n, churn_argv(n, "-engine", "ring", *HEAL_ON, "-max-rounds",
-                            "300"))
+                            "250"))
     del st
     if runs[rtag][DEPOSIT] <= 0 or res_r.stats.heal_repaired <= 0:
         fail(f"faults {rtag}: launches {runs[rtag]}, heal_repaired "
@@ -2715,9 +3148,10 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
 
 # bench.py's multirumor rows: multirumor_1m_r16 and stream_1m (n = 1e6,
 # capture_multirumor) and multirumor_50m_r16 (capture_multirumor_50m);
-# the 1e6 family cut to 5e5 for the script's time limit (PERF.md section
-# 4).  The 5e7 run is not cut: below it, 7 n + 7 slots leave rumors short.
-RUMOR_FAMILY_N = 500_000
+# the 1e6 family cut to 2.5e5 for the script's time limit (PERF.md
+# section 4).  The 5e7 run is not cut: below it, 7 n + 7 slots leave
+# rumors short.
+RUMOR_FAMILY_N = 250_000
 RUMOR_BIG_N = 50_000_000
 RUMOR_FLAGS = ["-graph", "kout", "-fanout", "6", "-crashrate", "0",
                "-coverage-target", "0.95", "-seed", "0"]
@@ -3123,11 +3557,11 @@ def phase_graphs(n_kout: int, n_erdos: int, n_wide: int) -> dict:
     without -pallas (graphs.erdos) and with it (erdos_pallas), and
     -graph erdos -er-p 1.2e-5 -protocol sir at n_wide (lam = 12: 38 lanes
     a sender, the rejection branch).  Each prints its transcript, wall
-    seconds and peak memory.  Before them, in the worker processes (which
-    have ended when the timed runs start), the rows where graphs.erdos's
-    table on the card parts from the CPU's, at n = 1e6 for lam = 5, 8, 12
-    and 60 (utils/rng.poisson: XLA's float32 log and lgamma), held to
-    ERDOS_CARD_CPU_PARTED.  Returns the launches of each run by name."""
+    seconds and peak memory.  Beside them, in the worker processes (so
+    their walls are taken beside six busy CPU workers), the rows where
+    graphs.erdos's table on the card parts from the CPU's, at n = 1e6 for
+    lam = 5, 8, 12 and 60 (utils/rng.poisson: XLA's float32 log and
+    lgamma), held to ERDOS_CARD_CPU_PARTED.  Returns the launches of each run by name."""
     from gossip_simulator_tpu_torch.config import Config
     from gossip_simulator_tpu_torch.models import graphs
 
@@ -3150,6 +3584,7 @@ def phase_graphs(n_kout: int, n_erdos: int, n_wide: int) -> dict:
                 for r0, nr in _blocks(rows, step)]))
             del gf, gd
         torch.cuda.empty_cache()
+        runs = _graph_runs(n_kout, n_erdos, n_wide)
         for lam, cap, t_g, step, futs in parts:
             got = [f.result() for f in futs]
             parted = sum(p for p, _ in got)
@@ -3161,16 +3596,16 @@ def phase_graphs(n_kout: int, n_erdos: int, n_wide: int) -> dict:
                 fail(f"erdos card vs cpu: {parted} rows part at lam "
                      f"{lam:g} (at most {ERDOS_CARD_CPU_PARTED} measured; "
                      "ROADMAP C5)")
-    return _graph_runs(n_kout, n_erdos, n_wide)
+    return runs
 
 
 # --- phase 8: the sharded backend, S shards laid out on the one card --------
 
 SHARDS = 8  # config 5's mesh (BASELINE.json: v5e-8), on one card
 SHARDED_N = 10_000_000  # sharded_10m (bench.py's row at S = 8)
-# Config 5 ("100M nodes sharded") cut to 2e7: the script's time limit
+# Config 5 ("100M nodes sharded") cut to 1.2e7: the script's time limit
 # (PERF.md section 4 lists the cut).
-SHARDED_BIG_N = 20_000_000
+SHARDED_BIG_N = 12_000_000
 RECV = "fused_recv_land"
 
 
@@ -3700,7 +4135,7 @@ def phase_profile(n: int, out_path: str, run: str = "default") -> None:
 
 
 PHASES = ("parity", "twins", "full", "rounds", "ring", "pushsum", "graphs",
-          "sharded", "faults", "rumors_event", "telemetry")
+          "sharded", "faults", "rumors_event", "telemetry", "checkpoint")
 
 
 # The launch counts of a kernel's forms (ops/_build.py FORMS).
@@ -3840,7 +4275,10 @@ def main() -> int:
                                             TWIN_N)),
             ("rumors_event", lambda: phase_rumors_event(
                 RUMOR_FAMILY_N, RUMOR_BIG_N, TWIN_N)),
-            ("telemetry", lambda: phase_telemetry(FULL_N, TELEMETRY_N))):
+            ("telemetry", lambda: phase_telemetry(
+                FULL_N, TELEMETRY_N,
+                CKPT_A if "checkpoint" in phases else ())),
+            ("checkpoint", lambda: phase_checkpoint(FULL_N, CKPT_P1_N))):
         if name in phases:
             runs.update(phase())
             lap(name)

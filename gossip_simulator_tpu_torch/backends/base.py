@@ -51,13 +51,30 @@ class Stepper(abc.ABC):
     def sim_time_ms(self) -> float:
         """Simulated milliseconds elapsed in the current phase."""
 
+    @property
+    def primary_host(self) -> bool:
+        """Whether this process writes the snapshots: always, on one
+        card (the JAX package's non-zero ranks of a multi-process run
+        only gather)."""
+        return True
+
     def state_pytree(self):
-        """Backend state as numpy arrays; None if unsupported."""
+        """Phase-2 state as the JAX package's numpy dict for a snapshot;
+        None if there is none (yet)."""
         return None
 
     def load_state_pytree(self, tree) -> None:
         raise NotImplementedError(
             f"{self.name} does not support state restore")
+
+    def overlay_state_pytree(self):
+        """Mid-construction phase-1 state for a snapshot; None if there is
+        none."""
+        return None
+
+    def load_overlay_state_pytree(self, tree, windows: int = 0) -> None:
+        raise NotImplementedError(
+            f"{self.name} does not support phase-1 state restore")
 
 
 def run_bounded_to_target(stepper) -> Stats:
@@ -72,6 +89,7 @@ def run_bounded_to_target(stepper) -> Stats:
     call's wall seconds: the first as compile_s (on the card it includes
     the kernels' first build), the rest as execute_s."""
     from gossip_simulator_tpu_torch.models import epidemic
+    from gossip_simulator_tpu_torch.utils import lifecycle as _lifecycle
     from gossip_simulator_tpu_torch.utils import trace as _trace
 
     cfg = stepper.cfg
@@ -99,6 +117,8 @@ def run_bounded_to_target(stepper) -> Stats:
                 and (not cfg.multi_rumor or tick > cfg.last_inject_tick)):
             stepper.exhausted = True
         if recv >= target or tick >= cfg.max_rounds or stepper.exhausted:
+            break
+        if _lifecycle.shutdown_requested():
             break
     if telem is not None:
         telem.end_gossip(hist)

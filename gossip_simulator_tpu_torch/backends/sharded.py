@@ -15,7 +15,8 @@ same); a caller asks for S > 1 shards on the one device by passing
 engines are not yet ported (ROADMAP A13).  ``run_to_target`` is the
 run-to-target path (``base.run_bounded_to_target`` over the engine's
 ``make_run_to_coverage_fn``), recording a telemetry row a window under
-``-telemetry on``.
+``-telemetry on``.  A snapshot of any shard count restores onto S shards
+(``load_state_pytree``); with no phase 1, there is no phase-1 snapshot.
 """
 
 from __future__ import annotations
@@ -147,16 +148,18 @@ class ShardedStepper(Stepper):
         return tree
 
     def load_state_pytree(self, tree) -> None:
-        """Continue from a JAX-package (or port) sharded state dict taken
-        mid-phase-2 on the same shard count and ring geometry."""
-        tree = dict(tree)
+        """Continue from a JAX-package (or port) phase-2 state dict of any
+        shard count, validated and coerced by
+        ``checkpoint.prepare_restore_tree``: the rings are re-bucketed
+        onto this stepper's S shards, or repacked shard by shard to this
+        config's slot geometry."""
+        from gossip_simulator_tpu_torch.utils.checkpoint import \
+            prepare_restore_tree
+
+        tree = prepare_restore_tree(tree, self.cfg,
+                                    n_shards=self.mesh.n_shards)
         self._mailbox_dropped = int(tree.pop("host_mailbox_dropped", 0))
-        got = tuple(int(x) for x in np.asarray(tree["mail_geom"]))
-        if got != self._geom():
-            raise ValueError(
-                f"state ring geometry {got} differs from this config's "
-                f"{self._geom()} (slot_cap, drain_chunk, shards); "
-                "repacking is not yet ported (ROADMAP A7)")
+        tree["mail_geom"] = np.asarray(self._geom(), np.int64)
         from_numpy = (interop.sharded_pushsum_state_from_numpy
                       if self.cfg.model == "pushsum"
                       else interop.sharded_state_from_numpy)

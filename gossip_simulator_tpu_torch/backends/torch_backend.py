@@ -268,33 +268,24 @@ class TorchStepper(Stepper):
 
     def load_overlay_state_pytree(self, tree, windows=None) -> None:
         """Continue construction from a JAX-package (or port) phase-1
-        state dict; its geometry must match this config's engine.
-        `windows` is the overlay windows already run, which set the
-        rounds engine's estimated clock (default: the state's round)."""
-        cfg = self.cfg
-        if self._faithful:
-            dw = overlay_ticks.ring_windows(cfg)
-            want = {"friends": (cfg.n, cfg.max_degree),
-                    "ring_dst": (dw * overlay_ticks.slot_cap(cfg) + 1,)}
-        else:
-            sc = overlay.spill_cap_for(cfg, cfg.n)
-            want = {"friends": (cfg.n, cfg.max_degree),
-                    "mk_dst": (cfg.mailbox_cap_for(cfg.n), cfg.n),
-                    "mk_spill": (2, sc + 1)}
-        got = {k: np.shape(tree[k]) if k in tree else None for k in want}
-        if got != want:
-            raise ValueError(f"overlay state geometry {got} differs from "
-                             f"this config's {want}")
+        state dict, validated by ``checkpoint.prepare_overlay_restore_tree``
+        (the same geometry, spill buffers re-padded).  `windows` is the
+        overlay windows already run, which set the rounds engine's
+        estimated clock (default: the state's round)."""
+        from gossip_simulator_tpu_torch.utils.checkpoint import \
+            prepare_overlay_restore_tree
+
+        tree = prepare_overlay_restore_tree(tree, self.cfg, n_shards=1)
         self._setup_overlay()  # a fresh round fn: no carried row counts
         self.ostate = interop.overlay_state_from_numpy(tree, self.device)
         self.state = None
         self._overlay_done = False
-        if self._faithful:
-            self._phase1_ms = float(self.ostate.tick)
-        else:
-            self._overlay_rounds = (self.ostate.round if windows is None
-                                    else int(windows))
-            self._phase1_ms = self._overlay_rounds * self._mean_delay
+        if windows is not None:
+            self._overlay_rounds = int(windows)
+        elif not self._faithful:
+            self._overlay_rounds = self.ostate.round
+        self._phase1_ms = (float(self.ostate.tick) if self._faithful
+                           else self._overlay_rounds * self._mean_delay)
 
     def seed(self) -> None:
         self._seeded = True
@@ -386,6 +377,11 @@ class TorchStepper(Stepper):
         return float(self.state.tick)
 
     def state_pytree(self):
+        """Phase-2 state as the JAX package's numpy dict (copies), with
+        ``mail_geom`` (slot_cap, drain_chunk) on the event engine and
+        PushSum; None before there is a phase-2 state."""
+        if self.state is None:
+            return None
         if self._engine is event:
             tree = interop.state_to_numpy(self.state)
         elif self._engine is pushsum:
@@ -396,32 +392,25 @@ class TorchStepper(Stepper):
         return tree
 
     def load_state_pytree(self, tree) -> None:
-        """Continue from a JAX-package (or port) state dict taken
-        mid-phase-2; the ring geometry must match this config's."""
-        cfg, n = self.cfg, self.cfg.n
-        tree = dict(tree)
+        """Continue from a JAX-package (or port) phase-2 state dict,
+        validated and coerced by ``checkpoint.prepare_restore_tree``: a
+        ring of another slot geometry is repacked, one of S shards
+        re-bucketed onto this one."""
+        from gossip_simulator_tpu_torch.utils.checkpoint import \
+            prepare_restore_tree
+
+        cfg = self.cfg
+        tree = prepare_restore_tree(tree, cfg, n_shards=1)
         self._mailbox_dropped = int(tree.pop("host_mailbox_dropped", 0))
         if self._engine is epidemic:
-            d = epidemic.ring_depth(cfg)
-            want = {"pending": (d, n),
-                    "rebroadcast": (d if cfg.protocol == "sir" else 1, n),
-                    "pending_rumors": ((d, n, cfg.rumors) if cfg.multi_rumor
-                                       else (1, 1, 1))}
-            got = {k: tuple(np.shape(tree[k])) for k in want}
-            if got != want:
-                raise ValueError(f"ring-engine state geometry {got} "
-                                 f"differs from this config's {want}")
             self.state = interop.sim_state_from_numpy(tree, self.device)
         else:
             # PushSum sizes its own slots: its module is the geometry
             # authority for its state, as in the JAX package.
             geo = pushsum if self._engine is pushsum else event
-            want = (geo.slot_cap(cfg, n), geo.drain_chunk(cfg, n))
-            got = tuple(int(x) for x in np.asarray(tree["mail_geom"]))
-            if got != want:
-                raise ValueError(
-                    f"state ring geometry {got} differs from this config's "
-                    f"{want}; repacking is not yet ported (ROADMAP A7)")
+            tree["mail_geom"] = np.asarray(
+                [geo.slot_cap(cfg, cfg.n), geo.drain_chunk(cfg, cfg.n)],
+                np.int64)
             load = (interop.pushsum_state_from_numpy
                     if geo is pushsum else interop.state_from_numpy)
             self.state = load(tree, self.device)

@@ -413,6 +413,14 @@ class Config:
         return "xla" if self.phase2_kernel == "xla" else "pallas"
 
     @property
+    def checkpointing_enabled(self) -> bool:
+        """Snapshots can be written: both -checkpoint-every and
+        -checkpoint-dir are set.  The one predicate of every gate that
+        keeps the windowed loop for them (the driver's phase gates,
+        _Checkpointer's cadence)."""
+        return bool(self.checkpoint_every and self.checkpoint_dir)
+
+    @property
     def telemetry_enabled(self) -> bool:
         """Whether the run-to-target loops record a per-window history."""
         return self.telemetry != "off" and self.backend in ("jax", "sharded")
@@ -545,6 +553,14 @@ class Config:
         if self.max_rounds < 1:
             raise ValueError(
                 f"max_rounds must be >= 1, got {self.max_rounds}")
+        if self.ckpt_keep < 0:
+            raise ValueError(f"ckpt_keep must be >= 0, got {self.ckpt_keep}")
+        if self.resume:
+            if not self.checkpoint_dir:
+                raise ValueError("-resume requires -checkpoint-dir")
+            if self.backend not in ("jax", "sharded"):
+                raise ValueError(
+                    "-resume requires backend=jax or sharded")
         if self.fanout >= self.n:
             raise ValueError(
                 f"fanout ({self.fanout}) must be < n ({self.n})")
@@ -789,11 +805,6 @@ class Config:
 # spelling and the ROADMAP item that ports it.
 UNPORTED_FLAGS = {
     "telemetry_spatial": ("-telemetry-spatial", "A6"),
-    "checkpoint_every": ("-checkpoint-every", "A7"),
-    "checkpoint_dir": ("-checkpoint-dir", "A7"),
-    "resume": ("-resume", "A7"),
-    "ckpt_keep": ("-ckpt-keep", "A7"),
-    "run_id": ("-run-id", "A7"),
     "coordinator": ("-coordinator", "A13"),
     "num_processes": ("-num-processes", "A13"),
     "process_id": ("-process-id", "A13"),

@@ -17,7 +17,16 @@ terminal ``result`` record (Stats, gates, the multi-rumor or PushSum
 report, ``phases_s``) and ``telemetry`` record, the ``-telemetry-summary``
 block, the ``-run-dir`` artifact with its trajectory fingerprint, the
 ``-trace`` spans, and ``torch.profiler`` traces (``-profile`` around
-phase 2, ``-xprof`` around the run).  Checkpoints, serving and
+phase 2, ``-xprof`` around the run).
+
+Checkpoints (``utils/checkpoint.py``, the JAX package's format): with
+``-checkpoint-every W -checkpoint-dir D`` each phase runs its windowed
+loop and saves a snapshot every W windows (``overlay_*`` in phase 1,
+``state_*`` in phase 2), pruned to ``-ckpt-keep``; ``-resume`` continues
+from the newest snapshot in D (phase 2 before phase 1), in its windowed
+loop.  A shutdown request (``utils/lifecycle.py``: the first SIGTERM or
+SIGINT under the CLI) ends the run at the next window boundary with
+reason "interrupted" and, with D, a final snapshot.  Serving and
 supervision are not yet ported.
 """
 
@@ -35,6 +44,8 @@ from gossip_simulator_tpu_torch import arrivals as _arrivals
 from gossip_simulator_tpu_torch.backends import (ShardedStepper, Stepper,
                                                  TorchStepper, WINDOW_MS)
 from gossip_simulator_tpu_torch.config import Config
+from gossip_simulator_tpu_torch.utils import checkpoint
+from gossip_simulator_tpu_torch.utils import lifecycle as _lifecycle
 from gossip_simulator_tpu_torch.utils import telemetry as _telemetry
 from gossip_simulator_tpu_torch.utils import trace as _trace
 from gossip_simulator_tpu_torch.utils.metrics import ProgressPrinter, Stats
@@ -121,62 +132,121 @@ def _run(cfg: Config, printer: ProgressPrinter, stepper: Optional[Stepper],
     if telem is not None:
         telem.add_phase("init_s", time.perf_counter() - t_init)
     fast_ok = not printer.observing or telem is not None
+    run_id = cfg.run_id
+
+    # --- Resume: from a phase-2 snapshot (straight into phase 2) or a
+    # phase-1 snapshot (construction continues mid-overlay) -----------------
+    resumed = False
+    resume_window = 0
+    overlay_windows = 0
+    if cfg.resume:
+        # latest() prefers state_* (phase 2) over overlay_* (phase 1).
+        path = checkpoint.latest(cfg.checkpoint_dir)
+        if path is None:
+            raise FileNotFoundError(
+                f"-resume: no snapshot found in {cfg.checkpoint_dir}")
+        tree, meta = checkpoint.load(path)
+        if run_id:
+            checkpoint.verify_provenance(meta, path=path, run_id=run_id,
+                                         now_window=0, max_stale=0)
+        # Without a sidecar the tree tells the phase (win_makeups is an
+        # overlay leaf).
+        phase1 = (int(meta["phase"]) == 1 if "phase" in meta
+                  else "win_makeups" in tree)
+        if phase1:
+            overlay_windows = int(meta.get("window", 0))
+            stepper.load_overlay_state_pytree(tree, windows=overlay_windows)
+            printer.section(f"Resumed from {os.path.basename(path)} "
+                            f"(overlay window {overlay_windows})")
+        else:
+            stepper.load_state_pytree(tree)
+            resume_window = int(meta.get("window", 0))
+            printer.section(f"Resumed from {os.path.basename(path)} "
+                            f"(window {resume_window})")
+            resumed = True
+        del tree
 
     # --- Phase 1: overlay (simulator.go:219-235) ----------------------------
-    printer.section("Constructing Overlay")
-    if (cfg.graph == "overlay" and cfg.overlay_mode == "auto"
-            and cfg.backend in ("jax", "sharded")
-            and cfg.effective_time_mode == "ticks"
-            and cfg.overlay_mode_resolved == "rounds"):
-        # The size-banded default runs the rounds engine above
-        # OVERLAY_TICKS_AUTO_MAX, whose clock is estimated; say so once.
-        printer.note("overlay clock estimated as rounds x mean delay "
-                     "at this n; -overlay-mode ticks gives per-message-"
-                     "faithful timing at ~2x the cost")
-    max_overlay_windows = max(cfg.max_rounds, 1000)
-    overlay_windows = 0
-    if fast_ok and hasattr(stepper, "overlay_run_to_quiescence"):
-        with _trace.span("phase1.quiesce", cat="phase") as sp:
-            overlay_windows, oq = stepper.overlay_run_to_quiescence(
-                max_overlay_windows)
-            if sp is not None:
-                sp["windows"] = int(overlay_windows)
-        if not oq:
-            raise RuntimeError(f"overlay did not stabilize within "
-                               f"{max_overlay_windows} windows")
-        # A static graph quiesces without a window; the windowed loop
-        # counts its one quiesced poll.
-        overlay_windows = max(overlay_windows, 1)
-        if telem is not None and printer.observing:
-            _telemetry.replay_overlay(
-                printer, telem.overlay_snapshot(),
-                clock_scale=getattr(stepper, "overlay_clock_scale", 1.0))
-    else:
-        while True:
-            with _trace.span("phase1.window", cat="window") as sp:
-                makeups, breakups, quiesced = stepper.overlay_window()
+    # A shutdown request (utils/lifecycle) ends the current window; one in
+    # phase 1 leaves no epidemic state to report or seed.
+    p1_interrupted = False
+    if not resumed:
+        printer.section("Constructing Overlay")
+        if (cfg.graph == "overlay" and cfg.overlay_mode == "auto"
+                and cfg.backend in ("jax", "sharded")
+                and cfg.effective_time_mode == "ticks"
+                and cfg.overlay_mode_resolved == "rounds"):
+            # The size-banded default runs the rounds engine above
+            # OVERLAY_TICKS_AUTO_MAX, whose clock is estimated; say so once.
+            printer.note("overlay clock estimated as rounds x mean delay "
+                         "at this n; -overlay-mode ticks gives per-message-"
+                         "faithful timing at ~2x the cost")
+        max_overlay_windows = max(cfg.max_rounds, 1000)
+        ckpt1 = _Checkpointer(cfg, stepper, run_id)
+        # Checkpointing saves the state between windows, so it keeps the
+        # windowed loop.
+        if (fast_ok and not cfg.checkpointing_enabled
+                and hasattr(stepper, "overlay_run_to_quiescence")):
+            with _trace.span("phase1.quiesce", cat="phase") as sp:
+                overlay_windows, oq = stepper.overlay_run_to_quiescence(
+                    max_overlay_windows)
                 if sp is not None:
-                    sp.update(makeups=int(makeups), breakups=int(breakups))
-            overlay_windows += 1
-            if quiesced:
-                break
-            printer.overlay_window(breakups, makeups, stepper.sim_time_ms())
-            if overlay_windows >= max_overlay_windows:
+                    sp["windows"] = int(overlay_windows)
+            if not oq:
                 raise RuntimeError(f"overlay did not stabilize within "
                                    f"{max_overlay_windows} windows")
-    stabilize_ms = stepper.sim_time_ms()
-    printer.stabilized(stabilize_ms)
+            # A static graph quiesces without a window; the windowed loop
+            # counts its one quiesced poll.
+            overlay_windows = max(overlay_windows, 1)
+            if telem is not None and printer.observing:
+                _telemetry.replay_overlay(
+                    printer, telem.overlay_snapshot(),
+                    clock_scale=getattr(stepper, "overlay_clock_scale", 1.0))
+        else:
+            while True:
+                with _trace.span("phase1.window", cat="window") as sp:
+                    makeups, breakups, quiesced = stepper.overlay_window()
+                    if sp is not None:
+                        sp.update(makeups=int(makeups),
+                                  breakups=int(breakups))
+                overlay_windows += 1
+                if quiesced:
+                    break
+                printer.overlay_window(breakups, makeups,
+                                       stepper.sim_time_ms())
+                ckpt1.maybe_save_overlay(overlay_windows)
+                if _lifecycle.shutdown_requested():
+                    p1_interrupted = True
+                    break
+                if overlay_windows >= max_overlay_windows:
+                    raise RuntimeError(f"overlay did not stabilize within "
+                                       f"{max_overlay_windows} windows")
+    stabilize_ms = 0.0 if resumed else stepper.sim_time_ms()
+    if not resumed and not p1_interrupted:
+        printer.stabilized(stabilize_ms)
 
     # --- Phase 2: broadcast (simulator.go:237-253) --------------------------
-    printer.section("Broadcast one message")
-    stepper.seed()
+    if not p1_interrupted:
+        printer.section("Broadcast one message")
+        if not resumed:
+            stepper.seed()
     target = cfg.coverage_target
     window_rounds = WINDOW_MS if cfg.effective_time_mode == "ticks" else 1
+    # max_rounds caps simulated time at window granularity; a resumed run
+    # gets the ceil of what remains.
+    elapsed = int(stepper.sim_time_ms()) if resumed else 0
+    max_windows = max(0, -(-(cfg.max_rounds - elapsed) // window_rounds))
+    gossip_windows = 0
+    converged = False
+    interrupted = p1_interrupted
     # Per-window trajectory rows for the run artifact, when the windowed
     # loop runs (the run-to-target path's come from its history).
     window_rows: list = []
     with _maybe_profile(cfg):
-        if fast_ok and hasattr(stepper, "run_to_target"):
+        if p1_interrupted:
+            pass
+        elif (fast_ok and not resumed and not cfg.checkpointing_enabled
+              and hasattr(stepper, "run_to_target")):
             with _trace.span("phase2.run_to_target", cat="phase") as sp:
                 stats = stepper.run_to_target()
                 if sp is not None:
@@ -190,21 +260,32 @@ def _run(cfg: Config, printer: ProgressPrinter, stepper: Optional[Stepper],
                               if hist2 and not hist2["truncated"]
                               else -(-stats.round // window_rounds))
             converged = stats.coverage >= target
+            interrupted = _lifecycle.shutdown_requested()
         else:
-            gossip_windows, converged = _windowed(
-                cfg, stepper, printer,
+            gossip_windows, converged, interrupted = _windowed(
+                cfg, stepper, printer, max_windows,
+                _Checkpointer(cfg, stepper, run_id), resume_window,
                 window_rows if cfg.run_dir else None)
-    coverage_ms = stepper.sim_time_ms()
-    stats = stepper.stats()
+    # A run interrupted mid-overlay has no epidemic state to read back.
+    coverage_ms = 0.0 if p1_interrupted else stepper.sim_time_ms()
+    stats = Stats(n=cfg.n) if p1_interrupted else stepper.stats()
+    # A snapshot restored at or past the cap may already be at target.
     converged = converged or stats.coverage >= target
-    reason = ("exhausted: no messages in flight" if stats.exhausted
-              else "max rounds")
+    if interrupted:
+        reason = "interrupted"
+    else:
+        reason = ("exhausted: no messages in flight" if stats.exhausted
+                  else "max rounds")
+    if interrupted and cfg.checkpoint_dir:
+        _final_shutdown_checkpoint(cfg, stepper, stats, p1_interrupted,
+                                   resume_window + gossip_windows,
+                                   overlay_windows)
     printer.done(coverage_ms, stats, target_pct=target * 100.0,
                  converged=converged, reason=reason)
     report = None
-    if cfg.multi_rumor:
+    if cfg.multi_rumor and not p1_interrupted:
         report = multi_rumor_report(cfg, stepper, stats, coverage_ms)
-    if cfg.model == "pushsum":
+    if cfg.model == "pushsum" and not p1_interrupted:
         from gossip_simulator_tpu_torch.models import pushsum
 
         report = pushsum.report(stepper)
@@ -240,6 +321,69 @@ def _run(cfg: Config, printer: ProgressPrinter, stepper: Optional[Stepper],
                      coverage_ms=coverage_ms, converged=converged,
                      overlay_windows=overlay_windows,
                      gossip_windows=gossip_windows, report=report)
+
+
+def _final_shutdown_checkpoint(cfg: Config, stepper: Stepper, stats: Stats,
+                               phase1: bool, window: int,
+                               overlay_windows: int) -> None:
+    """The shutdown path's last snapshot, marked ``interrupted``: the
+    furthest state of whichever phase the run was in, so -resume
+    continues where the signal struck.  Pruned like every save."""
+    if phase1:
+        tree = stepper.overlay_state_pytree()
+        if tree is not None and stepper.primary_host:
+            checkpoint.save(cfg.checkpoint_dir, overlay_windows, tree,
+                            Stats(n=cfg.n), prefix="overlay",
+                            extra_meta={"phase": 1, "interrupted": True,
+                                        "sim_ms": stepper.sim_time_ms()})
+            checkpoint.prune(cfg.checkpoint_dir, cfg.ckpt_keep,
+                             prefix="overlay")
+    else:
+        tree = stepper.state_pytree()
+        if tree is not None and stepper.primary_host:
+            checkpoint.save(cfg.checkpoint_dir, window, tree, stats,
+                            extra_meta={"interrupted": True})
+            checkpoint.prune(cfg.checkpoint_dir, cfg.ckpt_keep)
+
+
+class _Checkpointer:
+    """The snapshot cadence: a save every -checkpoint-every windows of
+    either phase (when -checkpoint-dir is set too), each followed by a
+    prune to -ckpt-keep; ``run_id`` in every sidecar when -run-id is
+    given."""
+
+    def __init__(self, cfg: Config, stepper: Stepper, run_id: str = ""):
+        self.cfg, self.stepper = cfg, stepper
+        self.extra_meta = {"run_id": run_id} if run_id else None
+
+    def _due(self, window: int) -> bool:
+        cfg = self.cfg
+        return (cfg.checkpointing_enabled
+                and window % cfg.checkpoint_every == 0)
+
+    def maybe_save(self, window: int, stats: Stats) -> None:
+        if not self._due(window):
+            return
+        tree = self.stepper.state_pytree()
+        if tree is not None and self.stepper.primary_host:
+            checkpoint.save(self.cfg.checkpoint_dir, window, tree, stats,
+                            extra_meta=self.extra_meta)
+            checkpoint.prune(self.cfg.checkpoint_dir, self.cfg.ckpt_keep)
+
+    def maybe_save_overlay(self, window: int) -> None:
+        """A phase-1 snapshot on the same cadence, under the ``overlay_``
+        prefix with phase 1 and the simulated ms in its sidecar."""
+        if not self._due(window):
+            return
+        tree = self.stepper.overlay_state_pytree()
+        if tree is not None and self.stepper.primary_host:
+            checkpoint.save(
+                self.cfg.checkpoint_dir, window, tree,
+                Stats(n=self.cfg.n), prefix="overlay",
+                extra_meta={"phase": 1,
+                            "sim_ms": self.stepper.sim_time_ms()})
+            checkpoint.prune(self.cfg.checkpoint_dir, self.cfg.ckpt_keep,
+                             prefix="overlay")
 
 
 def _write_run_dir(cfg: Config, telem, window_rows: list, payload: dict,
@@ -331,16 +475,15 @@ def multi_rumor_report(cfg: Config, stepper: Stepper, stats: Stats,
 
 
 def _windowed(cfg: Config, stepper: Stepper, printer: ProgressPrinter,
-              rows: Optional[list] = None) -> tuple[int, bool]:
-    """The windowed loop (``-telemetry off`` with an observing printer): a
-    window, its coverage line (``Stats.coverage``: the worst rumor's under
-    ``-rumors``), then the target and exhaustion checks; each window's
-    trajectory row is appended to `rows` when given.  Returns (windows,
-    converged)."""
-    # max_rounds caps simulated time at window granularity: windows of
-    # WINDOW_MS ticks, or of one round in rounds mode.
-    window_rounds = WINDOW_MS if cfg.effective_time_mode == "ticks" else 1
-    max_windows = max(0, -(-cfg.max_rounds // window_rounds))
+              max_windows: int, ckpt: "_Checkpointer", resume_window: int,
+              rows: Optional[list] = None) -> tuple[int, bool, bool]:
+    """The windowed loop (``-telemetry off`` with an observing printer,
+    checkpointing, or a resumed run): a window, its coverage line
+    (``Stats.coverage``: the worst rumor's under ``-rumors``), the
+    snapshot when one is due (numbered on from `resume_window`), then
+    the target, exhaustion and shutdown checks; each window's trajectory
+    row is appended to `rows` when given.  Returns (windows, converged,
+    interrupted)."""
     windows = 0
     while windows < max_windows:
         with _trace.span("phase2.window", cat="window") as sp:
@@ -357,8 +500,11 @@ def _windowed(cfg: Config, stepper: Stepper, printer: ProgressPrinter,
                          stats.total_removed))
         printer.coverage_window(round(stats.coverage * 100.0, 4),
                                 stepper.sim_time_ms())
+        ckpt.maybe_save(resume_window + windows, stats)
         if stats.coverage >= cfg.coverage_target:
-            return windows, True
+            return windows, True, False
         if getattr(stepper, "exhausted", False):
             break  # no messages in flight and nothing can change
-    return windows, False
+        if _lifecycle.shutdown_requested():
+            return windows, False, True
+    return windows, False, False

@@ -80,6 +80,19 @@ def slot_cap(cfg: Config, n_local: int | None = None) -> int:
     return min(cap, (2**31 - 2) // max(dw, 1))
 
 
+def ticks_spill_cap(cfg: Config, n_rows: int | None = None) -> int:
+    """Spill capacity of a single-device ticks surface (0: none): the
+    JAX package's, which engages only in the slot-major band at a
+    mailbox cap below 16 (that band is not yet ported: ROADMAP A17)."""
+    from gossip_simulator_tpu_torch.models import overlay
+
+    n = n_rows if n_rows is not None else cfg.n
+    cap_mb = cfg.mailbox_cap_for(n, stacked=True)
+    return (overlay.SPILL_CAP
+            if (n >= _config.TICKS_SLOTMAJOR_MIN_ROWS
+                and overlay.spill_enabled(cap_mb)) else 0)
+
+
 def emit_chunk(cfg: Config, n_local: int | None = None) -> int:
     """Emission chunk: lanes per ring append."""
     n = n_local if n_local is not None else cfg.n

@@ -401,12 +401,22 @@ def test_conservation_from_init_every_window():
 
 
 def test_state_geometry_mismatch_is_named():
+    """A state of another window count is refused by name; one of another
+    slot capacity is repacked (utils/checkpoint.py) with every entry and
+    its mass row kept."""
     tree = _jax_run("default")[0]
+    ts = TorchStepper(tcfg.Config(**{**PS, **BASE, "delayhigh": 45})
+                      .validate(), device="cpu")
+    ts.init()
+    with pytest.raises(ValueError, match="window-ring shape"):
+        ts.load_state_pytree(tree)
     ts = TorchStepper(tcfg.Config(**{**PS, **BASE, "event_slot_cap": 5000})
                       .validate(), device="cpu")
     ts.init()
-    with pytest.raises(ValueError, match="state ring geometry"):
-        ts.load_state_pytree(tree)
+    ts.load_state_pytree(tree)
+    assert ts.state.geom[0] == 5000 != int(tree["mail_geom"][0])
+    assert ts.state.mail_cnt.tolist() == tree["mail_cnt"].tolist()
+    assert int(ts.state.mail_dropped) == int(tree["mail_dropped"])
 
 
 # --- config ------------------------------------------------------------------

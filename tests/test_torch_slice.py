@@ -155,7 +155,8 @@ def test_sir_dieout_exit_status():
     (["-graph", "overlay", "-backend", "sharded"], "A13"),
     (["-graph", "kout", "-distributed"], "A13"),
     (["-graph", "kout", "-backend", "native"], "A16"),
-    (["-graph", "kout", "-checkpoint-every", "1"], "A7"),
+    # Checkpoints run (slice 16, A7); the worker pool does not.
+    (["-graph", "kout", "-workers", "4"], "A14"),
     # The recording flags run (slice 15); the spatial panels they would
     # carry stay refused beside each of them.
     (["-graph", "kout", "-run-dir", "x", "-telemetry-spatial", "on"], "A6"),
@@ -189,7 +190,7 @@ def test_sir_dieout_exit_status():
     (["-graph", "kout", "-serve-max-shards", "4"], "A14"),
     (["-graph", "kout", "-serve-force", "2@3"], "A14"),
     (["-graph", "kout", "-serve-max-defer", "100"], "A14"),
-    (["-graph", "kout", "-ckpt-keep", "2"], "A7"),
+    (["-graph", "kout", "-ckpt-keep", "2", "-serve"], "A14"),
     (["-graph", "kout", "-profile", "-telemetry-spatial", "on"], "A6"),
     (["-graph", "kout", "-profile-dir", "p", "-telemetry-spatial", "on"],
      "A6"),
@@ -202,7 +203,8 @@ def test_sir_dieout_exit_status():
     (["-graph", "kout", "-heartbeat-timeout-ms", "100"], "A14"),
     (["-graph", "kout", "-chaos", "kill-worker@0"], "A14"),
     (["-graph", "kout", "-recover-max-stale", "3"], "A14"),
-    (["-graph", "kout", "-run-id", "r1"], "A7"),
+    (["-graph", "kout", "-run-id", "r1", "-heartbeat-timeout-ms", "50"],
+     "A14"),
     (["-graph", "kout", "-init-timeout", "5"], "A14"),
     # A mail ring past 1024 window slots runs (C1 repaired); under the
     # sharded backend's fault branches it stays refused.
@@ -239,6 +241,34 @@ def test_recording_flags_are_ported(flags):
     assert (cfg.log_jsonl_resolved, cfg.trace_resolved) == (
         jc.log_jsonl_resolved, jc.trace_resolved)
     assert cfg.telemetry_enabled and not cfg.telemetry_spatial_enabled
+
+
+@pytest.mark.parametrize("flags", (
+    ["-checkpoint-every", "1"], ["-checkpoint-dir", "d"],
+    ["-checkpoint-every", "3", "-checkpoint-dir", "d"],
+    ["-resume", "-checkpoint-dir", "d"], ["-ckpt-keep", "2"],
+    ["-run-id", "r1"]))
+def test_checkpoint_flags_are_ported(flags):
+    """The five checkpoint flags validate (slice 16) and resolve as the
+    JAX package's do: snapshots are written only with both
+    -checkpoint-every and -checkpoint-dir."""
+    cfg, _ = tcfg.parse_cli(["-graph", "kout", "-n", "300", *flags])
+    jc = jcfg.parse_args(["-graph", "kout", "-n", "300", *flags])
+    for f in ("checkpoint_every", "checkpoint_dir", "resume", "ckpt_keep",
+              "run_id", "checkpointing_enabled"):
+        assert getattr(cfg, f) == getattr(jc, f), f
+
+
+@pytest.mark.parametrize("flags", (["-resume"], ["-ckpt-keep", "-1"],
+                                   ["-resume", "-backend", "native",
+                                    "-checkpoint-dir", "d"]))
+def test_checkpoint_flags_refused_alike(flags):
+    argv = ["-graph", "kout", "-n", "300", *flags]
+    with pytest.raises(ValueError) as want:
+        jcfg.parse_args(argv)
+    with pytest.raises(ValueError) as got:
+        tcfg.parse_cli(argv)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("flags", (["-telemetry", "off"], ["-telemetry", "on"],
