@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases faults         # fault scenarios, healing
     python3 chip_smoke.py --phases rumors_event   # multi-rumor traffic
     python3 chip_smoke.py --phases checkpoint     # snapshots, -resume, SIGTERM
+    python3 chip_smoke.py --phases sharded_faults # -backend sharded, faults, rumors
 
 Phases, each printing its own line:
 
@@ -159,8 +160,9 @@ Phases, each printing its own line:
               batch call ("host" line) -- run right after phase 3, before
               any full-size run, so the profiler records its device time;
               then cuda-vs-cpu twins on 2 and 8
-              shards (SI, SI crash 0, SIR, erdos, erdos -pallas, PushSum)
-              that must launch fused_recv_land; then sharded_10m
+              shards (SI, SIR, erdos, erdos -pallas; PushSum on 8 only;
+              the crash-0 run moved to phase 11) in the worker processes,
+              which must launch fused_recv_land, and beside them sharded_10m
               (bench.py's row: headline_jax's flags, -backend sharded) at
               n = 1e7 under the default gates and -phase2-kernel xla (one
               transcript; fused_recv_land only under the first),
@@ -172,7 +174,8 @@ Phases, each printing its own line:
               CHURN_SCENARIO (2 groups, 60 ms reboots, churn 0-150 at
               2.0, a 0.3 crash wave in group 1 at 30, a partition 20-60)
               on -graph kout -fanout 6 -crashrate 0, seed 0: cuda-vs-cpu
-              twins at n = 20,000 of the runs below; at n = 1e7
+              twins at n = 20,000 of the runs below (the heal-on run to
+              -max-rounds 300); at n = 1e7
               churn10m_heal (-overlay-heal on -coverage-target 0.99
               -max-rounds 250: scen_crashed >= 0.2 n, heal_repaired > 0,
               fused_emit with the partition mask and the heal's
@@ -205,21 +208,42 @@ Phases, each printing its own line:
               and all-xla (one transcript, Stats and report a run family),
               stream250k_poisson, and churn250k_heal_r16 (the JAX package's
               test_churn_partition_heal_r16 at 2.5e5) and its xla twin, those
-              eight side by side in the worker processes; then
-              multirumor50m_r16 at n = 5e7 once, alone, with
+              eight and the twins side by side in the worker processes,
+              while this process runs multirumor50m_r16 at n = 5e7 once,
+              with
               -event-slot-cap 350000007 (7 n + 7, the largest slot the JAX
               package's sizing allows: all 16 rumors to the target; at 1e7,
               2e7 and 3e7 8, 10 and 11 of them), each printing its wall,
               peak memory, rumors done and report;
-11. telemetry -- the run-to-target paths' records: kout 10M (the jax_10m
+11. sharded_faults -- -backend sharded with fault scenarios, healing and
+              rumor words on SHARDS = 8 shards of the card: right after
+              phase 3, fused_recv_land with rumor words (W = 1, 2, 32 and
+              an overflow, bit 31 set in half the words, all ones in a
+              quarter) at a compacted emission batch of
+              multirumor250k_r16_s8, bit-exact to recv_land_plain and
+              timed as in phase 3; then, side by side in the worker
+              processes, cuda-vs-cpu twins at n = 20,000 on 2 and 8
+              shards (the churn timeline with and without healing, a
+              partition alone, PushSum under churn with healing, -rumors
+              16, a stream of 16 at 100 a second, -rumors 16 under churn
+              with healing; the churn runs to -max-rounds 300), each
+              launching fused_recv_land, and multirumor250k_r16_s8 and
+              stream250k_s8 (the 2.5e5 family's argv, -backend sharded:
+              every rumor to the target), while this process runs
+              churn10m_heal_s8 (churn10m_heal's argv: heal_repaired and
+              part_dropped > 0, its scenario counters phase 9's where both
+              end at one tick) and pushsum_churn10m_s8 (pushsum_churn10m's:
+              the same transcript, Stats and report, the mass conserved);
+              alone, the phase runs phase 9's two references itself;
+12. telemetry -- the run-to-target paths' records: kout 10M (the jax_10m
               argv) with -run-dir, -trace and -telemetry-summary, its
               -telemetry off twin and unflagged (one transcript, one
               fingerprint, one result.json Stats), then the default run
               and PushSum at n = 1e5 on the card against the same argv on
               the CPU in worker processes (equal telemetry.npz arrays and
               fingerprints); each printing its wall and phases_s;
-12. checkpoint -- snapshots, -resume and shutdown (the kout run's argv at
-              n = 1e7, 17 windows): (a) its windowed twin in phase 11
+13. checkpoint -- snapshots, -resume and shutdown (the kout run's argv at
+              n = 1e7, 17 windows): (a) its windowed twin in phase 12
               also takes -checkpoint-every 6 -ckpt-keep 2 (alone, the
               phase runs it): exactly state_00000006 and state_00000012
               are left, its transcript is the unflagged run's and its
@@ -240,11 +264,14 @@ Phases, each printing its own line:
               snapshot bytes, the checkpoint.save and checkpoint.load
               seconds (its -trace spans) and the wall.
 
-The twins' runs, on the card and on the CPU (phases 4, 8, 9 and 10), run
-in WORKERS spawned worker processes, which have ended before any full
-run is timed, but for phase 7's CPU erdos rows, which run beside its
-four full runs, and phase 12's two CLI processes, beside its resumes;
-"time <phase>" lines say where the script's time goes.
+The twins' runs, on the card and on the CPU (phases 4, 8, 9, 10 and 11),
+run in WORKERS spawned worker processes.  Phase 4's have ended before
+any full run is timed; phases 8, 9, 10 and 11 run their twins (and
+phase 10 its 2.5e5 family) beside the full runs this process makes, as
+phase 7 runs its CPU erdos rows beside its four full runs and phase 13
+its two CLI processes beside its resumes, so those walls are taken
+beside busy workers; "time <phase>" lines say where the script's time
+goes, and "time total" what it all took, the build included.
 
 With --profile, a full-size run (--profile-run: the default run, one
 of the ring engine's runs, pushsum, erdos or sharded, the last on 8
@@ -2042,34 +2069,45 @@ def _twin_side(argv, patches, shards, device):
     return out, res, st.state_pytree(), wall, launches
 
 
-def run_twins(cases, shards=None):
-    """Each (name, argv, patches, check) case on the card and on the CPU,
-    both sides in the worker pool, the cases side by side; fails unless
-    the transcripts and final state leaves agree, then calls
-    check(launches, RunResult) on the card run, which fails on what it
-    does not accept."""
+def submit_twins(pool, cases, shards=None) -> list:
+    """Submit both sides of each (name, argv, patches, check) case to the
+    worker pool; returns their (card, cpu) futures."""
+    return [[pool.submit(_twin_side, argv,
+                         [(m.__name__, k, v) for m, k, v in patches],
+                         shards, device) for device in ("cuda", "cpu")]
+            for _, argv, patches, _ in cases]
+
+
+def check_twins(cases, runs) -> None:
+    """Wait for each case's two sides (submit_twins); fail unless the
+    transcripts and final state leaves agree, then call check(launches,
+    RunResult) on the card run, which fails on what it does not
+    accept."""
     import numpy as np
 
+    for (name, argv, patches, check), (card, cpu) in zip(cases, runs):
+        out_g, res_g, tg, wall_g, launches = card.result()
+        out_c, _, tc, wall_c, _ = cpu.result()
+        if out_g != out_c:
+            fail(f"{name}: cuda and cpu transcripts differ:\n{out_g}\n"
+                 f"---\n{out_c}")
+        bad = [key for key in tc if not np.array_equal(tg[key], tc[key])]
+        if bad or set(tg) != set(tc):
+            fail(f"{name}: final state leaves differ: {bad}")
+        check(launches, res_g)
+        say(f"{name}: cuda == cpu (transcript, {len(tc)} leaves); "
+            f"{res_g.stats.total_message} messages, converged="
+            f"{res_g.converged}, {res_g.overlay_windows} overlay "
+            f"windows; cuda {wall_g:.2f} s, cpu {wall_c:.2f} s (in "
+            f"workers); launches {launches}")
+
+
+def run_twins(cases, shards=None):
+    """Each (name, argv, patches, check) case on the card and on the CPU,
+    both sides in the worker pool, the cases side by side (check_twins
+    holds them)."""
     with worker_pool() as pool:
-        runs = [[pool.submit(_twin_side, argv,
-                             [(m.__name__, k, v) for m, k, v in patches],
-                             shards, device) for device in ("cuda", "cpu")]
-                for _, argv, patches, _ in cases]
-        for (name, argv, patches, check), (card, cpu) in zip(cases, runs):
-            out_g, res_g, tg, wall_g, launches = card.result()
-            out_c, _, tc, wall_c, _ = cpu.result()
-            if out_g != out_c:
-                fail(f"{name}: cuda and cpu transcripts differ:\n{out_g}\n"
-                     f"---\n{out_c}")
-            bad = [key for key in tc if not np.array_equal(tg[key], tc[key])]
-            if bad or set(tg) != set(tc):
-                fail(f"{name}: final state leaves differ: {bad}")
-            check(launches, res_g)
-            say(f"{name}: cuda == cpu (transcript, {len(tc)} leaves); "
-                f"{res_g.stats.total_message} messages, converged="
-                f"{res_g.converged}, {res_g.overlay_windows} overlay "
-                f"windows; cuda {wall_g:.2f} s, cpu {wall_c:.2f} s (in "
-                f"workers); launches {launches}")
+        check_twins(cases, submit_twins(pool, cases, shards))
 
 
 def phase_twins(n: int) -> None:
@@ -2275,7 +2313,7 @@ def phase_full(n: int) -> dict:
     return runs
 
 
-# --- phase 11: the run-to-target paths' records ------------------------------
+# --- phase 12: the run-to-target paths' records ------------------------------
 
 TELEMETRY_N = 100_000  # the card-vs-cpu records' size
 TELEMETRY_DIR = "smoke_runs/telemetry"  # the phase's run dirs (git-ignored)
@@ -2420,7 +2458,7 @@ def phase_telemetry(n_full: int, n_small: int, ckpt_argv=()) -> dict:
     return runs
 
 
-# --- phase 12: checkpoints, -resume and shutdown -----------------------------
+# --- phase 13: checkpoints, -resume and shutdown -----------------------------
 
 CKPT_DIR = "smoke_runs/checkpoint"  # the phase's snapshots (git-ignored)
 # Phase-1 snapshots are taken at 1e6: at 1e7 the ticks overlay's ring alone
@@ -2981,6 +3019,10 @@ CHURN = ('{"groups": 2, "downtime": 60, "events": ['
 HEAL_ON = ["-overlay-heal", "on", "-coverage-target", "0.99",
            "-max-rounds", "2000"]
 HEAL_OFF = ["-coverage-target", "0.99", "-max-rounds", "2000"]
+# The twins' heal-on churn runs stop at 300 ms, not 600 or 2000 (they
+# stall short of 0.99; the timeline's last reboot is at 210 ms; the
+# script's time limit, PERF.md section 4).
+TWIN_MAX = ["-max-rounds", "300"]
 PMASK = "fused_emit:pmask"  # fused_emit's launches with a partition mask
 # The JAX package's heal on/off acceptance pair runs at 1M (bench.py
 # capture_churn_healing); at 1e7 the wave outlasts the churn and heal-off
@@ -2995,17 +3037,23 @@ def churn_argv(n: int, *extra) -> list:
             "0", "-seed", "0", "-scenario", CHURN, *extra]
 
 
-def fault_run(name, n, argv):
-    """One full-size fault-scenario run through the user entry points with
-    every launch count set to 0 just before it (converged or not); prints
-    its wall, peak memory and counters.  Returns (transcript, RunResult,
+# The single-device runs of phase 9 that phase 11 holds its S = 8 runs to:
+# name -> (transcript, RunResult).
+FAULT_REFS: dict = {}
+
+
+def fault_run(name, n, argv, shards=None):
+    """One full-size fault-scenario run through the user entry points (on
+    `shards` shards of the card with the sharded backend) with every
+    launch count set to 0 just before it (converged or not); prints its
+    wall, peak memory and counters.  Returns (transcript, RunResult,
     stepper, launches)."""
     from gossip_simulator_tpu_torch.ops import _build
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    out, res, st, wall = run_port(argv, "cuda")
+    out, res, st, wall = run_port(argv, "cuda", shards=shards)
     counts = dict(_build.LAUNCHES)
     s = res.stats
     say(f"faults {name}: n={n} {res.gossip_windows} windows "
@@ -3013,9 +3061,9 @@ def fault_run(name, n, argv):
         f"converged={res.converged}; wall {wall:.3f} s; total_message "
         f"{s.total_message}; scen_crashed {s.scen_crashed}, scen_recovered "
         f"{s.scen_recovered}, part_dropped {s.part_dropped}, heal_repaired "
-        f"{s.heal_repaired}, mailbox_dropped {s.mailbox_dropped}; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
-        f"launches {counts}")
+        f"{s.heal_repaired}, mailbox_dropped {s.mailbox_dropped}, "
+        f"exchange_overflow {s.exchange_overflow}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B; launches {counts}")
     return out, res, st, counts
 
 
@@ -3033,12 +3081,13 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     it); ring_churn10m_heal at n to -max-rounds 250 (-engine ring:
     fused_deposit_add) and
     pushsum_churn10m at n (-model pushsum, heal on: Sigma x and Sigma w,
-    parked mass included, exactly the initial totals).  Returns the
-    launches of each full-size run by name."""
+    parked mass included, exactly the initial totals).  The twins run in
+    the worker processes beside the full-size runs, whose walls are taken
+    beside them.  Returns the launches of each full-size run by name."""
     ps = pushsum_argv(twin_n, seed=1) + ["-scenario", CHURN,
                                          "-overlay-heal", "on"]
     cases = [
-        ("churn_heal", churn_argv(twin_n, *HEAL_ON),
+        ("churn_heal", churn_argv(twin_n, *HEAL_ON, *TWIN_MAX),
          ("fused_emit", PMASK, "fused_ring_append")),
         ("churn_noheal", churn_argv(twin_n, *HEAL_OFF),
          ("fused_emit", PMASK)),
@@ -3055,15 +3104,25 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
                 fail(f"twin {name}: no scenario crash")
         return check
 
-    run_twins([(f"twin {name}", argv, (), checker(name, kernels))
-               for name, argv, kernels in cases])
+    twins = [(f"twin {name}", argv, (), checker(name, kernels))
+             for name, argv, kernels in cases]
+    with worker_pool() as pool:
+        tw = submit_twins(pool, twins)
+        runs = _fault_runs(n, n_pair)
+        check_twins(twins, tw)
+    return runs
+
+
+def _fault_runs(n: int, n_pair: int) -> dict:
+    """Phase 9's full-size runs (phase_faults)."""
     runs = {}
     # -max-rounds 2000 cut to 250 at n (the script's time limit,
     # PERF.md section 4; the timeline's last reboot is at 210 ms): the
     # run stalls short of 0.99 either way.
-    _, res_h, st, runs["churn10m_heal"] = fault_run(
+    out_h, res_h, st, runs["churn10m_heal"] = fault_run(
         "churn10m_heal", n, churn_argv(n, *HEAL_ON, "-max-rounds", "250"))
     del st
+    FAULT_REFS["churn10m_heal"] = (out_h, res_h)
     sh = res_h.stats
     if sh.scen_crashed < 0.2 * n or sh.heal_repaired <= 0:
         fail(f"faults churn10m_heal: scen_crashed {sh.scen_crashed}, "
@@ -3127,9 +3186,10 @@ def phase_faults(n: int, n_pair: int, twin_n: int) -> dict:
     if runs[rtag][DEPOSIT] <= 0 or res_r.stats.heal_repaired <= 0:
         fail(f"faults {rtag}: launches {runs[rtag]}, heal_repaired "
              f"{res_r.stats.heal_repaired}")
-    _, res_p, st, runs["pushsum_churn10m"] = fault_run(
+    out_p, res_p, st, runs["pushsum_churn10m"] = fault_run(
         "pushsum_churn10m", n, pushsum_argv(n) + ["-scenario", CHURN,
                                                  "-overlay-heal", "on"])
+    FAULT_REFS["pushsum_churn10m"] = (out_p, res_p)
     totals = _mass_totals(st.state, st.cfg)
     if totals != st.initial_totals or res_p.stats.mailbox_dropped:
         fail(f"faults pushsum_churn10m: mass {totals} after, "
@@ -3342,15 +3402,15 @@ def rumor_parity(dev, gen, reps: int) -> dict:
     return cols
 
 
-def _card_side(argv):
-    """One full-size run on the card in a worker process, every launch
-    count set to 0 before it: (transcript, RunResult, launches, wall s,
-    peak bytes allocated)."""
+def _card_side(argv, shards=None):
+    """One full-size run on the card in a worker process (on `shards`
+    shards with the sharded backend), every launch count set to 0 before
+    it: (transcript, RunResult, launches, wall s, peak bytes allocated)."""
     from gossip_simulator_tpu_torch.ops import _build
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    out, res, st, wall = run_port(argv, "cuda")
+    out, res, st, wall = run_port(argv, "cuda", shards=shards)
     return (out, res, dict(_build.LAUNCHES), wall,
             torch.cuda.max_memory_allocated())
 
@@ -3391,12 +3451,13 @@ def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
     stream_poisson once (-arrivals poisson), and churn_heal_r16 (the JAX
     package's test_churn_partition_heal_r16 at n: the partition mask and
     the heal's appends with words) under the default gates and its
-    -phase2-kernel xla -deliver-kernel xla twin -- these eight runs side
-    by side in the worker processes (each run's host, its enqueue of small
-    launches, is what bounds it; the walls printed are under that
-    sharing); then multirumor_r16 at n_big alone, at the largest slot
-    capacity the JAX package's sizing allows (-event-slot-cap 7 n + 7),
-    which must bring all 16 rumors to the target.  Each run's name carries
+    -phase2-kernel xla -deliver-kernel xla twin -- these eight runs and
+    the twins side by side in the worker processes (each run's host, its
+    enqueue of small launches, is what bounds it; the walls printed are
+    under that sharing); meanwhile, in this process, multirumor_r16 at
+    n_big, at the largest slot capacity the JAX package's sizing allows
+    (-event-slot-cap 7 n + 7), which must bring all 16 rumors to the
+    target (its wall taken beside the workers).  Each run's name carries
     its size (size_tag).  Returns the launches of each full-size run by
     name."""
     cases = [
@@ -3420,8 +3481,8 @@ def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
                 fail(f"twin {name}: no rumor reached the target")
         return check
 
-    run_twins([(f"twin rumors {name}", argv, (), checker(name, kernels))
-               for name, argv, kernels in cases])
+    twins = [(f"twin rumors {name}", argv, (), checker(name, kernels))
+             for name, argv, kernels in cases]
     default = ("fused_emit", WORDS, "fused_ring_append")
     tag = size_tag(n)
     families = {  # name: (argv, (suffix, flags, kernels) a gate, converge)
@@ -3439,15 +3500,34 @@ def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
             ("_p2_xla", ["-phase2-kernel", "xla"],
              ("fused_unique_set", UNIQUE_WORDS, "fused_ring_append")),
             ("_xla", ALL_XLA, ())), True)}
+    from gossip_simulator_tpu_torch.ops import _build
+
+    # The largest slot capacity the JAX package's slot_cap allows an SI
+    # ring, n * k + k (7 n + 7): its default (the 3 GB ring budget, 2^28
+    # entries a slot at 5e7) drops so many sends that 5 of the 16 rumors
+    # reach the target (PERF.md section 6).
+    big = f"multirumor{size_tag(n_big)}_r16"
+    big_cap = ["-event-slot-cap", str(7 * n_big + 7)]
     t0 = time.perf_counter()
     with worker_pool() as pool:
+        tw = submit_twins(pool, twins)
         futs = {name + sfx: pool.submit(_card_side, argv + flags)
                 for name, (argv, gates, _) in families.items()
                 for sfx, flags, _ in gates}
+        # The 5e7 run in this process, beside the workers.
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        _, res_big, st, wall_big = run_port(
+            rumor_argv(n_big, "-rumors", "16", *big_cap), "cuda")
+        big_runs = dict(_build.LAUNCHES)
+        peak_big = torch.cuda.max_memory_allocated()
+        del st
+        check_twins(twins, tw)
         done = {k: f.result() for k, f in futs.items()}
-    say(f"rumors: the {len(done)} runs at n={n} side by side in "
-        f"{WORKERS} workers took {time.perf_counter() - t0:.1f} s")
-    runs = {}
+    say(f"rumors: the {len(done)} runs at n={n}, the twins and {big} side "
+        f"by side took {time.perf_counter() - t0:.1f} s")
+    runs = {big: big_runs}
     for name, (argv, gates, converge) in families.items():
         seen = set()
         for sfx, _, kernels in gates:
@@ -3472,25 +3552,158 @@ def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
         fail(f"rumors churn{tag}_heal_r16: heal_repaired "
              f"{res.heal_repaired}, scen_crashed {res.scen_crashed}")
     del done, futs
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    from gossip_simulator_tpu_torch.ops import _build
+    rumor_line(big, n_big, res_big, big_runs, wall_big, peak_big)
+    if res_big.stats.rumors_done != 16:
+        fail(f"rumors {big}: rumors_done {res_big.stats.rumors_done}")
+    return runs
 
-    _build.reset_launches()
-    # The largest slot capacity the JAX package's slot_cap allows an SI
-    # ring, n * k + k (7 n + 7): its default (the 3 GB ring budget, 2^28
-    # entries a slot at 5e7) drops so many sends that 5 of the 16 rumors
-    # reach the target (PERF.md section 6).
-    big = f"multirumor{size_tag(n_big)}_r16"
-    big_cap = ["-event-slot-cap", str(7 * n_big + 7)]
-    _, res, st, wall = run_port(rumor_argv(n_big, "-rumors", "16", *big_cap),
-                                "cuda")
-    runs[big] = dict(_build.LAUNCHES)
-    del st
-    rumor_line(big, n_big, res, runs[big], wall,
-               torch.cuda.max_memory_allocated())
-    if res.stats.rumors_done != 16:
-        fail(f"rumors {big}: rumors_done {res.stats.rumors_done}")
+
+# --- phase 11: the sharded backend's fault branches and rumor words ---------
+
+# Partition only (the churn timeline's partition, alone).
+PARTITION = ('{"groups": 2, "events": [{"type": "partition", "start": 20, '
+             '"end": 60}]}')
+SHARDED_ON = ["-backend", "sharded"]
+
+
+def _no_notes(t: str) -> list:
+    """A transcript without its note lines (the gates', the exchange's)."""
+    return [x for x in t.splitlines() if not x.startswith("(")]
+
+
+def sharded_fault_twins(twin_n: int) -> list:
+    """The cuda-vs-cpu twins of the sharded fault and rumor paths at
+    twin_n, each on 2 and SHARDS shards: (name, argv, patches, check,
+    shards).  Every case must launch fused_recv_land; the rumor cases and
+    the heal's also fused_ring_append (the injection, the pulls)."""
+    ps = pushsum_argv(twin_n, seed=1) + ["-scenario", CHURN,
+                                         "-overlay-heal", "on"]
+    part = ["-graph", "kout", "-n", str(twin_n), "-fanout", "6",
+            "-crashrate", "0", "-seed", "0", "-scenario", PARTITION,
+            *HEAL_OFF]
+    cases = (
+        ("churn_heal", churn_argv(twin_n, *HEAL_ON, *TWIN_MAX),
+         (RECV, "fused_ring_append"), "fault"),
+        ("churn_noheal", churn_argv(twin_n, *HEAL_OFF, *TWIN_MAX), (RECV,),
+         "fault"),
+        ("partition", part + TWIN_MAX, (RECV,), "partition"),
+        ("pushsum_churn", ps, (RECV, DRAIN), "fault"),
+        ("r16", rumor_argv(twin_n, "-rumors", "16"),
+         (RECV, "fused_ring_append"), "rumor"),
+        ("stream", rumor_argv(twin_n, "-rumors", "16", "-traffic", "stream",
+                              "-stream-rate", "100"),
+         (RECV, "fused_ring_append"), "rumor"),
+        ("churn_heal_r16", CHURN_R16 + ["-n", str(twin_n), *TWIN_MAX],
+         (RECV, "fused_ring_append"), "rumor"))
+
+    def checker(tag, kernels, kind):
+        def check(launches, res_g):
+            s = res_g.stats
+            if any(launches[k] <= 0 for k in kernels):
+                fail(f"{tag}: a kernel of {kernels} was never launched "
+                     f"({launches})")
+            if (kind == "fault" and s.scen_crashed <= 0) or (
+                    kind == "partition" and s.part_dropped <= 0) or (
+                    kind == "rumor" and s.rumors_done <= 0):
+                fail(f"{tag}: nothing of the {kind} case happened "
+                     f"({s.to_dict()})")
+        return check
+
+    return [(f"sharded twin {name} S={shards}", argv + SHARDED_ON, (),
+             checker(f"sharded twin {name} S={shards}", kernels, kind),
+             shards)
+            for shards in (2, SHARDS) for name, argv, kernels, kind in cases]
+
+
+def phase_sharded_faults(n: int, n_rumor: int, twin_n: int) -> dict:
+    """The seventeenth slice's path, -backend sharded with fault scenarios,
+    healing and rumor words, on SHARDS shards of the card (fused_recv_land's
+    word cases run with phase 3).  In the worker processes, side by side:
+    the cuda-vs-cpu twins at twin_n on 2 and SHARDS shards
+    (sharded_fault_twins), multirumor_r16_s8 and stream_s8 at n_rumor
+    (the 2.5e5 multi-rumor family's argv, -backend sharded: every rumor
+    must reach the target).  Meanwhile, in this process: churn10m_heal_s8
+    (churn10m_heal's argv, -backend sharded: heal_repaired and
+    part_dropped > 0, and its scenario counters churn10m_heal's where
+    both end at one tick) and pushsum_churn10m_s8 (pushsum_churn10m's:
+    the same transcript, Stats and report, and the mass conserved).  The
+    single-device references come from phase 9 (run here when it did
+    not).  Returns the launches of each full-size run by name."""
+    tag = size_tag(n_rumor)
+    ps_argv = pushsum_argv(n) + ["-scenario", CHURN, "-overlay-heal", "on"]
+    churn = churn_argv(n, *HEAL_ON, "-max-rounds", "250")
+    runs = {}
+    for name, argv in (("churn10m_heal", churn),
+                       ("pushsum_churn10m", ps_argv)):
+        if name not in FAULT_REFS:
+            out, res, st, runs[name] = fault_run(name, n, argv)
+            del st
+            FAULT_REFS[name] = (out, res)
+    twins = sharded_fault_twins(twin_n)
+    rumor = {f"multirumor{tag}_r16_s8": (rumor_argv(n_rumor, "-rumors", "16",
+                                                    *SHARDED_ON), 16),
+             f"stream{tag}_s8": (rumor_argv(n_rumor, *STREAM_FLAGS,
+                                            *SHARDED_ON), 64)}
+    t0 = time.perf_counter()
+    with worker_pool() as pool:
+        futs = {name: pool.submit(_card_side, argv, SHARDS)
+                for name, (argv, _) in rumor.items()}
+        tw = [submit_twins(pool, [c[:4]], c[4])[0] for c in twins]
+        # The full-size runs in this process, beside the workers.
+        out_h, res_h, st, runs["churn10m_heal_s8"] = fault_run(
+            "churn10m_heal_s8", n, churn + SHARDED_ON, shards=SHARDS)
+        del st
+        out_p, res_p, st, runs["pushsum_churn10m_s8"] = fault_run(
+            "pushsum_churn10m_s8", n, ps_argv + SHARDED_ON, shards=SHARDS)
+        totals = _mass_totals(st.state, st.cfg)
+        initial = st.initial_totals
+        del st
+        check_twins([c[:4] for c in twins], tw)
+        done = {k: f.result() for k, f in futs.items()}
+    say(f"sharded_faults: the {len(twins)} twins, the {len(done)} runs at "
+        f"n={n_rumor} and the two at n={n} side by side took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, (_, r) in rumor.items():
+        out, res, got, wall, peak = done[name]
+        rumor_line(name, n_rumor, res, got, wall, peak)
+        runs[name] = got
+        if res.stats.rumors_done != r or got[RECV] <= 0 or \
+                got["fused_ring_append"] <= 0:
+            fail(f"rumors {name}: rumors_done {res.stats.rumors_done} of "
+                 f"{r}, launches {got}")
+    ref_out, ref = FAULT_REFS["churn10m_heal"]
+    sh, s1 = res_h.stats, ref.stats
+    if sh.heal_repaired <= 0 or sh.part_dropped <= 0 or \
+            runs["churn10m_heal_s8"][RECV] <= 0:
+        fail(f"faults churn10m_heal_s8: heal_repaired {sh.heal_repaired}, "
+             f"part_dropped {sh.part_dropped}, launches "
+             f"{runs['churn10m_heal_s8']}")
+    same = (sh.round == s1.round and (sh.scen_crashed, sh.scen_recovered)
+            == (s1.scen_crashed, s1.scen_recovered))
+    if sh.round == s1.round and not same:
+        fail(f"faults churn10m_heal_s8: scen_crashed/recovered "
+             f"{sh.scen_crashed}/{sh.scen_recovered} at tick {sh.round}, "
+             f"one device {s1.scen_crashed}/{s1.scen_recovered}")
+    say(f"faults churn10m_heal_s8: ends at tick {sh.round} (one device "
+        f"{s1.round}), scen_crashed {sh.scen_crashed} ({s1.scen_crashed}), "
+        f"scen_recovered {sh.scen_recovered} ({s1.scen_recovered}), "
+        f"coverage {sh.coverage:.6f} ({s1.coverage:.6f})"
+        + ("; the scenario's counters equal" if same else ""))
+    ref_out, ref = FAULT_REFS["pushsum_churn10m"]
+    if (_no_notes(out_p) != _no_notes(ref_out)
+            or res_p.stats.to_dict() != ref.stats.to_dict()
+            or res_p.report != ref.report):
+        fail("faults pushsum_churn10m_s8: transcript, Stats or report "
+             "differ from pushsum_churn10m's")
+    if totals != initial or res_p.stats.mailbox_dropped or \
+            res_p.stats.exchange_overflow or \
+            runs["pushsum_churn10m_s8"][RECV] <= 0:
+        fail(f"faults pushsum_churn10m_s8: mass {totals} after, {initial} "
+             f"before, mailbox_dropped {res_p.stats.mailbox_dropped}, "
+             f"exchange_overflow {res_p.stats.exchange_overflow}, launches "
+             f"{runs['pushsum_churn10m_s8']}")
+    say(f"faults pushsum_churn10m_s8: transcript, Stats and report equal "
+        f"pushsum_churn10m's; mass conserved (Sigma x, Sigma w = {totals})")
     return runs
 
 
@@ -3670,6 +3883,17 @@ def _wire(gen, dev, shards, rcap, fill, n_local, dw, b, width=None):
     return recv, words
 
 
+def recv_bytes(m: int, live: int, landed: int, w: int = 0,
+               flags: bool = False) -> int:
+    """The bytes fused_recv_land must move: each of the `m` wire words
+    read; per live lane a flag byte (with the duplicate filter) and its
+    `w`-word row read; each landed entry's id cell and word row written.
+    A slot's entries land side by side (the append), so a write counts at
+    its own size, not as a scattered 32-byte sector."""
+    return (m * 4 + live * ((1 if flags else 0) + 4 * w)
+            + landed * (4 + 4 * w))
+
+
 def recv_parity(dev, gen, reps: int) -> dict:
     """fused_recv_land at the sharded paths' shapes, S = 8: a compacted
     emission batch of sharded_10m (n_local 1.25e6, dw 3, b 10, scap
@@ -3728,11 +3952,7 @@ def recv_parity(dev, gen, reps: int) -> dict:
         if small_cap and not dropped:
             fail(f"{RECV}[{name}]: the overflow case dropped nothing")
         w = width or 0
-        # Each wire word in; a flag byte and a words row per live lane in;
-        # each landed entry and its words row out.
-        nbytes = (m * 4 + live * ((1 if flags else 0) + 4 * w)
-                  + landed * (4 + 4 * w))
-        bnd, by = bound_ms(nbytes, m * 30)
+        bnd, by = bound_ms(recv_bytes(m, live, landed, w, flags), m * 30)
         say(f"{RECV}[{name}]: bit-exact over {m} lanes ({live} live, "
             f"{landed} landed, {dropped} dropped, sup "
             f"{out[-1].tolist()}; cap {cap}, {w} word columns); kernel "
@@ -3756,6 +3976,83 @@ def recv_parity(dev, gen, reps: int) -> dict:
         del out, recv, words, fl
         torch.cuda.empty_cache()
     return row
+
+
+def _wire_rumor_words(gen, dev, recv, w):
+    """(lanes, w) int32 rumor words beside a received wire buffer: in live
+    lanes a quarter all ones (-1), a quarter rumor 31's bit alone (int32
+    -2^31), the rest random 32-bit words; -1 in the empty slots, as the
+    exchange leaves them."""
+    m = recv.numel()
+    kind = torch.randint(0, 4, (m, w), generator=gen, device=dev)
+    rand = torch.randint(-2**31, 2**31, (m, w), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    words = torch.where(kind == 0, -1, torch.where(kind == 1, -2**31, rand))
+    return torch.where((recv >= 0)[:, None], words, -1).to(torch.int32)
+
+
+def recv_word_parity(dev, gen, reps: int) -> dict:
+    """fused_recv_land with the event engine's rumor words at the shape of
+    a compacted emission batch of multirumor250k_r16_s8 (-backend sharded
+    on SHARDS shards: n_local 31,250, its scap and chernoff_cap): W 1, 2
+    and 32 word columns, and W 2 with a small cap (an overflow); bit 31
+    set in half the live words, all ones in a quarter.  Each is bit-exact
+    to recv_land_plain.  Bound by bytes (recv_bytes).  Returns the
+    columns of the B12 row (rumor_w1_ms, ...)."""
+    from gossip_simulator_tpu_torch.ops import megakernel
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    sh = recv_shapes(rumor_argv(RUMOR_FAMILY_N, "-rumors", "16",
+                                "-backend", "sharded"), SHARDS)
+    say(f"recv shapes: multirumor{size_tag(RUMOR_FAMILY_N)}_r16_s8 {sh}")
+    cols = {}
+    for name, w, small_cap in (("rumor_w1", 1, None), ("rumor_w2", 2, None),
+                               ("rumor_w32", 32, None),
+                               ("rumor_w2_overflow", 2, 600)):
+        cap = small_cap or sh["cap"]
+        length = sh["dw"] * cap + 1 if small_cap else sh["length"]
+        recv, _ = _wire(gen, dev, SHARDS, sh["rcap"], sh["fill"],
+                        sh["n_local"], sh["dw"], sh["b"])
+        words = _wire_rumor_words(gen, dev, recv, w)
+        lo, hi = (cap // 4, cap // 2) if small_cap is None else (
+            cap - 300, cap - 200)
+        cnt0 = torch.randint(lo, hi, (1, sh["dw"]), generator=gen, **i32)
+        kw = dict(dw=sh["dw"], cap=cap, b=sh["b"])
+
+        def fresh():
+            return [torch.zeros(length, **i32), cnt0.clone(),  # noqa: B023
+                    torch.zeros((), **i32),
+                    torch.zeros((length, w), **i32)]  # noqa: B023
+
+        def call(fn, st):
+            return [fn(st[0], st[1], st[2], recv, words=words,  # noqa: B023
+                       mail_words=st[3], **kw)[3]]  # noqa: B023
+
+        out, err, t_k, t_p = check_and_time(
+            f"{RECV}[{name}]", megakernel.recv_land_plain,
+            megakernel.fused_recv_land, fresh, call,
+            lambda st: (st[1].copy_(cnt0), st[2].zero_()),  # noqa: B023
+            reps)
+        m = recv.numel()
+        live = int((recv >= 0).sum())
+        landed = int((out[1] - cnt0).sum())
+        dropped = int(out[2])
+        neg = int((out[3] < 0).sum())
+        if small_cap and not dropped:
+            fail(f"{RECV}[{name}]: the overflow case dropped nothing")
+        if not neg:
+            fail(f"{RECV}[{name}]: no landed word has bit 31 set")
+        bnd, by = bound_ms(recv_bytes(m, live, landed, w), m * 30)
+        say(f"{RECV}[{name}]: bit-exact over {m} lanes ({live} live, "
+            f"{landed} landed, {dropped} dropped; {neg} landed words with "
+            f"bit 31 set; cap {cap}, W {w}); kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms, bound {bnd:.5f} ms ({by})")
+        cols.update({f"{name}_max_abs_err": err, f"{name}_ms": t_k,
+                     f"{name}_plain_ms": t_p, f"{name}_bound_ms": bnd,
+                     f"{name}_bound_by": by})
+        del out, recv, words
+        torch.cuda.empty_cache()
+    return cols
 
 
 # The ring depths past the shared form's 1024 slots (ROADMAP C1): the
@@ -3873,7 +4170,7 @@ def fault_parity(dev, gen, reps: int) -> dict:
             reps)
         rmm = recv.numel()
         landed = int((out[1] - cnt0).sum())
-        bnd, by = bound_ms(rmm * 4 + landed * 4, rmm * 30)
+        bnd, by = bound_ms(recv_bytes(rmm, 0, landed), rmm * 30)
         say(f"{RECV}[dw{ddw}]: bit-exact over {rmm} lanes ({landed} landed, "
             f"{int(out[2])} dropped; cap {dcap}, rows {nl}); kernel "
             f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd:.5f} ms ({by})")
@@ -3930,23 +4227,25 @@ def heal_deposit_parity(dev, gen, reps: int) -> dict:
                 heal_form=form)
 
 
-def sharded_twins(n: int) -> None:
-    """cuda-vs-cpu twins of the sharded backend at n on 2 and 8 shards:
-    identical transcripts and final state leaves, and fused_recv_land
-    launched on the card (the cpu sides in worker processes)."""
+def sharded_twins(n: int) -> list:
+    """cuda-vs-cpu twins of the sharded backend at n on 2 and 8 shards
+    (identical transcripts and final state leaves, and fused_recv_land
+    launched on the card): (name, argv, patches, check, shards).  The
+    crash-0 kout run moved to phase 11, whose partition twin runs its
+    path (the duplicate filter) with the scenario's on top; fault-free
+    PushSum (the mass route) runs on SHARDS shards only, phase 11 twins
+    it under churn on 2 and 8."""
     kout = ["-backend", "sharded", "-graph", "kout", "-n", str(n),
             "-fanout", "6", "-seed", "1"]
     erdos = ["-backend", "sharded", "-graph", "erdos", "-n", str(n),
              "-fanout", "8", "-seed", "1"]
-    cases = (("si", kout, ()), ("si_crash0", kout + ["-crashrate", "0"], ()),
+    cases = (("si", kout, ()),
              ("sir", kout + ["-protocol", "sir", "-removal-rate", "0.3",
                              "-droprate", "0.3"], ()),
              ("erdos", erdos, ()),
              # The shards' slices take the fold_in generator (no
              # erdos_pallas), as the JAX package's traced row0 does.
-             ("erdos_pallas", erdos + ["-pallas"], ("erdos_pallas",)),
-             ("pushsum", pushsum_argv(n, seed=1) + ["-backend", "sharded"],
-              ()))
+             ("erdos_pallas", erdos + ["-pallas"], ("erdos_pallas",)))
 
     def checker(tag, idle):
         def check(launches, res_g):
@@ -3954,23 +4253,35 @@ def sharded_twins(n: int) -> None:
                 fail(f"{tag}: launches {launches}")
         return check
 
-    for shards in (2, SHARDS):
-        run_twins([(f"sharded twin {name} S={shards}", argv, (),
-                    checker(f"sharded twin {name} S={shards}", idle))
-                   for name, argv, idle in cases], shards=shards)
+    return [(f"sharded twin {name} S={shards}", argv, (),
+             checker(f"sharded twin {name} S={shards}", idle), shards)
+            for shards in (2, SHARDS) for name, argv, idle in cases] + [
+        (f"sharded twin pushsum S={SHARDS}",
+         pushsum_argv(n, seed=1) + ["-backend", "sharded"], (),
+         checker(f"sharded twin pushsum S={SHARDS}", ()), SHARDS)]
 
 
 def phase_sharded(n: int, n_ps: int, n_big: int) -> dict:
     """The seventh slice's path, the sharded backend on SHARDS shards of
     the card (fused_recv_land's parity runs before it, with phase 3: the
-    profiler records its device time there): the cuda-vs-cpu twins, then
-    sharded_10m under the default gates (fused_recv_land) and with
-    -phase2-kernel xla (the decode and ring-append chain: no
-    fused_recv_land), which must give one transcript; PushSum at n_ps
-    (pushsum10m's flags, -backend sharded), conserving the mass; and
-    config 5 at n_big under the default gates, with wall seconds and peak
-    memory.  Returns the launches of each run."""
-    sharded_twins(TWIN_N)
+    profiler records its device time there): the cuda-vs-cpu twins in the
+    worker processes, and meanwhile, in this process, sharded_10m under
+    the default gates (fused_recv_land) and with -phase2-kernel xla (the
+    decode and ring-append chain: no fused_recv_land), which must give
+    one transcript; PushSum at n_ps (pushsum10m's flags, -backend
+    sharded), conserving the mass; and config 5 at n_big under the
+    default gates, with wall seconds and peak memory (those walls taken
+    beside the busy workers).  Returns the launches of each run."""
+    twins = sharded_twins(TWIN_N)
+    with worker_pool() as pool:
+        futs = [submit_twins(pool, [c[:4]], c[4])[0] for c in twins]
+        runs = _sharded_runs(n, n_ps, n_big)
+        check_twins([c[:4] for c in twins], futs)
+    return runs
+
+
+def _sharded_runs(n: int, n_ps: int, n_big: int) -> dict:
+    """Phase 8's full-size runs (phase_sharded)."""
     runs, outs = {}, {}
     for name, gate, recv_on in (("sharded_10m", [], True),
                                 ("sharded_10m_p2_xla",
@@ -4135,7 +4446,8 @@ def phase_profile(n: int, out_path: str, run: str = "default") -> None:
 
 
 PHASES = ("parity", "twins", "full", "rounds", "ring", "pushsum", "graphs",
-          "sharded", "faults", "rumors_event", "telemetry", "checkpoint")
+          "sharded", "faults", "rumors_event", "sharded_faults", "telemetry",
+          "checkpoint")
 
 
 # The launch counts of a kernel's forms (ops/_build.py FORMS).
@@ -4194,6 +4506,7 @@ def main() -> int:
                          "all of %(default)s); a partial run's last line "
                          "names its phases")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     phases = [p for p in args.phases.split(",") if p]
     if any(p not in PHASES for p in phases):
         ap.error(f"--phases takes a subset of {PHASES}")
@@ -4241,6 +4554,19 @@ def main() -> int:
         gen = torch.Generator(device=dev)
         gen.manual_seed(7)
         kernels[RECV] = recv_parity(dev, gen, REPS)
+    if "sharded_faults" in phases:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(19)
+        cols = recv_word_parity(dev, gen, REPS)
+        kernels.setdefault(RECV, dict(
+            route="cuda",
+            source="gossip_simulator_tpu_torch/csrc/fused_recv_land.cu",
+            replaces="gossip_simulator_tpu/ops/pallas_megakernel.py:328",
+            max_abs_err=cols["rumor_w1_max_abs_err"],
+            ms=cols["rumor_w1_ms"], plain_ms=cols["rumor_w1_plain_ms"],
+            bound_ms=cols["rumor_w1_bound_ms"],
+            bound_by=cols["rumor_w1_bound_by"],
+            library_ms=None)).update(cols)
     if "parity" in phases:
         gen = torch.Generator(device=dev)
         gen.manual_seed(13)
@@ -4275,6 +4601,8 @@ def main() -> int:
                                             TWIN_N)),
             ("rumors_event", lambda: phase_rumors_event(
                 RUMOR_FAMILY_N, RUMOR_BIG_N, TWIN_N)),
+            ("sharded_faults", lambda: phase_sharded_faults(
+                FULL_N, RUMOR_FAMILY_N, TWIN_N)),
             ("telemetry", lambda: phase_telemetry(
                 FULL_N, TELEMETRY_N,
                 CKPT_A if "checkpoint" in phases else ())),
@@ -4284,6 +4612,8 @@ def main() -> int:
             lap(name)
     say(f"full-size runs: {', '.join(runs)} ({time.perf_counter() - t0:.1f} "
         "s since the build started)")
+    say(f"time total: {time.perf_counter() - t_start:.1f} s (the script "
+        "from its start, the build included)")
 
     if args.profile:
         phase_profile(args.profile_n, args.profile, args.profile_run)

@@ -12,8 +12,10 @@ on one card or on ``-device cpu`` (the JAX package on one chip does the
 same); a caller asks for S > 1 shards on the one device by passing
 ``n_devices``, as the JAX package's tests and bench pass it to their
 ``ShardedStepper``.  Static graphs only: the sharded overlay and ring
-engines are not yet ported (ROADMAP A13).  ``run_to_target`` is the
-run-to-target path (``base.run_bounded_to_target`` over the engine's
+engines are not yet ported (ROADMAP A13).  Fault scenarios and healing
+run on both engines, the rumor axis on the event engine.
+``run_to_target`` is the run-to-target path
+(``base.run_bounded_to_target`` over the engine's
 ``make_run_to_coverage_fn``), recording a telemetry row a window under
 ``-telemetry on``.  A snapshot of any shard count restores onto S shards
 (``load_state_pytree``); with no phase 1, there is no phase-1 snapshot.
@@ -83,29 +85,41 @@ class ShardedStepper(Stepper):
     def gossip_window(self) -> Stats:
         self._window_fn(self.state, self.key)
         stats, live = self.stats_and_inflight()
-        self.exhausted = not live
+        # Healing can revive an empty ring: heal-on runs never report
+        # exhaustion (TorchStepper.gossip_window's rule).
+        self.exhausted = not live and not self.cfg.overlay_heal_resolved
         stats.exhausted = self.exhausted
         return stats
 
     def stats_and_inflight(self) -> tuple[Stats, bool]:
         """All progress-window scalars in ONE device-to-host read: the
-        replicated counters from shard 0, removed and in-flight over every
-        shard."""
+        replicated counters (the fault counters and the per-rumor counts
+        too) from shard 0, removed and in-flight over every shard."""
         cfg, st = self.cfg, self.state[0]
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         removed = (sum(event.removed_count(x) for x in self.state)
                    if cfg.protocol == "sir" else zero)
         live = torch.stack([in_flight(x) for x in self.state]).any()
+        r = cfg.rumors
+        rmin, rdone = zero - 1, zero
+        if cfg.multi_rumor:
+            rmin = st.rumor_recv[:r].min()
+            rdone = (st.rumor_done[:r] >= 0).sum()
         vals = torch.stack([
             st.total_message, st.total_received, st.total_crashed,
             removed, st.mail_dropped.to(torch.int64), st.exchange_overflow,
-            live.to(torch.int64)]).tolist()
-        tm, tr, tc, trm, dropped, xo, live = vals
+            live.to(torch.int64), st.scen_crashed, st.scen_recovered,
+            st.part_dropped, st.heal_repaired, rmin.to(torch.int64),
+            rdone.to(torch.int64)]).tolist()
+        (tm, tr, tc, trm, dropped, xo, live, sc, sr, pd, hr, rmin,
+         rdone) = vals
         return Stats(
             n=cfg.n, round=st.tick, total_received=tr, total_message=tm,
             total_crashed=tc, total_removed=trm,
             mailbox_dropped=self._mailbox_dropped + dropped,
-            exchange_overflow=xo, exhausted=self.exhausted), bool(live)
+            exchange_overflow=xo, scen_crashed=sc, scen_recovered=sr,
+            part_dropped=pd, heal_repaired=hr, exhausted=self.exhausted,
+            rumors=r, rumor_min_recv=rmin, rumors_done=rdone), bool(live)
 
     def run_to_target(self) -> Stats:
         """The run-to-target path (base.run_bounded_to_target)."""
@@ -116,11 +130,13 @@ class ShardedStepper(Stepper):
         return self.state[0].tick
 
     def progress(self) -> tuple[int, int, bool]:
-        """(tick, total received, a message in flight on any shard) in
-        one host read."""
-        st = self.state[0]
+        """(tick, the loop's received count -- the worst rumor's under
+        -rumors --, a message in flight on any shard) in one host read."""
+        st, r = self.state[0], self.cfg.rumors
+        recv = (st.rumor_recv[:r].min() if self.cfg.multi_rumor
+                else st.total_received)
         live = torch.stack([in_flight(x) for x in self.state]).any()
-        recv, live = torch.stack([st.total_received,
+        recv, live = torch.stack([recv.to(torch.int64),
                                   live.to(torch.int64)]).tolist()
         return st.tick, recv, bool(live)
 

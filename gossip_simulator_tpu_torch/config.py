@@ -747,13 +747,6 @@ class Config:
             raise NotYetPorted(
                 "-backend sharded with -graph overlay, -engine ring, "
                 "-time-mode rounds or -protocol pushpull", "A13")
-        if self.backend == "sharded" and (self.scenario_resolved.active
-                                          or self.overlay_heal_resolved):
-            raise NotYetPorted(
-                "-backend sharded with -scenario or -overlay-heal", "A13")
-        if self.backend == "sharded" and self.multi_rumor:
-            raise NotYetPorted(
-                "-backend sharded with -rumors or -traffic stream", "A13")
         if self.graph == "overlay":
             self._reject_unported_overlay()
         defaults = Config()

@@ -453,9 +453,12 @@ def multi_rumor_report(cfg: Config, stepper: Stepper, stats: Stats,
     result-record fields, simulated time): traffic, rumors and deliveries
     a simulated second, and each done rumor's latency (its rumor_done
     stamp minus its scheduled inject tick: arrivals.arrival_ticks under
-    stream traffic, 0 under oneshot) as a summary and a histogram."""
+    stream traffic, 0 under oneshot) as a summary and a histogram.  The
+    sharded backend's stamps are replicated: shard 0's are read."""
     r = cfg.rumors
-    done = stepper.state.rumor_done[:r].cpu().numpy()
+    st = stepper.state
+    st = st[0] if isinstance(st, list) else st
+    done = st.rumor_done[:r].cpu().numpy()
     inject = (np.asarray(_arrivals.arrival_ticks(cfg), np.int64)
               if cfg.traffic == "stream" else np.zeros(r, np.int64))
     out: dict = {"traffic": cfg.traffic}

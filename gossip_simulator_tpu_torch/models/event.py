@@ -300,8 +300,9 @@ def injection_batch(cfg: Config, tick: int, base_key, b: int, dw: int):
     rumor's tick), so they enter through the ring and the drain like every
     relayed message.  Rumor r's tick is 0 (oneshot), r * 1000 //
     stream_rate (stream, fixed), or its arrival table's.  Source draws are
-    keyed by the rumor index alone (OP_INJECT).  The schedule is host
-    arithmetic (the window's tick is a host int).  Returns (payload,
+    keyed by the rumor index alone (OP_INJECT), so the schedule is the
+    same at any shard count (injection_shard keeps a shard's lanes).  The
+    schedule is host arithmetic (the window's tick is a host int).  Returns (payload,
     words, wslot, valid) of injection_lanes(cfg) lanes on the key's
     device; words int32[lanes, W] with the lane's rumor bit."""
     m = injection_lanes(cfg)
@@ -337,6 +338,15 @@ def injection_batch(cfg: Config, tick: int, base_key, b: int, dw: int):
                      bit[:, None], 0).astype(np.int32)
     return (payload, torch.from_numpy(words).to(dev), wslot,
             torch.from_numpy(valid).to(dev))
+
+
+def injection_shard(batch, b: int, n_local: int, shard: int):
+    """The lanes of an injection_batch whose source `shard` (of `n_local`
+    rows) owns, their payload rows localized."""
+    payload, words, wslot, valid = batch
+    src = payload // b
+    return ((src % n_local) * b + payload % b, words, wslot,
+            valid & (src // n_local == shard))
 
 
 def stamp_rumor_done(cfg: Config, rumor_recv, rumor_done, tick: int):

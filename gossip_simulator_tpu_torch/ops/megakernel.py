@@ -694,10 +694,11 @@ def fused_recv_land(mail_ids, mail_cnt, dropped, recv, *, dw: int, cap: int,
     running count while it is below `cap` (a drop otherwise), with the
     lane's `words` row at the same position of `mail_words`.  mail_ids
     int32[L], mail_cnt int32[1, dw], dropped int32[]; words (M, W) and
-    mail_words (L, W) int32 (the JAX package's uint32 rumor words ride as
-    their int32 view; the event engine's rumor ladder is ROADMAP A11).
-    Returns (mail_ids, mail_cnt,
-    dropped, sup[dw][, mail_words])."""
+    mail_words (L, W) int32: PushSum's mass limbs, or the event engine's
+    uint32 rumor words as their int32 view.  Only `recv` tells an empty
+    slot (``-1``); a words row is any 32 bits a column, and lands only
+    with its lane.  Returns (mail_ids, mail_cnt, dropped, sup[dw][,
+    mail_words])."""
     _recv_check(mail_ids, mail_cnt, dropped, recv, dw, cap, b, words,
                 mail_words, flags)
     dev = recv.device

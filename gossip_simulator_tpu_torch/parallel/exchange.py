@@ -16,7 +16,10 @@ segment ranks; both land the identical buffers.
 
 A payload is int32 ``(M,)``, or ``(M, W)``: W int32 columns bucketed as
 one row, which is W slot-aligned payloads of the JAX package's route
-(PushSum's mass limbs).  ``-1`` marks an empty wire slot.
+(PushSum's mass limbs, the event engine's rumor words as the int32 view
+of their uint32 bits).  ``-1`` fills every column of an empty slot, and
+only the first payload (the wire word, never negative when valid) tells
+an empty slot: a word column may hold any 32 bits, -1 included.
 
 Not yet ported: ``route_multi_pipelined`` (``-exchange-pipeline double``,
 ROADMAP A13) and the spatial-telemetry ``traffic`` counters with their

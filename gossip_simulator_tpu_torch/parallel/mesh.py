@@ -13,6 +13,8 @@ collective, and each collective is a tensor operation over the list.
   trajectory: the drain's crash draws are keyed by ring position.
 * ``psum`` and ``pmax`` are sums and maxima over the list (``psum``,
   ``pmax`` below); a pmax-agreed loop count is one host read.
+* ``all_gather`` (tiled) is a concatenation of the shards' leaves in
+  shard order (the heal's peer bits and rumor words).
 * ``axis_index`` is the shard's position in the loop.
 
 Multi-process and multi-device layouts (``torch.distributed``) are not

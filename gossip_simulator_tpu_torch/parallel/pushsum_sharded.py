@@ -19,10 +19,13 @@ The float32 metric is the single-device engine's (``pushsum.metric_rel``),
 computed per shard on the same rows, so nothing compiled by nvcc touches
 it.
 
-Not yet ported: the sharded fault branches (scenarios and healing run
-on one device; on shards they are ROADMAP A13) and the spatial panels
-(the rest of A6).  ``make_run_to_coverage_fn`` is the run-to-target
-loop.
+Fault scenarios run per shard at the window's start on global ids off
+the unfolded key, the partition mask on global (src, dst) ids inside the
+emission, and ``-overlay-heal on`` only clears the reboot markers, a
+shard-local pass: so a scenario run too is the same at every shard count.
+
+Not yet ported: the spatial panels (the rest of A6).
+``make_run_to_coverage_fn`` is the run-to-target loop.
 """
 
 from __future__ import annotations
@@ -130,6 +133,11 @@ def make_sharded_pushsum_step(cfg: Config, mesh: Mesh):
         dev = states[0].mass.device
         tick = states[0].tick
         slot = (tick // b) % dw
+        lane_ids = torch.arange(n_local, dtype=I32, device=dev)
+        # Scenario faults: (window, global id)-keyed off the unfolded key.
+        fault_d = [event.apply_fault_window_flags(
+            cfg, st, i * n_local + lane_ids, base_key, b)
+            for i, st in enumerate(states)]
         if p2 == "pallas":
             # The whole slot in one pass per shard (integer adds commute,
             # so any chunking gives the same bits).
@@ -148,10 +156,10 @@ def make_sharded_pushsum_step(cfg: Config, mesh: Mesh):
                                            rounding_mode="floor"),
                         st.mail_mass[off0:off0 + ccap],
                         j * ccap + lane < m, kernel=dkern)
-        recvs, reps, lanes = [], [], []
+        recvs, reps, lanes, blks = [], [], [], []
         dst, wsl, offs, valid, shares = [], [], [], [], []
         for i, st in enumerate(states):
-            gids = i * n_local + torch.arange(n_local, dtype=I32, device=dev)
+            gids = i * n_local + lane_ids
             m3 = pushsum._normalize(st.mass.view(n_local, dim + 1,
                                                  pushsum.LIMBS))
             crashed = (st.flags & event.CRASHED) > 0
@@ -162,9 +170,10 @@ def make_sharded_pushsum_step(cfg: Config, mesh: Mesh):
                                    st.flags & (0xFF ^ event.RECEIVED))
             recvs.append(conv.sum())
             reps.append(rep.max())
-            new_m3, share, d, w, o, lane_valid, _ = pushsum.emit_shares(
+            new_m3, share, d, w, o, lane_valid, blk = pushsum.emit_shares(
                 cfg, m3, crashed, st.friends, st.friend_cnt, tick, gids,
                 base_key)
+            blks.append(blk)
             st.mass = new_m3.reshape(n_local, ncol)
             dst.append(d)
             wsl.append(w)
@@ -182,6 +191,9 @@ def make_sharded_pushsum_step(cfg: Config, mesh: Mesh):
             I32).to(I64)
         dm = psum(lanes)
         ddrop, dxovf = psum(drops).to(I32), psum(xovfs).to(I64)
+        dsc = sum(f[0] for f in fault_d)
+        dsr = sum(f[1] for f in fault_d)
+        dpart = psum(blks)
         new_tick = tick + b
         for st in states:
             st.mail_cnt[0, slot] = 0
@@ -194,19 +206,42 @@ def make_sharded_pushsum_step(cfg: Config, mesh: Mesh):
             st.mail_dropped += ddrop
             st.exchange_overflow += dxovf
             st.relerr_ppb = relerr.clone()
+            st.scen_crashed += dsc
+            st.scen_recovered += dsr
+            st.part_dropped += dpart
         return states
 
     return step_fn
 
 
+def make_sharded_pushsum_heal(cfg: Config, mesh: Mesh):
+    """Reboot-marker clearing on every shard (None when -overlay-heal is
+    off): pushsum.make_heal_fn's pass, shard-local, so it needs no
+    collective."""
+    heal = pushsum.make_heal_fn(cfg)
+    if heal is None:
+        return None
+
+    def heal_fn(states, base_key: torch.Tensor):
+        for st in states:
+            heal(st, base_key)
+        return states
+
+    return heal_fn
+
+
 def make_window_fn(cfg: Config, mesh: Mesh, window: int):
-    """Advance ~`window` simulated ms: ceil(window / B) window steps."""
+    """Advance ~`window` simulated ms: ceil(window / B) window steps, then
+    (-overlay-heal on) the healing pass."""
     step = make_sharded_pushsum_step(cfg, mesh)
+    heal = make_sharded_pushsum_heal(cfg, mesh)
     steps = max(1, -(-window // pushsum.batch_ticks(cfg)))
 
     def window_fn(states, base_key: torch.Tensor):
         for _ in range(steps):
             step(states, base_key)
+        if heal is not None:
+            heal(states, base_key)
         return states
 
     return window_fn
@@ -224,7 +259,8 @@ def make_seed_fn(cfg: Config, mesh: Mesh):
 def make_run_to_coverage_fn(cfg: Config, mesh: Mesh):
     """The sharded PushSum run-to-target loop: the test of
     pushsum.make_run_to_coverage_fn, its in-flight term over every shard
-    (past the first batch); the probe over every shard."""
+    (past the first batch, and not under -overlay-heal on); the probe over
+    every shard."""
     from gossip_simulator_tpu_torch.models.state import in_flight
     from gossip_simulator_tpu_torch.utils import telemetry as telem
 
@@ -232,12 +268,13 @@ def make_run_to_coverage_fn(cfg: Config, mesh: Mesh):
     max_steps = cfg.max_rounds
     ihwm = exchange.inflight_hwm(mesh.n_shards)
     b = pushsum.batch_ticks(cfg)
+    check_in_flight = not cfg.overlay_heal_resolved
 
     def live(states, target_count: int, until: int) -> bool:
         st = states[0]
         if st.tick >= max_steps or st.tick >= until:
             return False
-        if st.tick < b:
+        if st.tick < b or not check_in_flight:
             return int(st.total_received) < target_count
         alive = torch.stack([in_flight(x) for x in states]).any()
         recv, alive = torch.stack([st.total_received,

@@ -27,7 +27,9 @@ The sharded backend's state, a list of per-shard states, crosses as the
 JAX package's global sharded leaves (``ShardedStepper.state_pytree()``
 there) through ``sharded_state_from_numpy``/``sharded_state_to_numpy``
 and the PushSum pair: node-axis leaves and rings concatenated shard by
-shard, ``mail_cnt``/``sup_cnt`` as ``(S, dw)`` and ``exch_counts`` as
+shard (the crash clock and the rumor words too where they are full
+size, replicated where they are 1-element placeholders),
+``mail_cnt``/``sup_cnt`` as ``(S, dw)`` and ``exch_counts`` as
 ``(S, 1)``, replicated scalars once, and ``mail_geom`` = (slot_cap,
 drain_chunk, S) of one shard.
 
@@ -276,6 +278,21 @@ def overlay_state_to_numpy(st) -> dict:
 _SHARD_BLOCKS = ("flags", "friends", "friend_cnt", "mass", "mail_ids",
                  "mail_mass")
 _SHARD_ROWS = ("mail_cnt", "sup_cnt", "exch_counts")
+# Leaves split into row blocks at full size, and replicated as the JAX
+# package's 1-element placeholders: the crash clock (full under
+# Config.faults_enabled) and the rumor words (full under
+# Config.multi_rumor), each with the leaf whose rows it matches.
+_SHARD_IF_FULL = {"down_since": "flags", "rumor_words": "flags",
+                  "mail_words": "mail_ids"}
+
+
+def _blocked(tree: dict, k: str) -> bool:
+    """Whether leaf k of a (global or one shard's) tree is split by rows."""
+    if k in _SHARD_BLOCKS:
+        return True
+    like = _SHARD_IF_FULL.get(k)
+    return like is not None and (np.shape(tree[k])[0]
+                                 == np.shape(tree[like])[0])
 
 
 def _split_shards(tree: dict, n_shards: int) -> list[dict]:
@@ -288,7 +305,7 @@ def _split_shards(tree: dict, n_shards: int) -> list[dict]:
         t = {"mail_geom": geom[:2]}
         for k, v in tree.items():
             a = np.asarray(v)
-            if k in _SHARD_BLOCKS:
+            if _blocked(tree, k):
                 rows = a.shape[0] // n_shards
                 t[k] = a[i * rows:(i + 1) * rows]
             elif k in _SHARD_ROWS:
@@ -301,8 +318,8 @@ def _split_shards(tree: dict, n_shards: int) -> list[dict]:
 
 def _join_shards(trees: list[dict]) -> dict:
     tree = dict(trees[0])
-    for k in _SHARD_BLOCKS + _SHARD_ROWS:
-        if k in tree:
+    for k in trees[0]:
+        if _blocked(trees[0], k) or k in _SHARD_ROWS:
             tree[k] = np.concatenate([t[k] for t in trees])
     tree["mail_geom"] = np.append(trees[0]["mail_geom"],
                                   np.int64(len(trees)))

@@ -200,13 +200,16 @@ def _ring_append(fn, d, kw, dev):
 
 
 def _recv_inputs(seed, *, sources=4, rcap=300, fill=200, n=500, dw=3,
-                 cap=400, b=10, base_hi=None, flags=False, width=None):
+                 cap=400, b=10, base_hi=None, flags=False, width=None,
+                 rumor=False):
     """Numpy inputs of one fused_recv_land call (test_torch_sharded.py
     shares them): a received wire buffer of `sources` buckets of `rcap`
     lanes, the first `fill` of each holding a wire word ``d*(dw*b) + w*b +
     o`` and the rest -1 (with `width`, (lanes, width) word rows, -1 in the
     empty slots), a random ring, base counts and, with `flags`, flags of
-    n + 1 rows (the port's trash row last)."""
+    n + 1 rows (the port's trash row last).  With `rumor` the word rows
+    are rumor words, any 32 bits as int32: a quarter all ones (-1), a
+    quarter bit 31 alone (rumor 31's bit), the rest random."""
     rng = np.random.default_rng(seed)
     m = sources * rcap
     live = np.arange(m) % rcap < fill
@@ -220,8 +223,13 @@ def _recv_inputs(seed, *, sources=4, rcap=300, fill=200, n=500, dw=3,
     if flags:
         d["flags"] = (rng.random(n + 1) < 0.5).astype(np.uint8)
     if width:
-        d["words"] = np.where(live[:, None], rng.integers(
-            0, 2**16, (m, width)), -1).astype(np.int32)
+        rows = rng.integers(0, 2**16, (m, width))
+        if rumor:
+            kind = rng.integers(0, 4, (m, width))
+            rows = np.select([kind == 0, kind == 1],
+                             [-1, -2**31],
+                             rng.integers(-2**31, 2**31, (m, width)))
+        d["words"] = np.where(live[:, None], rows, -1).astype(np.int32)
         d["mail_words"] = rng.integers(0, 1000, (length, width)).astype(
             np.int32)
     return d, dict(dw=dw, cap=cap, b=b)
@@ -1224,6 +1232,13 @@ RECV_CASES = {
                          width=12),
     "dw4096_blocks": dict(dw=4096, sources=8, rcap=80_000, fill=70_000,
                           n=5000, cap=200, flags=True),
+    # The event engine's rumor words (the sharded multi-rumor route): W 1,
+    # 2 and 32, all-ones words and rumor 31's bit among them, and an
+    # overflow past cap.
+    "rumor_w1": dict(width=1, rumor=True),
+    "rumor_w2": dict(width=2, rumor=True),
+    "rumor_w32": dict(width=32, rumor=True),
+    "rumor_w2_overflow": dict(width=2, rumor=True, cap=80, base_hi=60),
 }
 
 

@@ -437,13 +437,14 @@ ARGV = ["-model", "pushsum", "-graph", "kout", "-n", "100", "-droprate",
     (["-crashrate", "0.001"], "requires crashrate 0"),
     (["-pushsum-dim", "9"], r"pushsum_dim must be in \[1, 8\]"),
     (["-pushsum-eps", "0"], "pushsum_eps must be > 0"),
-    # Its fault scenarios and healing are ported (A10) on one device, with
-    # the JAX package's rules; the sharded fault branches are not (A13).
+    # Its fault scenarios and healing are ported (A10), with the JAX
+    # package's rules, on the sharded backend too (A13.1); across
+    # processes they are not (A13).
     (["-graph", "erdos", "-scenario", '{"groups": 0}'],
      "scenario groups must be >= 1"),
     (["-scenario", '{"groups": 101, "downtime": 5}'],
      r"scenario groups \(101\) cannot exceed n \(100\)"),
-    (["-backend", "sharded", "-overlay-heal", "on"],
+    (["-backend", "sharded", "-overlay-heal", "on", "-distributed"],
      r"not yet ported \(ROADMAP A13\)"),
     # -backend sharded is ported (A13, first part); its pipelined
     # exchange is not.

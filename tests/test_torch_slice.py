@@ -126,28 +126,31 @@ def test_sir_dieout_exit_status():
 
 
 @pytest.mark.parametrize("flags,item", (
-    # Multi-rumor traffic runs on one device (A11); the sharded backend's
-    # rumor words do not.
+    # Multi-rumor traffic runs on the event engine's sharded backend too
+    # (A13.2); on the overlay graph it does not.
     (["-traffic", "stream", "-backend", "sharded"], "A13"),
     (["-n", "300000000"], "A18"),
-    # Fault scenarios and healing run on one device (A10); the sharded
-    # backend's fault branches do not.
+    # Fault scenarios and healing run on the sharded backend (A13.1) but
+    # with the overlay graph, the ring engine or their other neighbours
+    # still refused.
     (["-overlay-mode", "rounds", "-overlay-heal", "on", "-backend",
       "sharded"], "A13"),
     (["-overlay-mode", "ticks", "-n", "40000000"], "A17"),
     (["-n", "100000000", "-mailbox-cap", "16", "-overlay-mode", "ticks"],
      "A17"),
-    (["-graph", "erdos", "-backend", "sharded", "-scenario", CHURN],
-     "A13"),
-    (["-graph", "kout", "-backend", "sharded", "-overlay-heal", "on"],
+    (["-graph", "erdos", "-backend", "sharded", "-scenario", CHURN,
+      "-engine", "ring"], "A13"),
+    (["-graph", "overlay", "-backend", "sharded", "-overlay-heal", "on"],
      "A13"),
     (["-graph", "kout", "-model", "pushsum", "-droprate", "0",
-      "-crashrate", "0", "-backend", "sharded", "-scenario", CHURN], "A13"),
-    (["-graph", "kout", "-rumors", "4", "-backend", "sharded"], "A13"),
-    (["-graph", "kout", "-backend", "sharded", "-scenario", PARTITION],
-     "A13"),
+      "-crashrate", "0", "-backend", "sharded", "-scenario", CHURN,
+      "-telemetry-spatial", "on"], "A6"),
+    (["-graph", "kout", "-rumors", "4", "-backend", "sharded",
+      "-exchange-pipeline", "double"], "A13"),
+    (["-graph", "kout", "-backend", "sharded", "-scenario", PARTITION,
+      "-telemetry-spatial", "on"], "A6"),
     (["-graph", "kout", "-rumors", "4", "-overlay-heal", "on", "-backend",
-      "sharded"], "A13"),
+      "sharded", "-distributed"], "A13"),
     (["-graph", "kout", "-serve"], "A14"),
     (["-graph", "kout", "-supervise"], "A14"),
     # -backend sharded is ported for the event engine and PushSum (A13,
@@ -170,7 +173,7 @@ def test_sir_dieout_exit_status():
       "-exchange-pipeline", "double"], "A13"),
     (["-graph", "kout", "-tuning-table", "off"], "A15"),
     (["-graph", "kout", "-backend", "sharded", "-pallas", "-scenario",
-      CHURN, "-overlay-heal", "on"], "A13"),
+      CHURN, "-overlay-heal", "on", "-time-mode", "rounds"], "A13"),
     (["-graph", "kout", "-engine", "ring", "-backend", "sharded"], "A13"),
     # The reference flags the port parses without running them (C2).
     (["-graph", "kout", "-exchange-pipeline", "double"], "A13"),
@@ -178,11 +181,11 @@ def test_sir_dieout_exit_status():
     (["-graph", "kout", "-telemetry-summary", "-telemetry-spatial", "on"],
      "A6"),
     (["-graph", "kout", "-backend", "sharded", "-overlay-heal", "on",
-      "-heal-detect-ms", "50"], "A13"),
+      "-heal-detect-ms", "50", "-telemetry-spatial", "on"], "A6"),
     (["-graph", "kout", "-traffic", "stream", "-stream-rate", "200",
-      "-backend", "sharded"], "A13"),
+      "-backend", "sharded", "-exchange-pipeline", "double"], "A13"),
     (["-graph", "kout", "-traffic", "stream", "-arrivals", "poisson",
-      "-backend", "sharded"], "A13"),
+      "-backend", "sharded", "-serve"], "A14"),
     (["-graph", "kout", "-serve-high", "0.9"], "A14"),
     (["-graph", "kout", "-serve-low", "0.2"], "A14"),
     (["-graph", "kout", "-serve-window", "4"], "A14"),
@@ -206,10 +209,12 @@ def test_sir_dieout_exit_status():
     (["-graph", "kout", "-run-id", "r1", "-heartbeat-timeout-ms", "50"],
      "A14"),
     (["-graph", "kout", "-init-timeout", "5"], "A14"),
-    # A mail ring past 1024 window slots runs (C1 repaired); under the
-    # sharded backend's fault branches it stays refused.
+    # A mail ring past 1024 window slots runs (C1 repaired), under the
+    # sharded backend's fault branches too; its pipelined exchange does
+    # not.
     (["-graph", "kout", "-delaylow", "1", "-delayhigh", "2000", "-backend",
-      "sharded", "-scenario", CHURN], "A13"),
+      "sharded", "-scenario", CHURN, "-exchange-pipeline", "double"],
+     "A13"),
 ))
 def test_unported_flags_are_named(flags, item):
     with pytest.raises(tcfg.NotYetPorted,
