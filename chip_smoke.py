@@ -164,8 +164,12 @@ Phases, each printing its own line:
               the crash-0 run moved to phase 11) in the worker processes,
               which must launch fused_recv_land, and beside them sharded_10m
               (bench.py's row: headline_jax's flags, -backend sharded) at
-              n = 1e7 under the default gates and -phase2-kernel xla (one
-              transcript; fused_recv_land only under the first),
+              n = 1e7 under the default gates, -phase2-kernel xla and
+              -exchange-pipeline double (one transcript; fused_recv_land
+              not under the second; the third, which keeps the serial
+              route, gives the first's Stats, history columns and
+              launches, exchange_inflight_hwm 2, its wall printed beside
+              the first's),
               pushsum10m with -backend sharded (mass conserved, nothing
               dropped), and config 5 cut to n = 1.2e7 with its wall seconds,
               peak memory and the host seconds spent in the
@@ -236,12 +240,14 @@ Phases, each printing its own line:
               the same transcript, Stats and report, the mass conserved);
               alone, the phase runs phase 9's two references itself;
 12. telemetry -- the run-to-target paths' records: kout 10M (the jax_10m
-              argv) with -run-dir, -trace and -telemetry-summary, its
-              -telemetry off twin and unflagged (one transcript, one
-              fingerprint, one result.json Stats), then the default run
-              and PushSum at n = 1e5 on the card against the same argv on
-              the CPU in worker processes (equal telemetry.npz arrays and
-              fingerprints); each printing its wall and phases_s;
+              argv) with -run-dir, -trace, -telemetry-summary and
+              -telemetry-spatial on, its -telemetry off twin and
+              unflagged (one transcript, one fingerprint, one result.json
+              Stats), then the default run and PushSum at n = 1e5 with
+              -telemetry-spatial on, on the card against the same argv
+              on the CPU in worker processes (equal telemetry.npz arrays,
+              the panels among them, health.json and fingerprints); each
+              printing its wall and phases_s;
 13. checkpoint -- snapshots, -resume and shutdown (the kout run's argv at
               n = 1e7, 17 windows): (a) its windowed twin in phase 12
               also takes -checkpoint-every 6 -ckpt-keep 2 (alone, the
@@ -264,10 +270,22 @@ Phases, each printing its own line:
               snapshot bytes, the checkpoint.save and checkpoint.load
               seconds (its -trace spans) and the wall.
 
+The spatial panels (-telemetry-spatial on, with a run dir under
+smoke_runs/spatial/) are also armed on ring_kout10m's and pushsum10m's
+default-gate runs (phases 5, 6) and on churn10m_heal_s8 and
+pushsum_churn10m_s8 (phase 11): at every window the groups' received
+and removed sum to the history's columns, the shards' mail high-water
+maxes to mail_high, the traffic matrix's column sums are the shards'
+routed lanes received, the matrix never falls and its total is theirs;
+each prints health.json's status and findings ("spatial" and "health"
+lines).
+
 The twins' runs, on the card and on the CPU (phases 4, 8, 9, 10 and 11),
-run in WORKERS spawned worker processes.  Phase 4's have ended before
-any full run is timed; phases 8, 9, 10 and 11 run their twins (and
-phase 10 its 2.5e5 family) beside the full runs this process makes, as
+run in WORKERS spawned worker processes.  Phase 4's run on their own
+when phase 10 does not run, else in phase 10's workers after its 2.5e5
+family, beside multirumor50m_r16; phases 8, 9, 10 and 11 run their
+twins (and phase 10 its 2.5e5 family) beside the full runs this process
+makes, as
 phase 7 runs its CPU erdos rows beside its four full runs and phase 13
 its two CLI processes beside its resumes, so those walls are taken
 beside busy workers; "time <phase>" lines say where the script's time
@@ -2110,7 +2128,8 @@ def run_twins(cases, shards=None):
         check_twins(cases, submit_twins(pool, cases, shards))
 
 
-def phase_twins(n: int) -> None:
+def twin_cases(n: int) -> list:
+    """Phase 4's cuda-vs-cpu twins at n: (name, argv, patches, check)."""
     from gossip_simulator_tpu_torch import config
     from gossip_simulator_tpu_torch.models import overlay
 
@@ -2211,8 +2230,12 @@ def phase_twins(n: int) -> None:
                      f"{res_g.overlay_windows} rounds, not three a round")
         return check
 
-    run_twins([(f"twin {name}", argv, patches, checker(name, argv, kernels))
-               for name, argv, kernels, patches in cases])
+    return [(f"twin {name}", argv, patches, checker(name, argv, kernels))
+            for name, argv, kernels, patches in cases]
+
+
+def phase_twins(n: int) -> None:
+    run_twins(twin_cases(n))
 
 
 def _full_line(name, n, out, res, st, wall, counts) -> str:
@@ -2247,19 +2270,77 @@ def full_run(name, n, argv, keep_friends=False, shards=None):
     return out, res, st, counts, wall
 
 
+SPATIAL = ["-telemetry-spatial", "on"]  # the panels (slice 18)
+SPATIAL_DIR = "smoke_runs/spatial"  # the spatial runs' dirs (git-ignored)
+
+
+def spatial_argv(name: str) -> list:
+    """-telemetry-spatial on, writing the run dir SPATIAL_DIR/name."""
+    return SPATIAL + ["-run-dir", f"{SPATIAL_DIR}/{name}"]
+
+
+def spatial_check(name: str, rdir: str) -> None:
+    """The JAX package's panel identities (its tests/test_spatial.py) at
+    every window of the spatial run written to `rdir`: the groups'
+    received and removed sum to the history's received and removed
+    columns, the shards' mail high-water maxes to mail_high, the traffic
+    matrix's column sums are the shards' routed lanes received
+    (exch_rcvd), the matrix never falls, and its total is theirs; then
+    health.json's status and findings."""
+    import numpy as np
+
+    from gossip_simulator_tpu_torch.utils.artifact import load_run
+    from gossip_simulator_tpu_torch.utils.telemetry import GCOL
+
+    run = load_run(rdir)
+    t = run["telemetry"]
+    if "spatial_group" not in t or "health" not in run:
+        fail(f"spatial {name}: no panels or no health.json in {rdir}")
+    cols, grp, shd, tr = (t["gossip_cols"], t["spatial_group"],
+                          t["spatial_shard"], t["spatial_traffic"])
+    rcvd = shd[:, :, 4]
+    checks = {
+        "group received": (grp[:, :, 0].sum(axis=1)
+                           == cols[:, GCOL["received"]]).all(),
+        "group removed": (grp[:, :, 2].sum(axis=1)
+                          == cols[:, GCOL["removed"]]).all(),
+        "shard mail_high": (shd[:, :, 0].max(axis=1)
+                            == cols[:, GCOL["mail_high"]]).all(),
+        "traffic columns": (tr.sum(axis=1) == rcvd).all(),
+        "traffic monotone": (np.diff(tr, axis=0) >= 0).all(),
+        "traffic total": tr[-1].sum() == rcvd[-1].sum(),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad or grp.shape[0] != cols.shape[0]:
+        fail(f"spatial {name}: {bad} fail over {cols.shape[0]} windows")
+    h = run["health"]
+    say(f"spatial {name}: {cols.shape[0]} windows, group {grp.shape[1:]}, "
+        f"shard {shd.shape[1:]}, traffic {tr.shape[1:]} (total "
+        f"{int(tr[-1].sum())} routed lanes, overflow "
+        f"{int(shd[-1, :, 2].sum())}); identities hold ({', '.join(checks)})")
+    say(f"health {name}: {h['status']}, checks {h['checks']}, findings "
+        f"{[(f['check'], f['subject'], f['index']) for f in h['findings']]}")
+
+
 def strip_notes(t: str) -> list:
     """A transcript without the gates' note lines, for comparing runs
     across gate settings."""
     return [x for x in t.splitlines() if not x.startswith("(phase")]
 
 
-def gate_pair(name, n, argv, kernels) -> tuple[dict, dict, float]:
+def gate_pair(name, n, argv, kernels, spatial=False
+              ) -> tuple[dict, dict, float]:
     """`argv` under the default gates, then with every gate xla: both
     converge with identical transcripts, identical friends tables at the
     end of phase 1 and equal mailbox_dropped; the default run launches
-    each of `kernels`, the xla run none.  Returns (default run's launches,
-    xla run's launches, default run's wall seconds)."""
-    out_d, res_d, st_d, counts_d, wall_d = full_run(name, n, argv, True)
+    each of `kernels`, the xla run none.  With `spatial` the default run
+    records the spatial panels (spatial_check holds them), so its
+    transcript is also held to an unarmed run's.  Returns (default run's
+    launches, xla run's launches, default run's wall seconds)."""
+    out_d, res_d, st_d, counts_d, wall_d = full_run(
+        name, n, argv + (spatial_argv(name) if spatial else []), True)
+    if spatial:
+        spatial_check(name, f"{SPATIAL_DIR}/{name}")
     friends_d = st_d.friends_p1
     del st_d
     out_x, res_x, st_x, counts_x, _ = full_run(
@@ -2378,8 +2459,9 @@ def phase_telemetry(n_full: int, n_small: int, ckpt_argv=()) -> dict:
     if ckpt_argv:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     smi = smi_line()
-    small = {"default": ["-n", str(n_small), "-seed", "0", *OVERLAY],
-             "pushsum": pushsum_argv(n_small)}
+    small = {"default": ["-n", str(n_small), "-seed", "0", *OVERLAY,
+                         *SPATIAL],
+             "pushsum": pushsum_argv(n_small) + SPATIAL}
     runs = {}
     with worker_pool() as pool:
         cpu = {name: pool.submit(_cpu_run_dir, argv,
@@ -2391,7 +2473,7 @@ def phase_telemetry(n_full: int, n_small: int, ckpt_argv=()) -> dict:
         out_f, res_f, _, runs["telemetry_kout"], wall_f = full_run(
             "telemetry_kout", n_full,
             kout + ["-run-dir", fast_dir, "-trace", f"{fast_dir}/trace.json",
-                    "-telemetry-summary"])
+                    "-telemetry-summary", *SPATIAL])
         out_w, res_w, _, runs["telemetry_kout_windowed"], wall_w = full_run(
             "telemetry_kout_windowed", n_full,
             kout + ["-telemetry", "off", "-run-dir", win_dir, *ckpt_argv])
@@ -2432,9 +2514,11 @@ def phase_telemetry(n_full: int, n_small: int, ckpt_argv=()) -> dict:
             if runs["telemetry_kout"][k] <= 0:
                 fail(f"telemetry: {k} was never launched "
                      f"({runs['telemetry_kout']})")
-        say("telemetry kout: recorded transcript == plain transcript, "
-            "run-to-target fingerprint == windowed fingerprint "
-            f"{fast['result']['fingerprint']}, result.json Stats equal")
+        say("telemetry kout: recorded transcript (spatial panels armed) == "
+            "plain transcript, run-to-target fingerprint == windowed "
+            f"fingerprint {fast['result']['fingerprint']}, result.json "
+            "Stats equal")
+        spatial_check("telemetry_kout", fast_dir)
         for name, argv in small.items():
             rdir = f"{TELEMETRY_DIR}/{name}_card"
             _, _, _, runs[f"telemetry_{name}"], wall = full_run(
@@ -2447,6 +2531,9 @@ def phase_telemetry(n_full: int, n_small: int, ckpt_argv=()) -> dict:
             tc, th = card["telemetry"], host["telemetry"]
             bad = [k for k in th if k not in tc
                    or not np.array_equal(tc[k], th[k])]
+            if "spatial_traffic" not in th or card.get("health") != \
+                    host.get("health"):
+                bad.append("the panels or health.json")
             if bad or set(tc) != set(th) or rc != 0:
                 fail(f"telemetry {name}: card and cpu telemetry.npz differ "
                      f"({bad}, rc {rc})")
@@ -2908,7 +2995,7 @@ def phase_ring(n: int, n_rumor: int) -> dict:
     kout = ["-engine", "ring", "-graph", "kout", "-fanout", "6", "-n",
             str(n), "-seed", "0"]
     runs["ring_kout10m"], runs["ring_kout10m_xla"], _ = gate_pair(
-        "ring_kout10m", n, kout, (DEPOSIT,))
+        "ring_kout10m", n, kout, (DEPOSIT,), spatial=True)
     # The rounds deposit (6 lanes a cell of its two-slot ring) takes the
     # dense form, the compacted ticks chunks the direct one.
     dense = {r: runs[r][DEPOSIT_DENSE] for r in ("ring_rounds10m",
@@ -2969,8 +3056,11 @@ def phase_pushsum(n: int) -> dict:
             ("pushsum10m_p2_xla", ["-phase2-kernel", "xla"],
              ("fused_deposit_rows", "fused_ring_append"), (DRAIN,)),
             ("pushsum10m_xla", ALL_XLA, (), None)):
-        out, res, st, runs[name], _ = full_run(name, n,
-                                               pushsum_argv(n) + gate)
+        spatial = spatial_argv(name) if name == "pushsum10m" else []
+        out, res, st, runs[name], _ = full_run(
+            name, n, pushsum_argv(n) + gate + spatial)
+        if spatial:
+            spatial_check(name, f"{SPATIAL_DIR}/{name}")
         counts = runs[name]
         if any(counts[k] <= 0 for k in launched) or (
                 idle is None and any(gated(counts).values())) or (
@@ -3438,7 +3528,8 @@ def size_tag(n: int) -> str:
     return f"{n // 10**6}m" if n >= 10**6 else f"{n // 1000}k"
 
 
-def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
+def phase_rumors_event(n: int, n_big: int, twin_n: int,
+                       more_twins=()) -> dict:
     """The fourteenth slice's path, multi-rumor traffic on the event engine
     (bench.py's multirumor flags: -graph kout -fanout 6 -crashrate 0
     -coverage-target 0.95 -seed 0): cuda-vs-cpu twins at twin_n (R = 16,
@@ -3457,9 +3548,11 @@ def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
     under that sharing); meanwhile, in this process, multirumor_r16 at
     n_big, at the largest slot capacity the JAX package's sizing allows
     (-event-slot-cap 7 n + 7), which must bring all 16 rumors to the
-    target (its wall taken beside the workers).  Each run's name carries
-    its size (size_tag).  Returns the launches of each full-size run by
-    name."""
+    target (its wall taken beside the workers).  `more_twins` (phase 4's,
+    when both phases run) join the workers' queue after this phase's
+    runs: the 5e7 run leaves them idle most of its wall.  Each run's
+    name carries its size (size_tag).  Returns the launches of each
+    full-size run by name."""
     cases = [
         ("r16", rumor_argv(twin_n, "-rumors", "16"),
          ("fused_emit", WORDS, "fused_ring_append")),
@@ -3514,6 +3607,7 @@ def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
         futs = {name + sfx: pool.submit(_card_side, argv + flags)
                 for name, (argv, gates, _) in families.items()
                 for sfx, flags, _ in gates}
+        more = submit_twins(pool, more_twins)
         # The 5e7 run in this process, beside the workers.
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3525,8 +3619,10 @@ def phase_rumors_event(n: int, n_big: int, twin_n: int) -> dict:
         del st
         check_twins(twins, tw)
         done = {k: f.result() for k, f in futs.items()}
-    say(f"rumors: the {len(done)} runs at n={n}, the twins and {big} side "
-        f"by side took {time.perf_counter() - t0:.1f} s")
+        check_twins(more_twins, more)
+    say(f"rumors: the {len(done)} runs at n={n}, the twins "
+        f"({len(more_twins)} of phase 4's among them) and {big} side by "
+        f"side took {time.perf_counter() - t0:.1f} s")
     runs = {big: big_runs}
     for name, (argv, gates, converge) in families.items():
         seen = set()
@@ -3651,10 +3747,14 @@ def phase_sharded_faults(n: int, n_rumor: int, twin_n: int) -> dict:
         tw = [submit_twins(pool, [c[:4]], c[4])[0] for c in twins]
         # The full-size runs in this process, beside the workers.
         out_h, res_h, st, runs["churn10m_heal_s8"] = fault_run(
-            "churn10m_heal_s8", n, churn + SHARDED_ON, shards=SHARDS)
+            "churn10m_heal_s8", n,
+            churn + SHARDED_ON + spatial_argv("churn10m_heal_s8"),
+            shards=SHARDS)
         del st
         out_p, res_p, st, runs["pushsum_churn10m_s8"] = fault_run(
-            "pushsum_churn10m_s8", n, ps_argv + SHARDED_ON, shards=SHARDS)
+            "pushsum_churn10m_s8", n,
+            ps_argv + SHARDED_ON + spatial_argv("pushsum_churn10m_s8"),
+            shards=SHARDS)
         totals = _mass_totals(st.state, st.cfg)
         initial = st.initial_totals
         del st
@@ -3663,6 +3763,8 @@ def phase_sharded_faults(n: int, n_rumor: int, twin_n: int) -> dict:
     say(f"sharded_faults: the {len(twins)} twins, the {len(done)} runs at "
         f"n={n_rumor} and the two at n={n} side by side took "
         f"{time.perf_counter() - t0:.1f} s")
+    for name in ("churn10m_heal_s8", "pushsum_churn10m_s8"):
+        spatial_check(name, f"{SPATIAL_DIR}/{name}")
     for name, (_, r) in rumor.items():
         out, res, got, wall, peak = done[name]
         rumor_line(name, n_rumor, res, got, wall, peak)
@@ -4282,26 +4384,54 @@ def phase_sharded(n: int, n_ps: int, n_big: int) -> dict:
 
 def _sharded_runs(n: int, n_ps: int, n_big: int) -> dict:
     """Phase 8's full-size runs (phase_sharded)."""
-    runs, outs = {}, {}
+    from gossip_simulator_tpu_torch.utils.telemetry import GCOL
+
+    runs, outs, done, walls = {}, {}, {}, {}
     for name, gate, recv_on in (("sharded_10m", [], True),
                                 ("sharded_10m_p2_xla",
-                                 ["-phase2-kernel", "xla"], False)):
-        outs[name], res, st, runs[name], _ = full_run(
+                                 ["-phase2-kernel", "xla"], False),
+                                ("sharded_10m_double",
+                                 ["-exchange-pipeline", "double"], True)):
+        outs[name], res, st, runs[name], walls[name] = full_run(
             name, n, sharded_argv(n) + gate, shards=SHARDS)
+        hist = st._telem.gossip_snapshot()
+        done[name] = (res.stats.to_dict(), hist["cols"][:hist["count"]])
         del st
-        if (runs[name][RECV] > 0) != recv_on or runs[name]["kout_pallas"] \
-                <= 0:
+        if (runs[name][RECV] > 0) != recv_on or \
+                runs[name]["kout_pallas"] <= 0:
             fail(f"full {name}: launches {runs[name]}")
         if res.stats.exchange_overflow:
             fail(f"full {name}: exchange_overflow "
                  f"{res.stats.exchange_overflow}")
-    if strip_notes(outs["sharded_10m"]) != strip_notes(
-            outs["sharded_10m_p2_xla"]):
-        fail("full sharded_10m: default and -phase2-kernel xla transcripts "
-             "differ")
+    if len({tuple(_no_notes(t)) for t in outs.values()}) != 1:
+        fail("full sharded_10m: default, -phase2-kernel xla and "
+             "-exchange-pipeline double transcripts differ")
     _transcript("sharded_10m", outs["sharded_10m"])
-    say("full sharded_10m: default and -phase2-kernel xla transcripts "
-        "identical")
+    # -exchange-pipeline double keeps the serial route: sharded_10m's
+    # Stats, every history column but exchange_inflight_hwm (2, the serial
+    # run's 1) and the same launches of every kernel.
+    (s_stats, s_cols), (d_stats, d_cols) = (done["sharded_10m"],
+                                            done["sharded_10m_double"])
+    hwm = GCOL["exchange_inflight_hwm"]
+    keep = [c for c in range(s_cols.shape[1]) if c != hwm]
+    serial, piped = runs["sharded_10m"], runs["sharded_10m_double"]
+    if (s_stats != d_stats or s_cols.shape != d_cols.shape
+            or not (s_cols[:, keep] == d_cols[:, keep]).all()
+            or not (s_cols[:, hwm] == 1).all()
+            or not (d_cols[:, hwm] == 2).all()):
+        fail("full sharded_10m_double: Stats or history differ from "
+             "sharded_10m's")
+    if piped != serial:
+        fail(f"full sharded_10m_double: launches {piped} (serial "
+             f"{serial})")
+    say("full sharded_10m: default, -phase2-kernel xla and -exchange-"
+        "pipeline double transcripts identical; double: Stats and the "
+        f"history's columns sharded_10m's, exchange_inflight_hwm 2; "
+        f"{RECV} {piped[RECV]} launches (serial {serial[RECV]}), "
+        f"fused_ring_append {piped['fused_ring_append']} (serial "
+        f"{serial['fused_ring_append']}); wall "
+        f"{walls['sharded_10m_double']:.3f} s (serial "
+        f"{walls['sharded_10m']:.3f} s) [{smi_line()}]")
     out, res, st, runs["pushsum10m_sharded"], _ = full_run(
         "pushsum10m_sharded", n_ps,
         pushsum_argv(n_ps) + ["-backend", "sharded"], shards=SHARDS)
@@ -4580,8 +4710,13 @@ def main() -> int:
             kernels.setdefault(name, rumor_row(name, cols)).update(cols)
     lap("parity")
 
-    # 4. twins
-    if "twins" in phases:
+    # 4. twins (beside phase 10's 5e7 run when both phases run)
+    later_twins = []
+    if "twins" in phases and "rumors_event" in phases:
+        later_twins = twin_cases(TWIN_N)
+        say(f"twins: {len(later_twins)} twins run in phase 10's workers, "
+            "beside multirumor50m_r16")
+    elif "twins" in phases:
         phase_twins(TWIN_N)
         lap("twins")
 
@@ -4600,7 +4735,7 @@ def main() -> int:
             ("faults", lambda: phase_faults(FULL_N, FAULT_PAIR_N,
                                             TWIN_N)),
             ("rumors_event", lambda: phase_rumors_event(
-                RUMOR_FAMILY_N, RUMOR_BIG_N, TWIN_N)),
+                RUMOR_FAMILY_N, RUMOR_BIG_N, TWIN_N, later_twins)),
             ("sharded_faults", lambda: phase_sharded_faults(
                 FULL_N, RUMOR_FAMILY_N, TWIN_N)),
             ("telemetry", lambda: phase_telemetry(

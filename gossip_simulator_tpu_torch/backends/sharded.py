@@ -57,7 +57,8 @@ class ShardedStepper(Stepper):
         self._window_fn = engine.make_window_fn(cfg, self.mesh, WINDOW_MS)
         self._seed_fn = engine.make_seed_fn(cfg, self.mesh)
         self._run_fn = engine.make_run_to_coverage_fn(cfg, self.mesh)
-        self._telem = (TelemetrySession(cfg, self.device)
+        self._telem = (TelemetrySession(cfg, self.device,
+                                        n_shards=self.mesh.n_shards)
                        if cfg.telemetry_enabled else None)
         init_fn = (pushsum_sharded.make_sharded_pushsum_init
                    if cfg.model == "pushsum"

@@ -180,8 +180,8 @@ class Config:
     pushsum_eps: float = 1e-3  # convergence: max relative error
     # Device-recorded per-window telemetry (utils/telemetry.py): with it
     # an observing run takes the run-to-target paths and replays the
-    # recorded windows; "off" keeps the windowed loop.  The spatial
-    # panels are not yet ported (UNPORTED_FLAGS).
+    # recorded windows; "off" keeps the windowed loop.  -telemetry-spatial
+    # on adds the group, shard and traffic panels (npz only).
     telemetry: str = "on"
     telemetry_spatial: str = "off"
     telemetry_summary: bool = False
@@ -196,6 +196,9 @@ class Config:
     arrivals: str = "fixed"
     ckpt_keep: int = 0
     run_id: str = ""
+    # "double" accepted on -backend sharded: the route stays serial (one
+    # process, nothing to overlap), exchange_inflight_hwm reads 2; "auto"
+    # resolves to "off".
     exchange_pipeline: str = "auto"
     coordinator: str = ""
     num_processes: int = -1
@@ -402,9 +405,11 @@ class Config:
 
     @property
     def exchange_pipeline_resolved(self) -> str:
-        """"off": one process holds every shard, so the exchange has no
-        collective to overlap (``double`` is not yet ported)."""
-        return "off"
+        """An explicit "off" or "double" passes through; "auto" is "off":
+        one process holds every shard, so the exchange has no collective
+        to overlap (the JAX package's auto picks double on a mesh of
+        several devices)."""
+        return "double" if self.exchange_pipeline == "double" else "off"
 
     @property
     def phase2_kernel_resolved(self) -> str:
@@ -427,8 +432,8 @@ class Config:
 
     @property
     def telemetry_spatial_enabled(self) -> bool:
-        """Whether they would also record the spatial panels (not yet
-        ported: validate rejects -telemetry-spatial on)."""
+        """Whether they also record the spatial panels (group, shard and
+        traffic, utils/telemetry.py) beside each history row."""
         return self.telemetry_spatial == "on" and self.telemetry_enabled
 
     def resolved_gates(self) -> dict:
@@ -579,6 +584,11 @@ class Config:
             raise ValueError(
                 "-telemetry-spatial on records panels on the telemetry "
                 "fast path; it cannot run with -telemetry off")
+        if (self.telemetry_spatial == "on"
+                and self.backend not in ("jax", "sharded")):
+            raise ValueError(
+                "-telemetry-spatial needs a device-side loop to record "
+                f"panels; backend {self.backend!r} has none")
         self._validate_rumors()
         self._validate_pushsum()
         self._validate_faults()
@@ -740,8 +750,6 @@ class Config:
             raise NotYetPorted(f"-backend {self.backend}", "A16")
         if self.distributed:
             raise NotYetPorted("-distributed", "A13")
-        if self.exchange_pipeline == "double":
-            raise NotYetPorted("-exchange-pipeline double", "A13")
         if self.backend == "sharded" and (self.graph == "overlay"
                                           or self.engine_resolved != "event"):
             raise NotYetPorted(
@@ -797,7 +805,6 @@ class Config:
 # Fields whose value away from the default is not yet ported: the flag's
 # spelling and the ROADMAP item that ports it.
 UNPORTED_FLAGS = {
-    "telemetry_spatial": ("-telemetry-spatial", "A6"),
     "coordinator": ("-coordinator", "A13"),
     "num_processes": ("-num-processes", "A13"),
     "process_id": ("-process-id", "A13"),

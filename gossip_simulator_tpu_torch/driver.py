@@ -410,6 +410,14 @@ def _write_run_dir(cfg: Config, telem, window_rows: list, payload: dict,
     rdir.write_config(cfg)
     rdir.write_env(device=device)
     rdir.write_telemetry(hist_o, hist_g, traj)
+    if cfg.telemetry_spatial_enabled:
+        # The shard-health watchdog over the fetched panels: its verdict
+        # to health.json, its findings to the trace as instants.
+        from gossip_simulator_tpu_torch.utils import health as _health
+
+        n_shards = telem.n_shards if telem is not None else 1
+        rdir.write_health(_health.report_health(_health.evaluate_health(
+            hist_g, cap=_health.ring_slot_cap(cfg, n_shards))))
     rdir.write_result({
         **payload,
         "fingerprint": artifact.fingerprint_rows(traj),

@@ -52,7 +52,8 @@ import torch
 
 from gossip_simulator_tpu_torch import scenario as _scen
 from gossip_simulator_tpu_torch.config import Config
-from gossip_simulator_tpu_torch.models.state import SimState, in_flight
+from gossip_simulator_tpu_torch.models.state import (SimState, in_flight,
+                                                     init_exch_counts)
 from gossip_simulator_tpu_torch.ops import deliver, megakernel
 from gossip_simulator_tpu_torch.utils import rng as _rng
 
@@ -194,7 +195,7 @@ def init_state(cfg: Config, friends: torch.Tensor,
         heal_repaired=z(), pending_rumors=pending_rumors,
         rumor_words=rumor_words, rumor_recv=rumor_recv,
         rumor_done=rumor_done,
-        exch_counts=torch.zeros((1, 1), dtype=I32, device=dev))
+        exch_counts=init_exch_counts(cfg, 1, dev))
 
 
 def row_slot(cfg: Config, delay_key, tick: int,
@@ -710,8 +711,9 @@ def make_run_to_coverage_fn(cfg: Config):
     tick below max_rounds and below `until`, and a message in flight (not
     under push-pull, which draws fresh peers every round, nor under
     -overlay-heal on); then the window and its heal, and with a History
-    one gossip_probe row.  One host read a window for the test.
-    run_fn(st, key, target, until, hist) -> (st, hist)."""
+    one gossip_probe row (with its panel rows under -telemetry-spatial
+    on).  One host read a window for the test.  run_fn(st, key, target,
+    until, hist) -> (st, hist)."""
     from gossip_simulator_tpu_torch.utils import telemetry as telem
 
     window = make_window_fn(
@@ -722,6 +724,7 @@ def make_run_to_coverage_fn(cfg: Config):
     multi = cfg.multi_rumor
     rumors = cfg.rumors
     sir = cfg.protocol == "sir"
+    spatial = telem.spatial_spec(cfg)
 
     def live(st: SimState, target_count: int, until: int) -> bool:
         if st.tick >= max_steps or st.tick >= until:
@@ -738,8 +741,8 @@ def make_run_to_coverage_fn(cfg: Config):
         while live(st, target_count, until):
             window(st, base_key)
             if hist is not None:
-                telem.record(hist, telem.gossip_probe(
-                    st, sir, rumors=rumors if multi else 0))
+                telem.record_window(hist, telem.gossip_probe(
+                    st, sir, rumors=rumors if multi else 0), [st], spatial)
         return st, hist
 
     return run_fn

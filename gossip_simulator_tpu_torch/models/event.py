@@ -67,7 +67,7 @@ from gossip_simulator_tpu_torch import config as _config
 from gossip_simulator_tpu_torch import scenario as _scen
 from gossip_simulator_tpu_torch.config import Config
 from gossip_simulator_tpu_torch.models import epidemic
-from gossip_simulator_tpu_torch.models.state import in_flight
+from gossip_simulator_tpu_torch.models.state import in_flight, init_exch_counts
 from gossip_simulator_tpu_torch.ops import deliver, mailbox, megakernel
 from gossip_simulator_tpu_torch.utils import rng as _rng
 
@@ -115,7 +115,7 @@ class EventState:
     rumor_words: torch.Tensor  # int32[n + 1, W | 1x1]
     rumor_recv: torch.Tensor  # int32[W * 32 | 1]  infected count a rumor
     rumor_done: torch.Tensor  # int32[W * 32 | 1]  tick the target was hit
-    exch_counts: torch.Tensor  # int32[1, 1]
+    exch_counts: torch.Tensor  # int32[1, S + 2 | 1]  (init_exch_counts)
     # (slot_cap, drain_chunk) the ring was sized with.
     geom: tuple = (0, 0)
 
@@ -359,7 +359,8 @@ def stamp_rumor_done(cfg: Config, rumor_recv, rumor_done, tick: int):
 
 
 def init_state(cfg: Config, friends: torch.Tensor,
-               friend_cnt: torch.Tensor) -> EventState:
+               friend_cnt: torch.Tensor, n_shards: int = 1) -> EventState:
+    """State of `friends`' rows (one shard's of `n_shards`)."""
     n = friends.shape[0]
     dev = friends.device
     dw = ring_windows(cfg)
@@ -383,7 +384,7 @@ def init_state(cfg: Config, friends: torch.Tensor,
         heal_repaired=z(),
         mail_words=mail_words, rumor_words=rumor_words,
         rumor_recv=rumor_recv, rumor_done=rumor_done,
-        exch_counts=torch.zeros((1, 1), dtype=I32, device=dev),
+        exch_counts=init_exch_counts(cfg, n_shards, dev),
         geom=(slot_cap(cfg, n), drain_chunk(cfg, n)),
     )
 
@@ -1034,11 +1035,13 @@ def make_run_to_coverage_fn(cfg: Config):
     is at most the last injection's); then the window and its heal, and
     with a History one gossip_probe row.  The test reads its two device
     scalars in one host read a window; a window the JAX package's loop
-    would not run is never run.  run_fn(st, key, target, until, hist)
-    -> (st, hist)."""
+    would not run is never run.  Under -telemetry-spatial on each row
+    brings its panel rows (telemetry.record_window).  run_fn(st, key,
+    target, until, hist) -> (st, hist)."""
     from gossip_simulator_tpu_torch.utils import telemetry as telem
 
     window = make_window_fn(cfg, 10)
+    spatial = telem.spatial_spec(cfg)
     max_steps = cfg.max_rounds
     check_in_flight = not cfg.overlay_heal_resolved
     multi = cfg.multi_rumor
@@ -1062,8 +1065,8 @@ def make_run_to_coverage_fn(cfg: Config):
         while live(st, target_count, until):
             window(st, base_key)
             if hist is not None:
-                telem.record(hist, telem.gossip_probe(
-                    st, sir, rumors=rumors if multi else 0))
+                telem.record_window(hist, telem.gossip_probe(
+                    st, sir, rumors=rumors if multi else 0), [st], spatial)
         return st, hist
 
     return run_fn

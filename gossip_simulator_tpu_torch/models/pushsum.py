@@ -53,7 +53,7 @@ import torch
 from gossip_simulator_tpu_torch import scenario as _scen
 from gossip_simulator_tpu_torch.config import Config
 from gossip_simulator_tpu_torch.models import event
-from gossip_simulator_tpu_torch.models.state import in_flight
+from gossip_simulator_tpu_torch.models.state import in_flight, init_exch_counts
 from gossip_simulator_tpu_torch.ops import mailbox, megakernel
 from gossip_simulator_tpu_torch.utils import rng as _rng
 
@@ -78,7 +78,7 @@ class PushSumState:
     tensors, except ``mail_dropped`` (int32, the ring append's counter).
     ``down_since`` is the crash clock (int32[n] under
     Config.faults_enabled, a 1-element placeholder otherwise);
-    ``exch_counts`` is the JAX package's 1-element placeholder."""
+    ``exch_counts`` the exchange's counters (``init_exch_counts``)."""
 
     flags: torch.Tensor  # uint8[n]  CRASHED bit; RECEIVED mirrors converged
     friends: torch.Tensor  # int32[n, k]
@@ -101,7 +101,7 @@ class PushSumState:
     heal_repaired: torch.Tensor  # int64[]  always 0 (heal rewires nothing)
     relerr_ppb: torch.Tensor  # int64[]  last window's live max rel-err, ppb
     eps_tick: torch.Tensor  # int64[]  first tick with eps-band count >= target
-    exch_counts: torch.Tensor  # int32[1, 1]
+    exch_counts: torch.Tensor  # int32[1, S + 2 | 1]  (init_exch_counts)
     # (slot_cap, drain_chunk) the ring was sized with.
     geom: tuple = (0, 0)
 
@@ -296,9 +296,9 @@ def init_mass(cfg: Config, gid0: int, rows: int, device=None) -> torch.Tensor:
 
 
 def init_state(cfg: Config, friends: torch.Tensor, friend_cnt: torch.Tensor,
-               gid0: int = 0) -> PushSumState:
-    """State of rows [gid0, gid0 + n) (a shard's slice under the sharded
-    backend: its masses are the global ids' hashes)."""
+               gid0: int = 0, n_shards: int = 1) -> PushSumState:
+    """State of rows [gid0, gid0 + n) (a shard's slice of `n_shards`
+    under the sharded backend: its masses are the global ids' hashes)."""
     n = friends.shape[0]
     dev = friends.device
     dw = ring_windows(cfg, n)
@@ -324,7 +324,7 @@ def init_state(cfg: Config, friends: torch.Tensor, friend_cnt: torch.Tensor,
         heal_repaired=z(),
         relerr_ppb=torch.full((), 2_000_000_000, dtype=I64, device=dev),
         eps_tick=torch.full((), -1, dtype=I64, device=dev),
-        exch_counts=torch.zeros((1, 1), dtype=I32, device=dev),
+        exch_counts=init_exch_counts(cfg, n_shards, dev),
         geom=(slot_cap(cfg, n), drain_chunk(cfg, n)),
     )
 
@@ -531,10 +531,12 @@ def make_run_to_coverage_fn(cfg: Config):
     """event.make_run_to_coverage_fn's loop for PushSum: total_received
     counts the converged-or-crashed nodes, and the in-flight term holds
     only past the first batch (the ring is empty before the first
-    emission); each row carries the relerr_ppb column."""
+    emission); each row carries the relerr_ppb column, and so do the
+    spatial panels' shard rows."""
     from gossip_simulator_tpu_torch.utils import telemetry as telem
 
     window = make_window_fn(cfg, 10)
+    spatial = telem.spatial_spec(cfg)
     max_steps = cfg.max_rounds
     check_in_flight = not cfg.overlay_heal_resolved
     b = batch_ticks(cfg)
@@ -553,8 +555,9 @@ def make_run_to_coverage_fn(cfg: Config):
         while live(st, target_count, until):
             window(st, base_key)
             if hist is not None:
-                telem.record(hist, telem.gossip_probe(
-                    st, False, relerr=st.relerr_ppb))
+                telem.record_window(hist, telem.gossip_probe(
+                    st, False, relerr=st.relerr_ppb), [st], spatial,
+                    relerr=st.relerr_ppb)
         return st, hist
 
     return run_fn

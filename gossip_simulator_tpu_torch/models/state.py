@@ -31,6 +31,29 @@ def msg64_pair(value: int) -> np.ndarray:
     return np.asarray([(v >> 32) & 0xFFFFFFFF, v & 0xFFFFFFFF], np.uint32)
 
 
+# A shard's exchange counter leaf (``exch_counts``), int32 (1, S + 2) when
+# the spatial panels record on S > 1 shards: [:S] the routed lanes it
+# delivered to each destination shard, [EXCH_RCVD] the routed lanes it
+# received, [EXCH_OVERFLOW] its route overflow.  Otherwise the JAX
+# package's (1, 1) placeholder.  parallel/exchange.py counts into it,
+# utils/telemetry.py reads it into the panels.
+EXCH_RCVD = -2
+EXCH_OVERFLOW = -1
+
+
+def exch_counts_width(cfg, n_shards: int) -> int:
+    """Width of the ``exch_counts`` leaf: S + 2 under the spatial panels
+    at S > 1, else 1."""
+    spatial = cfg.telemetry_spatial_enabled and n_shards > 1
+    return n_shards + 2 if spatial else 1
+
+
+def init_exch_counts(cfg, n_shards: int, device) -> torch.Tensor:
+    """A shard's zeroed ``exch_counts`` leaf (the layout above)."""
+    return torch.zeros((1, exch_counts_width(cfg, n_shards)),
+                       dtype=torch.int32, device=device)
+
+
 def in_flight(st) -> torch.Tensor:
     """0-d bool tensor: whether any message is still undelivered.
     Engine-agnostic, duck-typed on the mail ring: the event engine's
@@ -77,7 +100,7 @@ class SimState:
     rumor_words: torch.Tensor  # int64[n, W | 1, 1]  uint32 bit words
     rumor_recv: torch.Tensor  # int32[W*32 | 1]  per-rumor infected count
     rumor_done: torch.Tensor  # int32[W*32 | 1]  tick rumor hit target (-1)
-    exch_counts: torch.Tensor  # int32[1, 1]
+    exch_counts: torch.Tensor  # int32[1, 1]  (the ring engine runs unsharded)
 
 
 @dataclasses.dataclass

@@ -12,7 +12,10 @@ The port's subset of the JAX package's ``ops/mailbox.py``:
   dense rows, write-time row totals, the occupancy count);
 * PushSum (``models/pushsum.py``) -- ``ring_append`` with its wide mass
   ring beside the id ring, and ``deposit_sum``, the scatter-add of mass
-  rows.
+  rows;
+* ``segment_ranks``, the run ranks of sorted keys, for the exchange's
+  sorted bucketing past RANK_MAX_SHARDS (defined in ``ops/deliver.py``
+  beside the delivery chunk's plain chain, which ranks with it).
 
 A round's messages are flat arrays; delivery is a per-destination rank
 (the stable-sort rank: arrival order within a destination), a capacity
@@ -41,6 +44,7 @@ import torch
 from gossip_simulator_tpu_torch.config import flat_addressing_fits
 from gossip_simulator_tpu_torch.ops import deliver as kernels
 from gossip_simulator_tpu_torch.ops import overlay_kernel
+from gossip_simulator_tpu_torch.ops.deliver import segment_ranks  # noqa: F401
 
 I32 = torch.int32
 

@@ -44,10 +44,14 @@ owns before its slot count is read, the drain folds the entries' words,
 every edge carries its sender's new bits as W more int32 columns of the
 route, and the per-rumor counts are summed over the shards.
 
-Not yet ported: the pipelined schedule (``-exchange-pipeline double``,
-ROADMAP A13) and the spatial panels (the rest of A6, with A13).  The
+Under ``-telemetry-spatial on`` every route (the emission's, the seed's,
+the heal's re-sends) counts its traffic into the shards' ``exch_counts``.
+``-exchange-pipeline double`` keeps the serial schedule (one process
+holds every shard: there is no collective for a staged drain to
+overlap); only the history's ``exchange_inflight_hwm`` reads 2.  The
 run-to-target loop (``make_run_to_coverage_fn``) runs the lockstep shard
-list a poll window at a time.
+list a poll window at a time and records a history row (and the panels)
+a window.
 """
 
 from __future__ import annotations
@@ -80,7 +84,8 @@ def make_sharded_event_init(cfg: Config, mesh: Mesh):
         for i in range(mesh.n_shards):
             friends, cnt = graphs.generate(cfg, key, row0=i * n_local,
                                            rows=n_local, static_row0=False)
-            states.append(event.init_state(cfg, friends, cnt))
+            states.append(event.init_state(cfg, friends, cnt,
+                                           n_shards=mesh.n_shards))
         return states
 
     return init
@@ -122,7 +127,8 @@ def _route_and_append(cfg: Config, n_local: int, states, drops, xovfs,
     route overflow counters.  With `suppress`, locally-owned duplicate
     destinations are filtered before the route and routed arrivals at the
     receiving shard; returns each shard's suppressed counts per arrival
-    window, sup[dw].
+    window, sup[dw].  Under -telemetry-spatial on the route counts its
+    traffic into the shards' ``exch_counts``.
 
     `words` (per source shard, int32 (M, W): the messages' rumor words)
     ride the route as one more payload beside the wire word and land at
@@ -158,32 +164,33 @@ def _route_and_append(cfg: Config, n_local: int, states, drops, xovfs,
             for d, v in zip(dst, valid)]
     wire = [torch.where(v, (d % n_local) * (dw * b) + w * b + o, -1).to(I32)
             for d, w, o, v in zip(dst, wslot, off, valid)]
-    if words is None:
-        recvs, ovfs = exchange.route_one(wire, dest, valid, s, rcap)
-        rwords = [None] * s
-    else:
-        got, ovfs = exchange.route_multi(list(zip(wire, words)), dest,
-                                         valid, s, rcap)
-        recvs, rwords = [r[0] for r in got], [r[1] for r in got]
+    pays = ([(w,) for w in wire] if words is None
+            else list(zip(wire, words)))
+    traffic = ([st.exch_counts for st in states]
+               if cfg.telemetry_spatial_enabled else None)
+    got, ovfs = exchange.route_multi(pays, dest, valid, s, rcap,
+                                     traffic=traffic)
     for d, st in enumerate(states):
         xovfs[d] += ovfs[d]
+        recv = got[d][0]
+        rwords = got[d][1] if words is not None else None
         flags = st.flags if suppress else None
-        wkw = {} if rwords[d] is None else dict(words=rwords[d],
-                                                 mail_words=st.mail_words)
+        wkw = {} if rwords is None else dict(words=rwords,
+                                             mail_words=st.mail_words)
         if phase2 == "pallas":
             cap = (st.mail_ids.shape[0] - event.ring_tail(cfg, n_local)) // dw
             rsup = megakernel.fused_recv_land(
-                st.mail_ids, st.mail_cnt, drops[d], recvs[d], dw=dw,
+                st.mail_ids, st.mail_cnt, drops[d], recv, dw=dw,
                 cap=cap, b=b, flags=flags, received_bit=event.RECEIVED,
                 **wkw)[3]
         else:
             entry, rw, live, rsup = megakernel.recv_decode(
-                recvs[d], dw=dw, b=b, flags=flags,
+                recv, dw=dw, b=b, flags=flags,
                 received_bit=event.RECEIVED)
             # An empty slot's -1 words never land (the append writes a
             # zero row for every lane that does not).
             _ring_append(cfg, n_local, st, drops[d], entry, rw, live,
-                         rwords[d])
+                         rwords)
         sups[d] += rsup
     return sups
 
@@ -641,7 +648,8 @@ def make_run_to_coverage_fn(cfg: Config, mesh: Mesh):
 
     window = make_window_fn(cfg, mesh, 10)
     max_steps = cfg.max_rounds
-    ihwm = exchange.inflight_hwm(mesh.n_shards)
+    ihwm = exchange.inflight_hwm(cfg, mesh.n_shards)
+    spatial = telem.spatial_spec(cfg, mesh.n_shards)
     sir = cfg.protocol == "sir"
     check_in_flight = not cfg.overlay_heal_resolved
     multi = cfg.multi_rumor
@@ -668,9 +676,9 @@ def make_run_to_coverage_fn(cfg: Config, mesh: Mesh):
         while live(states, target_count, until):
             window(states, base_key)
             if hist is not None:
-                telem.record(hist, telem.gossip_probe(
+                telem.record_window(hist, telem.gossip_probe(
                     states[0], sir, rumors=rumors if multi else 0,
-                    inflight_hwm=ihwm, shards=states))
+                    inflight_hwm=ihwm, shards=states), states, spatial)
         return states, hist
 
     return run_fn

@@ -24,8 +24,11 @@ the unfolded key, the partition mask on global (src, dst) ids inside the
 emission, and ``-overlay-heal on`` only clears the reboot markers, a
 shard-local pass: so a scenario run too is the same at every shard count.
 
-Not yet ported: the spatial panels (the rest of A6).
-``make_run_to_coverage_fn`` is the run-to-target loop.
+Under ``-telemetry-spatial on`` the route counts its traffic into the
+shards' ``exch_counts`` and the run-to-target loop
+(``make_run_to_coverage_fn``) records the panels.  It takes
+``-exchange-pipeline double`` as the JAX package does: its one route a
+window stays serial, and the history's ``exchange_inflight_hwm`` reads 2.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ def make_sharded_pushsum_init(cfg: Config, mesh: Mesh):
             friends, cnt = graphs.generate(cfg, key, row0=i * n_local,
                                            rows=n_local, static_row0=False)
             states.append(pushsum.init_state(cfg, friends, cnt,
-                                             gid0=i * n_local))
+                                             gid0=i * n_local,
+                                             n_shards=mesh.n_shards))
         return states
 
     return init
@@ -78,8 +82,9 @@ def _route_append_mass(cfg: Config, n_local: int, states, drops, xovfs,
                        dst, wslot, off, valid, rcap: int, share,
                        phase2: str = "xla") -> None:
     """Route mass shares (per source shard) to their owner shards and
-    append them, in place.  One shard appends directly: the route is the
-    identity there."""
+    append them, in place (the route's traffic counted into the shards'
+    ``exch_counts`` under -telemetry-spatial on).  One shard appends
+    directly: the route is the identity there."""
     s = len(states)
     b = pushsum.batch_ticks(cfg)
     dw = pushsum.ring_windows(cfg)
@@ -91,8 +96,10 @@ def _route_append_mass(cfg: Config, n_local: int, states, drops, xovfs,
             for d, v in zip(dst, valid)]
     wire = [torch.where(v, (d % n_local) * (dw * b) + w * b + o, -1).to(I32)
             for d, w, o, v in zip(dst, wslot, off, valid)]
+    traffic = ([st.exch_counts for st in states]
+               if cfg.telemetry_spatial_enabled else None)
     recvs, ovfs = exchange.route_multi(list(zip(wire, share)), dest, valid,
-                                       s, rcap)
+                                       s, rcap, traffic=traffic)
     for d, st in enumerate(states):
         xovfs[d] += ovfs[d]
         recv, rows = recvs[d]
@@ -266,7 +273,8 @@ def make_run_to_coverage_fn(cfg: Config, mesh: Mesh):
 
     window = make_window_fn(cfg, mesh, 10)
     max_steps = cfg.max_rounds
-    ihwm = exchange.inflight_hwm(mesh.n_shards)
+    ihwm = exchange.inflight_hwm(cfg, mesh.n_shards)
+    spatial = telem.spatial_spec(cfg, mesh.n_shards)
     b = pushsum.batch_ticks(cfg)
     check_in_flight = not cfg.overlay_heal_resolved
 
@@ -285,9 +293,10 @@ def make_run_to_coverage_fn(cfg: Config, mesh: Mesh):
         while live(states, target_count, until):
             window(states, base_key)
             if hist is not None:
-                telem.record(hist, telem.gossip_probe(
-                    states[0], False, inflight_hwm=ihwm,
-                    relerr=states[0].relerr_ppb, shards=states))
+                rel = states[0].relerr_ppb
+                telem.record_window(hist, telem.gossip_probe(
+                    states[0], False, inflight_hwm=ihwm, relerr=rel,
+                    shards=states), states, spatial, relerr=rel)
         return states, hist
 
     return run_fn

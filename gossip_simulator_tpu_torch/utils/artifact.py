@@ -13,6 +13,9 @@ against a reference run:
                       hostname, argv)
       metrics.jsonl   the JSONL log (schema v4, header first)
       telemetry.npz   fetched per-window histories + canonical trajectory
+                      (and the spatial panels on -telemetry-spatial runs)
+      health.json     the shard-health watchdog's verdict over the
+                      spatial panels (utils/health.py; spatial runs only)
       trace.json      Chrome trace-event spans
       result.json     final Stats / RunResult payload + the trajectory
                       fingerprint
@@ -138,7 +141,9 @@ class RunDir:
                         gossip: Optional[dict],
                         trajectory: Optional[np.ndarray]) -> Optional[str]:
         """One npz with both fetched histories (the named-column layouts
-        of utils/telemetry) and the canonical trajectory."""
+        of utils/telemetry), the spatial panels where the run recorded
+        them (trimmed to its windows by fetch_history) and the canonical
+        trajectory."""
         from gossip_simulator_tpu_torch.utils import telemetry
 
         arrays: dict = {}
@@ -146,6 +151,14 @@ class RunDir:
             arrays["gossip_cols"] = gossip["cols"][:gossip["count"]]
             arrays["gossip_count"] = np.int64(gossip["count"])
             arrays["gossip_names"] = np.array(telemetry.GOSSIP_COLS)
+            if "spatial_group" in gossip:
+                arrays["spatial_group"] = gossip["spatial_group"]
+                arrays["spatial_group_names"] = np.array(
+                    telemetry.SPATIAL_GROUP_COLS)
+                arrays["spatial_shard"] = gossip["spatial_shard"]
+                arrays["spatial_shard_names"] = np.array(
+                    telemetry.SPATIAL_SHARD_COLS)
+                arrays["spatial_traffic"] = gossip["spatial_traffic"]
         if overlay is not None:
             arrays["overlay_cols"] = overlay["cols"][:overlay["count"]]
             arrays["overlay_count"] = np.int64(overlay["count"])
@@ -165,10 +178,15 @@ class RunDir:
     def write_result(self, payload: dict) -> str:
         return self._write_json("result.json", payload)
 
+    def write_health(self, verdict: dict) -> str:
+        """The shard-health watchdog's verdict (utils/health.py)."""
+        return self._write_json("health.json", verdict)
+
 
 def load_run(path: str) -> dict:
-    """Read a run dir back: the JSON artifacts and the npz arrays.  A
-    missing artifact raises FileNotFoundError naming it."""
+    """Read a run dir back: the JSON artifacts and the npz arrays (the
+    spatial panels among them), and ``health.json`` where the run wrote
+    one.  A missing artifact raises FileNotFoundError naming it."""
     out: dict = {"path": os.path.abspath(path)}
     for name in ("config", "env", "result"):
         p = os.path.join(path, name + ".json")
@@ -183,4 +201,8 @@ def load_run(path: str) -> dict:
             out["telemetry"] = {k: z[k] for k in z.files}
     else:
         out["telemetry"] = {}
+    health = os.path.join(path, "health.json")
+    if os.path.exists(health):
+        with open(health) as f:
+            out["health"] = json.load(f)
     return out

@@ -26,6 +26,7 @@ from typing import Any, Optional
 
 import numpy as np
 
+from gossip_simulator_tpu_torch.models.state import exch_counts_width
 from gossip_simulator_tpu_torch.utils import trace as _trace
 from gossip_simulator_tpu_torch.utils.metrics import Stats
 
@@ -378,9 +379,8 @@ def prepare_restore_tree(tree: dict, cfg, n_shards: int) -> dict:
             tree[f] = np.zeros((), np.int32)
     # The spatial-telemetry exchange counters are gauges of the restoring
     # run's own shard count and flags, not trajectory state: rebuilt at 0.
-    w = (n_shards + 2
-         if (cfg.telemetry_spatial_enabled and n_shards > 1) else 1)
-    tree["exch_counts"] = np.zeros((n_shards, w), np.int32)
+    tree["exch_counts"] = np.zeros(
+        (n_shards, exch_counts_width(cfg, n_shards)), np.int32)
     return tree
 
 

@@ -30,8 +30,9 @@ and the PushSum pair: node-axis leaves and rings concatenated shard by
 shard (the crash clock and the rumor words too where they are full
 size, replicated where they are 1-element placeholders),
 ``mail_cnt``/``sup_cnt`` as ``(S, dw)`` and ``exch_counts`` as
-``(S, 1)``, replicated scalars once, and ``mail_geom`` = (slot_cap,
-drain_chunk, S) of one shard.
+``(S, S + 2)`` under spatial panels (``(S, 1)`` otherwise), replicated
+scalars once, and ``mail_geom`` = (slot_cap, drain_chunk, S) of one
+shard.
 
 Phase 1 likewise: ``JaxStepper.overlay_state_pytree()`` returns the
 phase-1 engine's leaves (all int32): the tick-faithful overlay's
@@ -55,17 +56,16 @@ from gossip_simulator_tpu_torch.models.state import (OverlayState, SimState,
 _COUNTERS = ("total_received", "total_crashed", "mail_dropped",
              "exchange_overflow", "scen_crashed", "scen_recovered",
              "part_dropped", "heal_repaired")
-# Array leaves with one dtype on both sides.
+# Array leaves with one dtype on both sides.  Some cross at either
+# shape: the exchange counters exch_counts ((1, S + 2) a shard under
+# spatial panels, (1, 1) otherwise), the crash clock down_since (int32[n]
+# under Config.faults_enabled, int32[1] otherwise) and the multi-rumor
+# leaves (full size under Config.multi_rumor, 1-element placeholders
+# otherwise).
 _ARRAYS = {"friends": np.int32, "friend_cnt": np.int32,
            "mail_ids": np.int32, "mail_cnt": np.int32, "sup_cnt": np.int32,
            "down_since": np.int32, "rumor_recv": np.int32,
            "rumor_done": np.int32, "exch_counts": np.int32}
-# Spatial-telemetry leaf: a placeholder only (ROADMAP A6).  The scenario
-# leaves cross at either shape: the crash clock down_since is int32[n]
-# under faults (Config.faults_enabled), int32[1] otherwise, and the four
-# counters are scalars; so do the multi-rumor leaves (full size under
-# Config.multi_rumor, 1-element placeholders otherwise).
-_PLACEHOLDERS = {"exch_counts": (1, 1)}
 
 
 def state_from_numpy(tree: dict, device) -> EventState:
@@ -73,11 +73,6 @@ def state_from_numpy(tree: dict, device) -> EventState:
     if "mail_geom" not in tree:
         raise ValueError("state tree has no mail_geom: cannot tell the "
                          "ring's slot capacity")
-    for name, shape in _PLACEHOLDERS.items():
-        if np.shape(tree[name]) != shape:
-            raise ValueError(
-                f"leaf {name} has shape {np.shape(tree[name])}: "
-                "spatial-telemetry state is not yet ported (ROADMAP A6)")
     dev = torch.device(device)
 
     def arr(name):
@@ -138,10 +133,6 @@ _SIM_COUNTERS = ("total_received", "total_crashed", "exchange_overflow",
 
 def sim_state_from_numpy(tree: dict, device) -> SimState:
     """The port's SimState from a JAX-package ring-engine state dict."""
-    if np.shape(tree["exch_counts"]) != (1, 1):
-        raise ValueError(
-            f"leaf exch_counts has shape {np.shape(tree['exch_counts'])}: "
-            "spatial-telemetry state is not yet ported (ROADMAP A6)")
     dev = torch.device(device)
 
     def t(name, dtype):
@@ -190,10 +181,6 @@ def pushsum_state_from_numpy(tree: dict, device) -> PushSumState:
     if "mail_geom" not in tree:
         raise ValueError("state tree has no mail_geom: cannot tell the "
                          "ring's slot capacity")
-    if np.shape(tree["exch_counts"]) != (1, 1):
-        raise ValueError(
-            f"leaf exch_counts has shape {np.shape(tree['exch_counts'])}: "
-            "spatial-telemetry state is not yet ported (ROADMAP A6)")
     dev = torch.device(device)
 
     def arr(name):

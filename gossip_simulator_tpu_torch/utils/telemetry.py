@@ -16,9 +16,17 @@ per-window columns and the ``-telemetry-summary`` block.
 
 History rows are int32; the int64 ``total_message`` travels as its two
 32-bit words, high word first (the JAX package's bitcast of its uint32
-``[hi, lo]`` pair), and is reassembled on the host.  The spatial panels
-(``-telemetry-spatial``) are not ported: their column names are listed
-below so the JSONL header stays the JAX package's.
+``[hi, lo]`` pair), and is reassembled on the host.
+
+Under ``-telemetry-spatial on`` the same loops also record three int32
+panels a window at the history's index (``SpatialBundle``): a group panel
+(received, down and removed counts of each contiguous id range: the
+scenario's groups when it declares more than one, else the shards), a
+shard panel (each shard's mail high-water, received count, route
+overflow, relative error and routed lanes received) and the exchange's
+cumulative traffic matrix (``parallel/exchange.py`` counts it in the
+route).  They ride the history's one read at the end of the run and go
+only to ``telemetry.npz``: the replayed stdout and JSONL never read them.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from gossip_simulator_tpu_torch.models.state import EXCH_OVERFLOW, EXCH_RCVD
 
 GOSSIP_COLS = ("tick", "received", "msg_hi", "msg_lo", "crashed", "removed",
                "mail_high", "dropped", "overflow", "scen_crashed",
@@ -48,8 +58,14 @@ OPTIONAL_BLOCK_GROUPS = (
     (("relerr_ppb", "relerr_ppb"),),
 )
 
-# The spatial panels' column names (the JSONL header lists them whatever
-# the run records; the panels themselves are not ported).
+# The spatial panels' columns (the JSONL header lists them whatever the
+# run records).  Group columns are gauges read at the probe, so summed
+# over the groups `received` and `removed` equal the history's columns;
+# `down` is the count crashed now.  Shard columns: the shard's mail-ring
+# high-water (the largest over the shards is mail_high), its received
+# count, and from its exchange counters (`exch_counts`) the route's
+# overflow and the routed lanes it received; relerr_ppb is PushSum's
+# error, the same on every shard.
 SPATIAL_GROUP_COLS = ("received", "down", "removed")
 SPATIAL_SHARD_COLS = ("mail_high", "received", "overflow", "relerr_ppb",
                       "exch_rcvd")
@@ -86,6 +102,119 @@ def record(hist: History, row) -> History:
     i = torch.clamp(hist.idx, max=hist.cols.shape[0] - 1)
     hist.cols.index_copy_(0, i.reshape(1), vals[None, :])
     hist.idx.add_(1)
+    return hist
+
+
+class Panels(NamedTuple):
+    """The spatial panels on the device, rows at the history's index."""
+
+    group: torch.Tensor  # int32[cap, G, 3]
+    shard: torch.Tensor  # int32[cap, S, 5]
+    traffic: torch.Tensor  # int32[cap, S, S]  cumulative routed lanes
+
+
+class SpatialBundle(NamedTuple):
+    """The history of a spatial run: the scalar History and the panels,
+    which share its index."""
+
+    hist: History
+    panels: Panels
+
+
+class SpatialSpec(NamedTuple):
+    """The panels' geometry: `groups` contiguous id ranges of
+    `group_size` = ceil(n / groups) ids each, over `n_shards` shards."""
+
+    groups: int
+    group_size: int
+    n: int
+    n_shards: int
+
+
+def spatial_spec(cfg, n_shards: int = 1) -> Optional[SpatialSpec]:
+    """None when the panels are off; else one group per scenario group
+    when a scenario declares more than one, one per shard otherwise."""
+    if not cfg.telemetry_spatial_enabled:
+        return None
+    scen = cfg.scenario_resolved
+    s = max(1, int(n_shards))
+    g = scen.groups if (scen.active and scen.groups > 1) else s
+    return SpatialSpec(groups=g, group_size=-(-cfg.n // g), n=cfg.n,
+                       n_shards=s)
+
+
+def empty_panels(cap: int, spec: SpatialSpec, device) -> Panels:
+    cap = max(int(cap), 1)
+    g, s = spec.groups, spec.n_shards
+
+    def z(*shape):
+        return torch.zeros((cap,) + shape, dtype=I32, device=device)
+
+    return Panels(group=z(g, len(SPATIAL_GROUP_COLS)),
+                  shard=z(s, len(SPATIAL_SHARD_COLS)), traffic=z(s, s))
+
+
+def _node_gauges(st) -> torch.Tensor:
+    """bool (n_local, 3): received, down, removed of a shard's nodes (the
+    event and PushSum flags' bits, or the ring engine's masks)."""
+    n = st.friends.shape[0]
+    if hasattr(st, "flags"):
+        from gossip_simulator_tpu_torch.models.event import (CRASHED,
+                                                             RECEIVED,
+                                                             REMOVED)
+
+        f = st.flags[:n]
+        return torch.stack([(f & RECEIVED) != 0, (f & CRASHED) != 0,
+                            (f & REMOVED) != 0], dim=1)
+    return torch.stack([st.received, st.crashed, st.removed], dim=1)
+
+
+def spatial_probe(states, spec: SpatialSpec, relerr=None):
+    """One window's panel rows from the shards' states (one state on a
+    single device): group (G, 3), shard (S, 5) and traffic (S, S), int32.
+    The group sums reduce the shards' nodes, side by side in id order,
+    over equal-width reshaped blocks (no length-n scatter); the counts
+    are exact integer sums, so they equal the JAX package's per-shard
+    partial sums summed over the shards."""
+    dev = states[0].friends.device
+    gauges = torch.cat([_node_gauges(st) for st in states])
+    n, kg = gauges.shape
+    gsz = spec.group_size
+    full = min(n // gsz, spec.groups)
+    group = torch.zeros((spec.groups, kg), dtype=I32, device=dev)
+    group[:full] = gauges[:full * gsz].view(full, gsz, kg).sum(
+        dim=1, dtype=I32)
+    if full < spec.groups and full * gsz < n:
+        group[full] = gauges[full * gsz:].sum(dim=0, dtype=I32)
+    s = spec.n_shards
+    high = torch.stack([(st.mail_cnt if hasattr(st, "mail_cnt")
+                         else st.pending).max() for st in states]).to(I32)
+    recv = gauges[:, 0].view(s, -1).sum(dim=1, dtype=I32)
+    rel = torch.zeros(s, dtype=I32, device=dev)
+    if relerr is not None:
+        rel += relerr.to(I32)
+    if s > 1:
+        ex = torch.cat([st.exch_counts for st in states])
+        shard = torch.stack([high, recv, ex[:, EXCH_OVERFLOW], rel,
+                             ex[:, EXCH_RCVD]], dim=1)
+        return group, shard, ex[:, :EXCH_RCVD]
+    zero = torch.zeros(1, dtype=I32, device=dev)
+    shard = torch.stack([high, recv, zero, rel, zero], dim=1)
+    return group, shard, torch.zeros((1, 1), dtype=I32, device=dev)
+
+
+def record_window(hist, row, states=None, spec=None, relerr=None):
+    """A run-to-target loop's one recording call a window: the scalar row
+    alone when the panels are off (`spec` None), else the panel rows of
+    `states` (spatial_probe) at the same index, then the row."""
+    if spec is None:
+        return record(hist, row)
+    g, s, t = spatial_probe(states, spec, relerr=relerr)
+    i = torch.clamp(hist.hist.idx, max=hist.hist.cols.shape[0] - 1)
+    i = i.reshape(1)
+    for panel, rows in zip(hist.panels, (g, s, t)):
+        panel.index_copy_(0, i, rows[None])
+    record(hist.hist, row)
     return hist
 
 
@@ -141,18 +270,32 @@ def gossip_history_cap(cfg) -> int:
     return max(1, -(-cfg.max_rounds // window) + 2)
 
 
-def fetch_history(hist: Optional[History]) -> Optional[dict]:
+def fetch_history(hist) -> Optional[dict]:
     """One device-to-host read of a whole history (its index rides
-    appended to the flattened rows)."""
+    appended to the flattened rows).  A SpatialBundle's panels ride the
+    same read: the dict gains ``spatial_group``, ``spatial_shard`` and
+    ``spatial_traffic``, trimmed to the recorded window count."""
     if hist is None:
         return None
+    panels = ()
+    if isinstance(hist, SpatialBundle):
+        hist, panels = hist.hist, hist.panels
     cap, ncols = hist.cols.shape
-    flat = torch.cat([hist.cols.reshape(-1),
-                      hist.idx.reshape(1).to(I32)]).cpu().numpy()
+    parts = [hist.cols] + list(panels)
+    flat = torch.cat([p.reshape(-1) for p in parts]
+                     + [hist.idx.reshape(1).to(I32)]).cpu().numpy()
     recorded = int(flat[-1])
-    cols = flat[:-1].reshape(cap, ncols).copy()
-    return {"count": min(recorded, cap), "recorded": recorded,
-            "truncated": recorded > cap, "cols": cols}
+    count = min(recorded, cap)
+    arrays, at = [], 0
+    for p in parts:
+        arrays.append(flat[at:at + p.numel()].reshape(p.shape).copy())
+        at += p.numel()
+    out = {"count": count, "recorded": recorded,
+           "truncated": recorded > cap, "cols": arrays[0]}
+    for name, a in zip(("spatial_group", "spatial_shard", "spatial_traffic"),
+                       arrays[1:]):
+        out[name] = a[:count]
+    return out
 
 
 def host_history(rows: list) -> Optional[dict]:
@@ -208,9 +351,10 @@ class TelemetrySession:
     `compile_s` (on the card it includes the kernels' first build), the
     rest as `execute_s`."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, n_shards: int = 1):
         self.cfg = cfg
         self.device = device
+        self.n_shards = n_shards  # the panels' geometry on spatial runs
         self.phases: dict[str, float] = {}
         self._gossip: Optional[History] = None
         self._overlay: Optional[History] = None
@@ -234,13 +378,16 @@ class TelemetrySession:
         self._overlay_calls += 1
 
     # --- phase 2 ----------------------------------------------------------
-    def begin_gossip(self) -> History:
+    def begin_gossip(self):
         if self._gossip is None:
-            self._gossip = empty_history(gossip_history_cap(self.cfg),
-                                         len(GOSSIP_COLS), self.device)
+            cap = gossip_history_cap(self.cfg)
+            hist = empty_history(cap, len(GOSSIP_COLS), self.device)
+            spec = spatial_spec(self.cfg, self.n_shards)
+            self._gossip = hist if spec is None else SpatialBundle(
+                hist, empty_panels(cap, spec, self.device))
         return self._gossip
 
-    def end_gossip(self, hist: History) -> None:
+    def end_gossip(self, hist) -> None:
         self._gossip = hist
 
     def reset_gossip(self) -> None:

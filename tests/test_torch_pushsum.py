@@ -445,10 +445,6 @@ ARGV = ["-model", "pushsum", "-graph", "kout", "-n", "100", "-droprate",
     (["-scenario", '{"groups": 101, "downtime": 5}'],
      r"scenario groups \(101\) cannot exceed n \(100\)"),
     (["-backend", "sharded", "-overlay-heal", "on", "-distributed"],
-     r"not yet ported \(ROADMAP A13\)"),
-    # -backend sharded is ported (A13, first part); its pipelined
-    # exchange is not.
-    (["-backend", "sharded", "-exchange-pipeline", "double"],
      r"not yet ported \(ROADMAP A13\)")))
 def test_pushsum_rules_match_the_jax_package(flags, match):
     with pytest.raises(ValueError, match=match):

@@ -339,10 +339,8 @@ def test_slice_flags_validate_and_need_the_card(flags):
 
 @pytest.mark.parametrize("flags,match", (
     # The event engine's rumor axis runs on one device (A11) and on the
-    # sharded backend (A13.2); its pipelined exchange, -distributed and
-    # the sharded overlay do not.
-    (["-rumors", "4", "-backend", "sharded", "-exchange-pipeline",
-      "double"], r"not yet ported \(ROADMAP A13\)"),
+    # sharded backend (A13.2); -distributed and the sharded overlay do
+    # not.
     (["-engine", "event", "-rumors", "4", "-backend", "sharded",
       "-distributed"], r"not yet ported \(ROADMAP A13\)"),
     (["-traffic", "stream", "-backend", "sharded", "-graph", "overlay"],

@@ -1,11 +1,11 @@
 """The sharded backend's pieces on the CPU against the JAX package, with
 exact equality:
 
-* the exchange: the port's ``route_one``/``route_multi`` (every shard's
+* the exchange: the port's ``route_multi`` (every shard's
   buffers at once) against the JAX package's inside its ``shard_map`` on
   the fake 8-device mesh, on 2 and 8 shards, lossless and overflowing,
-  both rank paths, and a 2-D payload against its columns routed as
-  separate payloads;
+  both rank paths, a 2-D payload against its columns routed as
+  separate payloads, and the wire word alone;
 * the per-pair caps ``epidemic_cap`` and ``chernoff_cap``;
 * ``recv_land_plain`` (``fused_recv_land``'s plain version) against the
   JAX package's Pallas ``fused_recv_land`` (Pallas's generic interpreter,
@@ -107,9 +107,9 @@ def test_route_matches_the_jax_package(s, m, cap):
             assert np.array_equal(wire.numpy(), want[0][dst])
             for c in range(rows.shape[1]):
                 assert np.array_equal(rows[:, c].numpy(), want[1 + c][dst])
-        one, ovf1 = tex.route_one([T(w) for w in d["wire"]], *args,
-                                  sort_buckets=sort_buckets)
-        assert all(np.array_equal(a.numpy(), want[0][i])
+        one, ovf1 = tex.route_multi([(T(w),) for w in d["wire"]], *args,
+                                    sort_buckets=sort_buckets)
+        assert all(np.array_equal(a[0].numpy(), want[0][i])
                    for i, a in enumerate(one))
         assert [int(o) for o in ovf1] == want_ovf.tolist()
     if cap < 100:
@@ -296,7 +296,7 @@ def test_one_shard_per_device_by_default():
 
 
 @pytest.mark.parametrize("flags", (
-    ["-exchange-pipeline", "double"], ["-graph", "overlay"],
+    ["-graph", "overlay"],
     ["-engine", "ring"], ["-time-mode", "rounds"],
     ["-protocol", "pushpull"], ["-distributed"],
     ["-coordinator", "localhost:1"], ["-num-processes", "2"],

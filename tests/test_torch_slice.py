@@ -142,13 +142,6 @@ def test_sir_dieout_exit_status():
       "-engine", "ring"], "A13"),
     (["-graph", "overlay", "-backend", "sharded", "-overlay-heal", "on"],
      "A13"),
-    (["-graph", "kout", "-model", "pushsum", "-droprate", "0",
-      "-crashrate", "0", "-backend", "sharded", "-scenario", CHURN,
-      "-telemetry-spatial", "on"], "A6"),
-    (["-graph", "kout", "-rumors", "4", "-backend", "sharded",
-      "-exchange-pipeline", "double"], "A13"),
-    (["-graph", "kout", "-backend", "sharded", "-scenario", PARTITION,
-      "-telemetry-spatial", "on"], "A6"),
     (["-graph", "kout", "-rumors", "4", "-overlay-heal", "on", "-backend",
       "sharded", "-distributed"], "A13"),
     (["-graph", "kout", "-serve"], "A14"),
@@ -160,30 +153,11 @@ def test_sir_dieout_exit_status():
     (["-graph", "kout", "-backend", "native"], "A16"),
     # Checkpoints run (slice 16, A7); the worker pool does not.
     (["-graph", "kout", "-workers", "4"], "A14"),
-    # The recording flags run (slice 15); the spatial panels they would
-    # carry stay refused beside each of them.
-    (["-graph", "kout", "-run-dir", "x", "-telemetry-spatial", "on"], "A6"),
-    (["-graph", "kout", "-trace", "t.json", "-telemetry-spatial", "on"],
-     "A6"),
-    (["-graph", "kout", "-log-jsonl", "l.jsonl", "-telemetry-spatial",
-      "on"], "A6"),
-    # -pallas is ported (B13, B14), and so is the sharded event engine;
-    # its pipelined exchange is not.
-    (["-graph", "kout", "-pallas", "-backend", "sharded",
-      "-exchange-pipeline", "double"], "A13"),
     (["-graph", "kout", "-tuning-table", "off"], "A15"),
     (["-graph", "kout", "-backend", "sharded", "-pallas", "-scenario",
       CHURN, "-overlay-heal", "on", "-time-mode", "rounds"], "A13"),
     (["-graph", "kout", "-engine", "ring", "-backend", "sharded"], "A13"),
     # The reference flags the port parses without running them (C2).
-    (["-graph", "kout", "-exchange-pipeline", "double"], "A13"),
-    (["-graph", "kout", "-telemetry-spatial", "on"], "A6"),
-    (["-graph", "kout", "-telemetry-summary", "-telemetry-spatial", "on"],
-     "A6"),
-    (["-graph", "kout", "-backend", "sharded", "-overlay-heal", "on",
-      "-heal-detect-ms", "50", "-telemetry-spatial", "on"], "A6"),
-    (["-graph", "kout", "-traffic", "stream", "-stream-rate", "200",
-      "-backend", "sharded", "-exchange-pipeline", "double"], "A13"),
     (["-graph", "kout", "-traffic", "stream", "-arrivals", "poisson",
       "-backend", "sharded", "-serve"], "A14"),
     (["-graph", "kout", "-serve-high", "0.9"], "A14"),
@@ -194,10 +168,6 @@ def test_sir_dieout_exit_status():
     (["-graph", "kout", "-serve-force", "2@3"], "A14"),
     (["-graph", "kout", "-serve-max-defer", "100"], "A14"),
     (["-graph", "kout", "-ckpt-keep", "2", "-serve"], "A14"),
-    (["-graph", "kout", "-profile", "-telemetry-spatial", "on"], "A6"),
-    (["-graph", "kout", "-profile-dir", "p", "-telemetry-spatial", "on"],
-     "A6"),
-    (["-graph", "kout", "-xprof", "x", "-telemetry-spatial", "on"], "A6"),
     (["-graph", "kout", "-coordinator", "localhost:1234"], "A13"),
     (["-graph", "kout", "-num-processes", "2"], "A13"),
     (["-graph", "kout", "-process-id", "0"], "A13"),
@@ -209,12 +179,6 @@ def test_sir_dieout_exit_status():
     (["-graph", "kout", "-run-id", "r1", "-heartbeat-timeout-ms", "50"],
      "A14"),
     (["-graph", "kout", "-init-timeout", "5"], "A14"),
-    # A mail ring past 1024 window slots runs (C1 repaired), under the
-    # sharded backend's fault branches too; its pipelined exchange does
-    # not.
-    (["-graph", "kout", "-delaylow", "1", "-delayhigh", "2000", "-backend",
-      "sharded", "-scenario", CHURN, "-exchange-pipeline", "double"],
-     "A13"),
 ))
 def test_unported_flags_are_named(flags, item):
     with pytest.raises(tcfg.NotYetPorted,
@@ -246,6 +210,59 @@ def test_recording_flags_are_ported(flags):
     assert (cfg.log_jsonl_resolved, cfg.trace_resolved) == (
         jc.log_jsonl_resolved, jc.trace_resolved)
     assert cfg.telemetry_enabled and not cfg.telemetry_spatial_enabled
+
+
+# Slice 18 ports the spatial panels (A13.3) and the pipelined exchange
+# (A13.5): each of these ran into NotYetPorted before it.
+SPATIAL_AND_PIPELINE = (
+    ["-graph", "kout", "-model", "pushsum", "-droprate", "0", "-crashrate",
+     "0", "-backend", "sharded", "-scenario", CHURN, "-telemetry-spatial",
+     "on"],
+    ["-graph", "kout", "-rumors", "4", "-backend", "sharded",
+     "-exchange-pipeline", "double"],
+    ["-graph", "kout", "-backend", "sharded", "-scenario", PARTITION,
+     "-telemetry-spatial", "on"],
+    ["-graph", "kout", "-run-dir", "x", "-telemetry-spatial", "on"],
+    ["-graph", "kout", "-trace", "t.json", "-telemetry-spatial", "on"],
+    ["-graph", "kout", "-log-jsonl", "l.jsonl", "-telemetry-spatial", "on"],
+    ["-graph", "kout", "-pallas", "-backend", "sharded",
+     "-exchange-pipeline", "double"],
+    ["-graph", "kout", "-exchange-pipeline", "double"],
+    ["-graph", "kout", "-telemetry-spatial", "on"],
+    ["-graph", "kout", "-telemetry-summary", "-telemetry-spatial", "on"],
+    ["-graph", "kout", "-backend", "sharded", "-overlay-heal", "on",
+     "-heal-detect-ms", "50", "-telemetry-spatial", "on"],
+    ["-graph", "kout", "-traffic", "stream", "-stream-rate", "200",
+     "-backend", "sharded", "-exchange-pipeline", "double"],
+    ["-graph", "kout", "-profile", "-telemetry-spatial", "on"],
+    ["-graph", "kout", "-profile-dir", "p", "-telemetry-spatial", "on"],
+    ["-graph", "kout", "-xprof", "x", "-telemetry-spatial", "on"],
+    ["-graph", "kout", "-delaylow", "1", "-delayhigh", "2000", "-backend",
+     "sharded", "-scenario", CHURN, "-exchange-pipeline", "double"],
+    # From the sharded backend's, PushSum's and the ring engine's files.
+    ["-backend", "sharded", "-graph", "kout", "-n", "800",
+     "-exchange-pipeline", "double"],
+    ["-model", "pushsum", "-graph", "kout", "-n", "100", "-droprate", "0",
+     "-crashrate", "0", "-backend", "sharded", "-exchange-pipeline",
+     "double"],
+    ["-graph", "kout", "-rumors", "4", "-backend", "sharded",
+     "-exchange-pipeline", "double", "-n", "100"],
+)
+
+
+@pytest.mark.parametrize("flags", SPATIAL_AND_PIPELINE)
+def test_spatial_and_pipeline_flags_are_ported(flags):
+    """-telemetry-spatial on and -exchange-pipeline double validate and
+    resolve as the JAX package's parser resolves them; auto stays off
+    (one process holds every shard)."""
+    cfg, _ = tcfg.parse_cli(["-n", "400", *flags])
+    jc = jcfg.parse_args(["-n", "400", *flags])
+    assert cfg.telemetry_spatial_enabled == jc.telemetry_spatial_enabled
+    assert cfg.exchange_pipeline == jc.exchange_pipeline
+    assert cfg.exchange_pipeline_resolved == (
+        jc.exchange_pipeline_resolved if cfg.exchange_pipeline != "auto"
+        else "off")
+    assert cfg.telemetry_spatial_enabled == ("-telemetry-spatial" in flags)
 
 
 @pytest.mark.parametrize("flags", (

@@ -9,9 +9,11 @@ in one call of the card, e.g.
 
     python3 tests/torch_sharded_walls.py --label this
 
-An untimed run at n = 10^6 first builds the kernels and warms the
-allocator; the timed runs then print their wall seconds, windows,
-total_message and launches of fused_recv_land, beside the card's name
+or, in one tree, the spatial panels off and on in turns (off, on, on,
+off), ``--spatial`` adding ``-telemetry-spatial on`` (the history's
+panels and the route's traffic counters).  An untimed run at n = 10^6
+first builds the kernels and warms the allocator; the timed runs then
+print their wall seconds, windows, total_message and launches of fused_recv_land, beside the card's name
 and power limit."""
 
 import argparse
@@ -35,7 +37,7 @@ def argv(n: int) -> list:
             "0.90", "-pallas", "-seed", "0"]
 
 
-def run(n: int):
+def run(n: int, extra=()):
     """(wall s, RunResult, fused_recv_land launches) of one run at n."""
     from gossip_simulator_tpu_torch import run_simulation
     from gossip_simulator_tpu_torch.backends import ShardedStepper
@@ -43,7 +45,7 @@ def run(n: int):
     from gossip_simulator_tpu_torch.ops import _build
     from gossip_simulator_tpu_torch.utils.metrics import ProgressPrinter
 
-    cfg, _ = parse_cli(argv(n))
+    cfg, _ = parse_cli(argv(n) + list(extra))
     stepper = ShardedStepper(cfg, n_devices=SHARDS, device="cuda")
     _build.reset_launches()
     torch.cuda.synchronize()
@@ -60,17 +62,21 @@ def main() -> None:
     ap.add_argument("--label", default="this")
     ap.add_argument("--n", type=int, default=10_000_000)
     ap.add_argument("--reps", type=int, default=1)
+    ap.add_argument("--spatial", action="store_true",
+                    help="record the spatial panels (-telemetry-spatial on)")
     args = ap.parse_args()
+    extra = ["-telemetry-spatial", "on"] if args.spatial else []
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
-    run(1_000_000)
+    run(1_000_000, extra)
     for rep in range(args.reps):
-        wall, res, recv = run(args.n)
-        print(f"{args.label} sharded n={args.n} S={SHARDS} rep {rep}: wall "
+        wall, res, recv = run(args.n, extra)
+        print(f"{args.label} sharded n={args.n} S={SHARDS} spatial "
+              f"{'on' if args.spatial else 'off'} rep {rep}: wall "
               f"{wall:.3f} s, {res.gossip_windows} windows, total_message "
               f"{res.stats.total_message}, fused_recv_land x {recv}; {card}",
               flush=True)
