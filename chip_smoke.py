@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases rumors_event   # multi-rumor traffic
     python3 chip_smoke.py --phases checkpoint     # snapshots, -resume, SIGTERM
     python3 chip_smoke.py --phases sharded_faults # -backend sharded, faults, rumors
+    python3 chip_smoke.py --phases sharded_overlay # -backend sharded, overlays, ring engine
 
 Phases, each printing its own line:
 
@@ -164,12 +165,13 @@ Phases, each printing its own line:
               the crash-0 run moved to phase 11) in the worker processes,
               which must launch fused_recv_land, and beside them sharded_10m
               (bench.py's row: headline_jax's flags, -backend sharded) at
-              n = 1e7 under the default gates, -phase2-kernel xla and
-              -exchange-pipeline double (one transcript; fused_recv_land
-              not under the second; the third, which keeps the serial
-              route, gives the first's Stats, history columns and
-              launches, exchange_inflight_hwm 2, its wall printed beside
-              the first's),
+              n = 1e7 under the default gates, and at n = 1e6 under the
+              default gates, -phase2-kernel xla and -exchange-pipeline
+              double (one transcript; fused_recv_land not under the
+              second; the third, which keeps the serial route, gives the
+              first's Stats, history columns and launches,
+              exchange_inflight_hwm 2, its wall printed beside the
+              first's),
               pushsum10m with -backend sharded (mass conserved, nothing
               dropped), and config 5 cut to n = 1.2e7 with its wall seconds,
               peak memory and the host seconds spent in the
@@ -268,22 +270,42 @@ Phases, each printing its own line:
               newest overlay_* to the same Stats and stabilize_ms and
               launches the three phase-1 kernels; each printing the
               snapshot bytes, the checkpoint.save and checkpoint.load
-              seconds (its -trace spans) and the wall.
+              seconds (its -trace spans) and the wall;
+14. sharded_overlay -- -backend sharded on the overlays and the ring
+              engine, SHARDS = 8 shards of the card, seed 0, the
+              reference's defaults otherwise: at n = 1e7
+              sharded_default10m (the default run's argv: the
+              tick-faithful overlay, then the event engine:
+              fused_ring_append, fused_chunk_step, fused_negotiate,
+              fused_recv_land), sharded_ring_rounds10m (ring_rounds10m's:
+              the rounds overlay, then the ring engine in rounds:
+              fused_chunk_step, fused_negotiate, fused_request_round,
+              fused_deposit_add), sharded_ring_kout10m (ring_kout10m's
+              with the spatial panels: kout_pallas, fused_deposit_add)
+              and sharded_pushpull10m (pushpull10m's: no kernel), each
+              reaching its target and printing its wall, peak memory,
+              exchange_overflow and launches -- the second and third
+              in the worker processes with ring_rounds10m's argv at n =
+              1e6 under the default gates and all-xla (one transcript,
+              no kernel under all-xla), then cuda-vs-cpu twins at n =
+              20,000 of the four and of the ring engine under the churn
+              timeline with healing, on 2 and 8 shards, beside the first
+              and the fourth in this process.
 
 The spatial panels (-telemetry-spatial on, with a run dir under
 smoke_runs/spatial/) are also armed on ring_kout10m's and pushsum10m's
-default-gate runs (phases 5, 6) and on churn10m_heal_s8 and
-pushsum_churn10m_s8 (phase 11): at every window the groups' received
+default-gate runs (phases 5, 6), on churn10m_heal_s8 and
+pushsum_churn10m_s8 (phase 11) and on sharded_ring_kout10m (phase 14): at every window the groups' received
 and removed sum to the history's columns, the shards' mail high-water
 maxes to mail_high, the traffic matrix's column sums are the shards'
 routed lanes received, the matrix never falls and its total is theirs;
 each prints health.json's status and findings ("spatial" and "health"
 lines).
 
-The twins' runs, on the card and on the CPU (phases 4, 8, 9, 10 and 11),
-run in WORKERS spawned worker processes.  Phase 4's run on their own
+The twins' runs, on the card and on the CPU (phases 4, 8, 9, 10, 11
+and 14), run in WORKERS spawned worker processes.  Phase 4's run on their own
 when phase 10 does not run, else in phase 10's workers after its 2.5e5
-family, beside multirumor50m_r16; phases 8, 9, 10 and 11 run their
+family, beside multirumor50m_r16; phases 8, 9, 10, 11 and 14 run their
 twins (and phase 10 its 2.5e5 family) beside the full runs this process
 makes, as
 phase 7 runs its CPU erdos rows beside its four full runs and phase 13
@@ -3493,9 +3515,10 @@ def rumor_parity(dev, gen, reps: int) -> dict:
 
 
 def _card_side(argv, shards=None):
-    """One full-size run on the card in a worker process (on `shards`
-    shards with the sharded backend), every launch count set to 0 before
-    it: (transcript, RunResult, launches, wall s, peak bytes allocated)."""
+    """One full-size run on the card, in a worker process or in this one
+    (on `shards` shards with the sharded backend), every launch count set
+    to 0 before it: (transcript, RunResult, launches, wall s, peak bytes
+    allocated)."""
     from gossip_simulator_tpu_torch.ops import _build
 
     torch.cuda.reset_peak_memory_stats()
@@ -3918,6 +3941,9 @@ def phase_graphs(n_kout: int, n_erdos: int, n_wide: int) -> dict:
 
 SHARDS = 8  # config 5's mesh (BASELINE.json: v5e-8), on one card
 SHARDED_N = 10_000_000  # sharded_10m (bench.py's row at S = 8)
+# sharded_10m's -phase2-kernel xla and -exchange-pipeline double twins,
+# with a default-gate run of their own (cut from 1e7 for the time limit).
+SHARDED_GATE_N = 1_000_000
 # Config 5 ("100M nodes sharded") cut to 1.2e7: the script's time limit
 # (PERF.md section 4 lists the cut).
 SHARDED_BIG_N = 12_000_000
@@ -4368,9 +4394,11 @@ def phase_sharded(n: int, n_ps: int, n_big: int) -> dict:
     the card (fused_recv_land's parity runs before it, with phase 3: the
     profiler records its device time there): the cuda-vs-cpu twins in the
     worker processes, and meanwhile, in this process, sharded_10m under
-    the default gates (fused_recv_land) and with -phase2-kernel xla (the
-    decode and ring-append chain: no fused_recv_land), which must give
-    one transcript; PushSum at n_ps (pushsum10m's flags, -backend
+    the default gates (fused_recv_land); at SHARDED_GATE_N the default
+    gates, -phase2-kernel xla (the decode and ring-append chain: no
+    fused_recv_land) and -exchange-pipeline double, which must give one
+    transcript (double: the serial run's Stats, history and launches,
+    exchange_inflight_hwm 2); PushSum at n_ps (pushsum10m's flags, -backend
     sharded), conserving the mass; and config 5 at n_big under the
     default gates, with wall seconds and peak memory (those walls taken
     beside the busy workers).  Returns the launches of each run."""
@@ -4387,13 +4415,26 @@ def _sharded_runs(n: int, n_ps: int, n_big: int) -> dict:
     from gossip_simulator_tpu_torch.utils.telemetry import GCOL
 
     runs, outs, done, walls = {}, {}, {}, {}
-    for name, gate, recv_on in (("sharded_10m", [], True),
-                                ("sharded_10m_p2_xla",
+    out, res, st, runs["sharded_10m"], wall = full_run(
+        "sharded_10m", n, sharded_argv(n), shards=SHARDS)
+    del st
+    if runs["sharded_10m"][RECV] <= 0 or \
+            runs["sharded_10m"]["kout_pallas"] <= 0 or \
+            res.stats.exchange_overflow:
+        fail(f"full sharded_10m: launches {runs['sharded_10m']}, "
+             f"exchange_overflow {res.stats.exchange_overflow}")
+    _transcript("sharded_10m", out)
+    # The gate and schedule twins at SHARDED_GATE_N (the same code paths
+    # as sharded_10m's; PERF.md section 4 lists the cut).
+    g = SHARDED_GATE_N
+    tag = f"sharded_{size_tag(g)}"
+    for name, gate, recv_on in ((tag, [], True),
+                                (f"{tag}_p2_xla",
                                  ["-phase2-kernel", "xla"], False),
-                                ("sharded_10m_double",
+                                (f"{tag}_double",
                                  ["-exchange-pipeline", "double"], True)):
         outs[name], res, st, runs[name], walls[name] = full_run(
-            name, n, sharded_argv(n) + gate, shards=SHARDS)
+            name, g, sharded_argv(g) + gate, shards=SHARDS)
         hist = st._telem.gossip_snapshot()
         done[name] = (res.stats.to_dict(), hist["cols"][:hist["count"]])
         del st
@@ -4404,34 +4445,32 @@ def _sharded_runs(n: int, n_ps: int, n_big: int) -> dict:
             fail(f"full {name}: exchange_overflow "
                  f"{res.stats.exchange_overflow}")
     if len({tuple(_no_notes(t)) for t in outs.values()}) != 1:
-        fail("full sharded_10m: default, -phase2-kernel xla and "
+        fail(f"full {tag}: default, -phase2-kernel xla and "
              "-exchange-pipeline double transcripts differ")
-    _transcript("sharded_10m", outs["sharded_10m"])
-    # -exchange-pipeline double keeps the serial route: sharded_10m's
+    # -exchange-pipeline double keeps the serial route: the serial run's
     # Stats, every history column but exchange_inflight_hwm (2, the serial
     # run's 1) and the same launches of every kernel.
-    (s_stats, s_cols), (d_stats, d_cols) = (done["sharded_10m"],
-                                            done["sharded_10m_double"])
+    (s_stats, s_cols), (d_stats, d_cols) = (done[tag],
+                                            done[f"{tag}_double"])
     hwm = GCOL["exchange_inflight_hwm"]
     keep = [c for c in range(s_cols.shape[1]) if c != hwm]
-    serial, piped = runs["sharded_10m"], runs["sharded_10m_double"]
+    serial, piped = runs[tag], runs[f"{tag}_double"]
     if (s_stats != d_stats or s_cols.shape != d_cols.shape
             or not (s_cols[:, keep] == d_cols[:, keep]).all()
             or not (s_cols[:, hwm] == 1).all()
             or not (d_cols[:, hwm] == 2).all()):
-        fail("full sharded_10m_double: Stats or history differ from "
-             "sharded_10m's")
+        fail(f"full {tag}_double: Stats or history differ from "
+             f"{tag}'s")
     if piped != serial:
-        fail(f"full sharded_10m_double: launches {piped} (serial "
-             f"{serial})")
-    say("full sharded_10m: default, -phase2-kernel xla and -exchange-"
+        fail(f"full {tag}_double: launches {piped} (serial {serial})")
+    say(f"full {tag}: default, -phase2-kernel xla and -exchange-"
         "pipeline double transcripts identical; double: Stats and the "
-        f"history's columns sharded_10m's, exchange_inflight_hwm 2; "
+        f"history's columns {tag}'s, exchange_inflight_hwm 2; "
         f"{RECV} {piped[RECV]} launches (serial {serial[RECV]}), "
         f"fused_ring_append {piped['fused_ring_append']} (serial "
         f"{serial['fused_ring_append']}); wall "
-        f"{walls['sharded_10m_double']:.3f} s (serial "
-        f"{walls['sharded_10m']:.3f} s) [{smi_line()}]")
+        f"{walls[f'{tag}_double']:.3f} s (serial {walls[tag]:.3f} s) "
+        f"[{smi_line()}]")
     out, res, st, runs["pushsum10m_sharded"], _ = full_run(
         "pushsum10m_sharded", n_ps,
         pushsum_argv(n_ps) + ["-backend", "sharded"], shards=SHARDS)
@@ -4471,6 +4510,126 @@ def _sharded_runs(n: int, n_ps: int, n_big: int) -> dict:
     _transcript(big, out)
     say(f"full {big}: wall {wall:.3f} s, peak "
         f"{torch.cuda.max_memory_allocated()} B")
+    return runs
+
+
+# --- phase 14: the sharded overlays and the sharded ring engine -----------
+
+SHARDED_XLA_N = 1_000_000  # the phase's all-xla gate twins
+
+
+def sharded_overlay_argv(n: int, seed: int = 0) -> dict:
+    """Phase 14's runs at n on the sharded backend: name -> (argv, the
+    kernels the run must launch).  The default run (the tick-faithful
+    overlay, then the event engine), ring_rounds10m's (the rounds overlay,
+    then the ring engine in rounds), ring_kout10m's and pushpull10m's
+    (which draws no table and launches no kernel)."""
+    base = ["-backend", "sharded", "-n", str(n), "-seed", str(seed)]
+    return {
+        "sharded_default10m": (base + OVERLAY, (
+            "fused_ring_append", "fused_chunk_step", "fused_negotiate",
+            RECV)),
+        "sharded_ring_rounds10m": (base + ["-time-mode", "rounds", *OVERLAY],
+                                   ("fused_chunk_step", "fused_negotiate",
+                                    "fused_request_round", DEPOSIT)),
+        "sharded_ring_kout10m": (base + ["-engine", "ring", "-graph", "kout",
+                                         "-fanout", "6"],
+                                 ("kout_pallas", DEPOSIT)),
+        "sharded_pushpull10m": (base + ["-protocol", "pushpull", "-graph",
+                                        "kout", "-fanout", "23"], ()),
+    }
+
+
+def sharded_overlay_twins(n: int) -> list:
+    """cuda-vs-cpu twins of phase 14's paths at n on 2 and SHARDS shards
+    (phase 14's four argv at n, seed 1, and the ring engine under the
+    churn timeline with healing): (name, argv, patches, check, shards).
+    Each launches its run's kernels; push-pull none."""
+    cases = [(name.replace("10m", ""), argv, kernels) for name, (
+        argv, kernels) in sharded_overlay_argv(n, seed=1).items()]
+    cases.append(("sharded_ring_heal", churn_argv(n, *HEAL_ON, *TWIN_MAX)
+                  + ["-engine", "ring", *SHARDED_ON], (DEPOSIT,)))
+
+    def checker(tag, kernels):
+        def check(launches, res_g):
+            if any(launches[k] <= 0 for k in kernels) or (
+                    not kernels and any(launches.values())):
+                fail(f"{tag}: launches {launches}, expected {kernels}")
+        return check
+
+    return [(f"{name} twin S={shards}", argv, (),
+             checker(f"{name} twin S={shards}", kernels), shards)
+            for shards in (2, SHARDS) for name, argv, kernels in cases]
+
+
+def phase_sharded_overlay(n: int, n_xla: int, twin_n: int) -> dict:
+    """The nineteenth slice's paths, -backend sharded on the overlays and
+    the ring engine, SHARDS shards of the card.  In the worker processes,
+    sharded_ring_rounds10m and sharded_ring_kout10m (with the spatial
+    panels, their identities held every window) at n, ring_rounds10m's
+    argv at n_xla under the default gates and all-xla (one transcript, no
+    kernel under all-xla), then the cuda-vs-cpu twins at twin_n on 2 and
+    SHARDS shards (sharded_overlay_twins, the longest first); beside
+    them, in this process, sharded_default10m and sharded_pushpull10m at
+    n.  Each run at n under the default gates launches its kernels
+    (push-pull none), reaches its target and prints its wall (taken
+    beside the others), peak memory, exchange_overflow and launches.
+    Returns the launches of each run at n by name."""
+    twins = sharded_overlay_twins(twin_n)
+    # The longest twins first (the heal and ring runs on SHARDS shards).
+    twins.sort(key=lambda c: (c[4] != SHARDS, "heal" not in c[0],
+                              "kout" not in c[0]))
+    argvs = sharded_overlay_argv(n)
+    small, small_kernels = sharded_overlay_argv(n_xla)[
+        "sharded_ring_rounds10m"]
+    tag = f"sharded_ring_rounds{size_tag(n_xla)}"
+    in_workers = {name: argvs[name][0] + (
+        spatial_argv(name) if name == "sharded_ring_kout10m" else [])
+        for name in ("sharded_ring_rounds10m", "sharded_ring_kout10m")}
+    in_workers.update({tag: small, f"{tag}_xla": small + ALL_XLA})
+    runs, done = {}, {}
+    t0 = time.perf_counter()
+    with worker_pool() as pool:
+        futs = {name: pool.submit(_card_side, argv, SHARDS)
+                for name, argv in in_workers.items()}
+        tw = [submit_twins(pool, [c[:4]], c[4])[0] for c in twins]
+        for name in ("sharded_default10m", "sharded_pushpull10m"):
+            torch.cuda.empty_cache()
+            done[name] = _card_side(argvs[name][0], SHARDS)
+        check_twins([c[:4] for c in twins], tw)
+        done.update({k: f.result() for k, f in futs.items()})
+    say(f"sharded_overlay: the {len(twins)} twins, the four runs at n={n} "
+        f"and the pair at n={n_xla} side by side took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, (argv, kernels) in argvs.items():
+        out, res, got, wall, peak = done[name]
+        runs[name] = got
+        s = res.stats
+        say(f"full {name}: n={n} S={SHARDS} overlay {res.overlay_windows} "
+            f"windows ({res.stabilize_ms:g} simulated ms), "
+            f"{res.gossip_windows} gossip windows ({res.coverage_ms:g} "
+            f"simulated ms); wall {wall:.3f} s (beside the others); peak "
+            f"{peak} B; total_message {s.total_message}; coverage "
+            f"{s.coverage:.6f}; exchange_overflow {s.exchange_overflow}; "
+            f"mailbox_dropped {s.mailbox_dropped}; launches {got}")
+        if not res.converged:
+            fail(f"full {name}: did not converge:\n{out}")
+        if any(got[k] <= 0 for k in kernels) or (
+                not kernels and any(got.values())):
+            fail(f"full {name}: launches {got}, expected {kernels}")
+    spatial_check("sharded_ring_kout10m",
+                  f"{SPATIAL_DIR}/sharded_ring_kout10m")
+    (out_d, res_d, got, wall_d, _), (out_x, res_x, got_x, wall_x, _) = (
+        done[tag], done[f"{tag}_xla"])
+    if not (res_d.converged and res_x.converged) or \
+            _no_notes(out_d) != _no_notes(out_x):
+        fail(f"full {tag}: default and all-xla transcripts differ (or a "
+             "run did not converge)")
+    if any(got[k] <= 0 for k in small_kernels) or any(gated(got_x).values()):
+        fail(f"full {tag}: launches {got} (all-xla {got_x})")
+    say(f"full {tag}: default and all-xla transcripts identical; all-xla "
+        f"launched no kernel; walls {wall_d:.3f} and {wall_x:.3f} s (beside "
+        f"the others); launches {got}")
     return runs
 
 
@@ -4577,7 +4736,7 @@ def phase_profile(n: int, out_path: str, run: str = "default") -> None:
 
 PHASES = ("parity", "twins", "full", "rounds", "ring", "pushsum", "graphs",
           "sharded", "faults", "rumors_event", "sharded_faults", "telemetry",
-          "checkpoint")
+          "checkpoint", "sharded_overlay")
 
 
 # The launch counts of a kernel's forms (ops/_build.py FORMS).
@@ -4741,7 +4900,9 @@ def main() -> int:
             ("telemetry", lambda: phase_telemetry(
                 FULL_N, TELEMETRY_N,
                 CKPT_A if "checkpoint" in phases else ())),
-            ("checkpoint", lambda: phase_checkpoint(FULL_N, CKPT_P1_N))):
+            ("checkpoint", lambda: phase_checkpoint(FULL_N, CKPT_P1_N)),
+            ("sharded_overlay", lambda: phase_sharded_overlay(
+                FULL_N, SHARDED_XLA_N, TWIN_N))):
         if name in phases:
             runs.update(phase())
             lap(name)

@@ -1,6 +1,8 @@
 """The ring engine: one array program per simulated tick (or round).
 
-The port of the JAX package's ``models/epidemic.py``, single device:
+The port of the JAX package's ``models/epidemic.py`` (the sharded
+backend runs the same physics a shard at a time and routes each wave,
+``parallel/sharded_step.py``):
 
     drain ring slot -> count deliveries -> crash draw -> infect
     (idempotent) -> gather friends of the new senders -> drop mask ->
@@ -129,10 +131,13 @@ class CrashDraw:
             t = self._dev[dev] = torch.from_numpy(self._table).to(dev)
         return t[torch.clamp(counted, 0, t.shape[0] - 1).long()]
 
-    def draw(self, key: torch.Tensor, counted: torch.Tensor) -> torch.Tensor:
-        """Nodes that crash: uniform < pc, among those that received."""
-        n = counted.shape[0]
-        return (_rng.uniform(key, (n,)) < self.pc(counted)) & (counted > 0)
+    def draw(self, key: torch.Tensor, counted: torch.Tensor,
+             u: torch.Tensor | None = None) -> torch.Tensor:
+        """Nodes that crash: uniform < pc, among those that received (`u`:
+        the uniform draw of `key`, when it was made beforehand)."""
+        if u is None:
+            u = _rng.uniform(key, (counted.shape[0],))
+        return (u < self.pc(counted)) & (counted > 0)
 
 
 def init_rumor_leaves(cfg: Config, n: int, device=None):
@@ -170,7 +175,10 @@ def pack_rumor_bits(bits: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def init_state(cfg: Config, friends: torch.Tensor,
-               friend_cnt: torch.Tensor) -> SimState:
+               friend_cnt: torch.Tensor, n_shards: int = 1) -> SimState:
+    """The state of `friends`' rows: the whole node axis, or one shard's
+    row block (the crash clock covers its rows; ``exch_counts`` is laid
+    out for `n_shards` shards)."""
     n = friends.shape[0]
     dev = friends.device
     d = ring_depth(cfg)
@@ -195,7 +203,7 @@ def init_state(cfg: Config, friends: torch.Tensor,
         heal_repaired=z(), pending_rumors=pending_rumors,
         rumor_words=rumor_words, rumor_recv=rumor_recv,
         rumor_done=rumor_done,
-        exch_counts=init_exch_counts(cfg, 1, dev))
+        exch_counts=init_exch_counts(cfg, n_shards, dev))
 
 
 def row_slot(cfg: Config, delay_key, tick: int,
@@ -211,20 +219,30 @@ def row_slot(cfg: Config, delay_key, tick: int,
     return ((tick + delay) % d).to(I32)
 
 
-def tick_keys(base_key: torch.Tensor, tick: int) -> dict:
+def tick_keys(base_key: torch.Tensor, tick: int,
+              shard: int | None = None) -> dict:
+    """Per-tick op keys; `shard` folds the shard index in first (the
+    sharded backend's decorrelated per-shard streams)."""
+    if shard is not None:
+        base_key = _rng.fold_in(base_key, shard)
     return {"crash": _rng.tick_key(base_key, tick, _rng.OP_CRASH),
             "delay": _rng.tick_key(base_key, tick, _rng.OP_DELAY),
             "drop": _rng.tick_key(base_key, tick, _rng.OP_DROP),
             "remove": _rng.tick_key(base_key, tick, _rng.OP_REMOVE)}
 
 
-def tick_core(cfg: Config, st: SimState, keys: dict, crash: CrashDraw):
+def tick_core(cfg: Config, st: SimState, keys: dict, crash: CrashDraw,
+              drawn: dict | None = None):
     """The node-local physics of one tick, in place: drain the ring slot,
     count, crash draw, infect, SIR removal and re-broadcast scheduling,
     the multi-rumor bits, the totals, tick + 1.  Returns ``(senders,
     dslot, newbits)``: the rows broadcasting this tick, their ring slots
     (None on the compacted SI path, which draws slots per gathered row)
-    and, under multi-rumor, each row's new rumor bits (else None)."""
+    and, under multi-rumor, each row's new rumor bits (else None).
+    `drawn` holds draws of `keys` made beforehand (the sharded tick draws
+    every shard's at once): "crash" (the uniform), "remove" (the SIR
+    removal mask), "dslot" (the rows' ring slots)."""
+    drawn = drawn or {}
     sir = cfg.protocol == "sir"
     multi = cfg.multi_rumor
     d = ring_depth(cfg)
@@ -238,7 +256,7 @@ def tick_core(cfg: Config, st: SimState, keys: dict, crash: CrashDraw):
     st.total_message += counted.sum(dtype=I64)
     has = counted > 0
     if crash.crash_p > 0.0:
-        new_crash = crash.draw(keys["crash"], counted)
+        new_crash = crash.draw(keys["crash"], counted, drawn.get("crash"))
         st.crashed |= new_crash
         st.total_crashed += new_crash.sum(dtype=I64)
         if cfg.faults_enabled:
@@ -261,16 +279,19 @@ def tick_core(cfg: Config, st: SimState, keys: dict, crash: CrashDraw):
 
     # Dense per-row slots only where something consumes them for all n
     # rows (SIR's schedule, the dense deposit, the multi-rumor deposit).
-    dslot = None
-    if sir or multi or not cfg.compact_resolved:
+    dslot = drawn.get("dslot")
+    if dslot is None and (sir or multi or not cfg.compact_resolved):
         dslot = row_slot(cfg, keys["delay"], st.tick, ids)
 
     if sir:
         due = st.rebroadcast[slot] & ~st.crashed & ~st.removed
         st.rebroadcast[slot] = False
         senders = newly | due
-        removal = _rng.bernoulli_masked(
-            keys["remove"], p_eff(cfg, cfg.removal_rate), (n,)) & senders
+        removal = drawn.get("remove")
+        if removal is None:
+            removal = _rng.bernoulli_masked(
+                keys["remove"], p_eff(cfg, cfg.removal_rate), (n,))
+        removal = removal & senders
         st.removed |= removal
         cell = (dslot.long(), ids.long())
         st.rebroadcast[cell] = st.rebroadcast[cell] | (senders & ~removal)
@@ -281,13 +302,14 @@ def tick_core(cfg: Config, st: SimState, keys: dict, crash: CrashDraw):
 
 
 def edges_from_senders(cfg: Config, friends, friend_cnt, senders, dslot,
-                       drop_key, rows, tick: int):
+                       drop_key, rows, tick: int, gid0: int = 0):
     """This tick's outgoing wave from the given rows as flat (dst, slot,
     valid) lanes, row-major (k lanes a row), and the count of edges the
     scenario's partition mask dropped at send tick `tick` (int64 0-d; 0
     without partitions).  `friends`, `friend_cnt`, `senders` and `dslot`
-    are the rows' own; `rows` their ids, which key the per-link drop
-    draw."""
+    are the rows' own; `rows` their (local) ids, which key the per-link
+    drop draw, and `gid0 + rows` their global ids, which the partition
+    mask reads (`gid0`: the global id of a shard's row 0)."""
     k = friends.shape[1]
     drop = _rng.row_bernoulli(drop_key, p_eff(cfg, cfg.droprate), rows, k)
     cols = torch.arange(k, dtype=I32, device=friends.device)
@@ -296,7 +318,8 @@ def edges_from_senders(cfg: Config, friends, friend_cnt, senders, dslot,
     scen = cfg.scenario_resolved
     blk = torch.zeros((), dtype=I64, device=friends.device)
     if scen.has_partitions:
-        blocked = _scen.partition_blocked(scen, cfg.n, tick, rows[:, None],
+        blocked = _scen.partition_blocked(scen, cfg.n, tick,
+                                          (gid0 + rows)[:, None],
                                           friends) & edge
         blk = blocked.sum(dtype=I64)
         edge = edge & ~blocked
@@ -323,18 +346,19 @@ def row_batches(mask: torch.Tensor, cap: int) -> list:
 
 
 def compact_gather(cfg: Config, friends, friend_cnt, dslot, delay_key,
-                   drop_key, tick: int, idx: torch.Tensor):
+                   drop_key, tick: int, idx: torch.Tensor, gid0: int = 0):
     """The edge lanes (dst, slot, valid) of the sender rows `idx`, with
     drop masks and delay slots drawn for just those rows (the same values
-    as the dense path's draws for them).  The JAX package pads each chunk
-    to its cap with fill rows whose lanes are all invalid; they add
-    nothing, so the port leaves them out."""
+    as the dense path's draws for them; `gid0` as in
+    edges_from_senders).  The JAX package pads each chunk to its cap with
+    fill rows whose lanes are all invalid; they add nothing, so the port
+    leaves them out."""
     slot = (dslot[idx.long()] if dslot is not None
             else row_slot(cfg, delay_key, tick, idx))
     ones = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
     return edges_from_senders(cfg, friends[idx.long()],
                               friend_cnt[idx.long()], ones, slot, drop_key,
-                              idx, tick)
+                              idx, tick, gid0=gid0)
 
 
 def deposit_local(pending, dst, slots, valid, kernel: str = "xla"):

@@ -82,11 +82,13 @@ def _poisson_excess(lam: float, cap: int) -> float:
     return e
 
 
-def static_boot_applies(cfg: Config) -> bool:
+def static_boot_applies(cfg: Config, hooked: bool = False) -> bool:
     """Whether init_state stages the one-shot bootstrap burst: the
-    static-boot band, and the burst must fit the cap-wide emission rows
+    static-boot band on the one-device engine (the sharded round's
+    routed delivery, `hooked`, has no burst: its per-round bootstrap
+    fills the table), and the burst must fit the cap-wide emission rows
     (fanout <= cap; always true for auto caps)."""
-    return (cfg.static_boot_for(cfg.n)
+    return (not hooked and cfg.static_boot_for(cfg.n)
             and cfg.fanout <= cfg.mailbox_cap_for(cfg.n))
 
 
@@ -105,19 +107,27 @@ def spill_cap_for(cfg: Config, n_rows: int) -> int:
     return SPILL_CAP
 
 
-def init_state(cfg: Config, base_key: torch.Tensor) -> OverlayState:
+def init_state(cfg: Config, base_key, n_local: int | None = None,
+               device=None) -> OverlayState:
     """The initial rounds state.  With the static bootstrap, every node's
     fanout friends are drawn here (lane-keyed draws, one column at a
     time, self patched (id+1)%n) and staged as the first fanout makeup
     emission rows; otherwise the table starts empty and the per-round
-    bootstrap fills it."""
-    n, k = cfg.n, cfg.max_degree
+    bootstrap fills it.  `n_local` builds one shard's rows for the
+    sharded round (no static bootstrap; its routed delivery never
+    spills, and the spill buffers keep the flat floor's size)."""
+    hooked = n_local is not None
+    n = n_local if hooked else cfg.n
+    k = cfg.max_degree
     cap = cfg.mailbox_cap_for(n)
-    dev = base_key.device
-    sc = spill_cap_for(cfg, n)
+    dev = base_key.device if device is None else device
+    if hooked:
+        sc = SPILL_CAP if spill_enabled(cap) else 0
+    else:
+        sc = spill_cap_for(cfg, n)
     friends = torch.full((n, k), -1, dtype=I32, device=dev)
     mk_dst = torch.full((cap, n), -1, dtype=I32, device=dev)
-    if static_boot_applies(cfg):
+    if static_boot_applies(cfg, hooked):
         f = cfg.fanout
         ids = torch.arange(n, dtype=I32, device=dev)
         kb = _rng.tick_key(base_key, 0, _rng.OP_BOOTSTRAP)
@@ -190,10 +200,27 @@ def _col_set(arr, cols, vals, mask=None):
     return torch.where(oh, vals[:, None], arr)
 
 
-def process_breakup_slot(n, fanout, friends, cnt, src, has, ids, kk):
+def breakup_draw(n, kk, src, ids):
+    """A breakup slot's replacement peers, != self and != the leaver (a
+    leading axis of `kk`, `src` and `ids` draws several shards' at
+    once)."""
+    return _rng.randint_excluding(kk, n, src.shape[-1:], src, ids)
+
+
+def makeup_draw(kk, cnt):
+    """A makeup slot's eviction positions in [0, max(cnt, 1)) (batched
+    like breakup_draw).  Drawn with the counts before the slot's appends:
+    a row either appends or evicts, so only evicting rows' draws escape,
+    and their counts do not change."""
+    return _rng.randint(kk, cnt.shape[-1:], 0, torch.clamp_min(cnt, 1))
+
+
+def process_breakup_slot(n, fanout, friends, cnt, src, has, ids, kk,
+                         draw=None):
     """One mailbox slot of breakup decisions for all nodes.  Returns
     (friends, cnt, reply_dst, reply_mask): a makeup goes to reply_dst
-    where reply_mask."""
+    where reply_mask.  `draw`: breakup_draw's value, when the caller made
+    it beforehand."""
     k = friends.shape[1]
     iok = torch.arange(k, dtype=I32, device=friends.device)[None, :]
     match = (friends == src[:, None]) & (iok < cnt[:, None]) & has[:, None]
@@ -203,7 +230,7 @@ def process_breakup_slot(n, fanout, friends, cnt, src, has, ids, kk):
     over = cnt > fanout
     rm = has & found & over
     rp = has & found & ~over
-    nf = _rng.randint_excluding(kk, n, (cnt.shape[0],), src, ids)
+    nf = breakup_draw(n, kk, src, ids) if draw is None else draw
     lastpos = torch.clamp_min(cnt - 1, 0)
     lastval = _col_get(friends, lastpos)
     posval = torch.where(rm, lastval,
@@ -214,39 +241,43 @@ def process_breakup_slot(n, fanout, friends, cnt, src, has, ids, kk):
     return friends, cnt, nf, rp
 
 
-def process_makeup_slot(fanin, friends, cnt, src, has, kk):
+def process_makeup_slot(fanin, friends, cnt, src, has, kk, draw=None):
     """One mailbox slot of makeup decisions.  Returns (friends, cnt,
     victim_dst, victim_mask): a breakup goes to victim_dst where
-    victim_mask."""
+    victim_mask.  `draw`: makeup_draw's value on the slot's incoming
+    counts, when the caller made it beforehand (else drawn here on the
+    counts after the appends, as the JAX package's unfused path does;
+    the same values where they are used)."""
     k = friends.shape[1]
     under = cnt < fanin
     app = has & under
     friends = _col_set(friends, torch.clamp_max(cnt, k - 1), src, app)
     cnt = cnt + app.to(I32)
     ev = has & ~under
-    vpos = _rng.randint(kk, cnt.shape, 0, torch.clamp_min(cnt, 1))
+    vpos = makeup_draw(kk, cnt) if draw is None else draw
     victim = _col_get(friends, vpos)
     friends = _col_set(friends, vpos, src, ev)
     return friends, cnt, victim, ev
 
 
-def process_breakup_slot_pallas(n, fanout, friends, cnt, src, has, ids, kk):
+def process_breakup_slot_pallas(n, fanout, friends, cnt, src, has, ids, kk,
+                                draw=None):
     """process_breakup_slot through ``fused_negotiate`` (friends and cnt in
     place): the same replacement draw, made outside the kernel on the same
     key; the reply is where(rp, nf, -1) and nf >= 0, so (reply, reply >=
     0) reproduces the callers' blends."""
-    nf = _rng.randint_excluding(kk, n, (cnt.shape[0],), src, ids)
+    nf = breakup_draw(n, kk, src, ids) if draw is None else draw
     friends, cnt, reply = overlay_kernel.fused_negotiate(
         friends, cnt, src, has, nf, kind="breakup", limit=fanout)
     return friends, cnt, reply, reply >= 0
 
 
-def process_makeup_slot_pallas(fanin, friends, cnt, src, has, kk):
+def process_makeup_slot_pallas(fanin, friends, cnt, src, has, kk,
+                               draw=None):
     """process_makeup_slot through ``fused_negotiate``.  The eviction
-    position is drawn with the pre-append counts, as the JAX package's
-    fused path does: observably the same, since a row either accepts or
-    evicts and only evicting rows' draws escape."""
-    vpos = _rng.randint(kk, cnt.shape, 0, torch.clamp_min(cnt, 1))
+    position is drawn with the pre-append counts (makeup_draw), as the
+    JAX package's fused path does."""
+    vpos = makeup_draw(kk, cnt) if draw is None else draw
     friends, cnt, reply = overlay_kernel.fused_negotiate(
         friends, cnt, src, has, vpos, kind="makeup", limit=fanin)
     return friends, cnt, reply, reply >= 0
@@ -296,22 +327,151 @@ def _slot(mbox, r: int, n: int):
     return mbox[:, r]
 
 
-def make_round_fn(cfg: Config):
-    """One overlay round, round_fn([st], base_key) -> st (the state is
-    handed over in a one-element list and popped, so no caller frame keeps
-    the old buffers alive through the round).  Its two processing pieces
-    are exposed as ``round_fn.pieces`` for the split round."""
+def round_pieces(cfg: Config, n_rows: int | None = None):
+    """The round's processing pieces for the whole node axis or, with
+    `n_rows`, for each shard's rows of the sharded round (which delivers
+    their mailboxes itself and runs the per-round bootstrap): returns
+    (p_bk_process, p_mk_process, bk_shards, mk_shards), the last two
+    taking the shards in lockstep, one list entry a shard, each slot's
+    draws for every shard in one call."""
     n = cfg.n
+    hooked = n_rows is not None
+    rows_n = n_rows if hooked else n
     fanout, fanin = cfg.fanout, cfg.fanin_resolved
-    cap = cfg.mailbox_cap_for(n)
+    cap = cfg.mailbox_cap_for(rows_n)
     bk_slot_fn, mk_slot_fn = phase1_slot_fns(cfg)
     request_fn = (overlay_kernel.fused_request_round
                   if cfg.phase1_kernel_resolved == "pallas"
                   else overlay_kernel.request_round_plain)
-    static_boot = static_boot_applies(cfg)
+    static_boot = static_boot_applies(cfg, hooked)
+
+    def slots(breakup: bool, friends, cnts, mboxes, depths, keys, ids):
+        """The slot loop of each shard's breakup (makeup) mailbox, in
+        lockstep; `keys` (S, 2) are the shards' round keys
+        fold_in(base_key, round).  Updates `friends` and `cnts` in place;
+        returns each shard's (emission rows (cap, rows), processed count,
+        each row's entry count at write time)."""
+        dev = keys.device
+        op = _rng.OP_REPLACE if breakup else _rng.OP_EVICT
+        kr = _rng.fold_in(keys, op)
+        out = [(torch.full((cap, rows_n), -1, dtype=I32, device=dev),
+                torch.zeros((), dtype=I32, device=dev),
+                torch.zeros(cap, dtype=I32, device=dev)) for _ in depths]
+        if breakup:
+            ids_all = torch.stack(ids)
+        none = torch.full((rows_n,), -1, dtype=I32, device=dev)
+        for slot in range(max(depths, default=0)):
+            kk = _rng.fold_in(kr, slot)
+            srcs = [_slot(mb, slot, rows_n) if d > slot else none
+                    for mb, d in zip(mboxes, depths)]
+            if breakup:
+                draws = breakup_draw(n, kk, torch.stack(srcs), ids_all)
+            else:
+                draws = makeup_draw(kk, torch.stack(cnts))
+            for i, (src, d) in enumerate(zip(srcs, depths)):
+                if d <= slot:
+                    continue
+                has = src >= 0
+                if breakup:
+                    friends[i], cnts[i], dst, mask = bk_slot_fn(
+                        n, fanout, friends[i], cnts[i], src, has, ids[i],
+                        kk[i], draw=draws[i])
+                else:
+                    friends[i], cnts[i], dst, mask = mk_slot_fn(
+                        fanin, friends[i], cnts[i], src, has, kk[i],
+                        draw=draws[i])
+                em, done, em_cnt = out[i]
+                em[slot] = torch.where(mask, dst, -1)
+                em_cnt[slot] = mask.sum(dtype=I32)
+                done += has.sum(dtype=I32)
+        return out
+
+    def bk_shards(friends, cnts, mboxes, depths, round_: int, keys, ids):
+        """Process the breakup mailboxes (simulator.go:76-94), emitting
+        replacement makeups: each shard's (mk_em, win_bk, mk_cnt)."""
+        return slots(True, friends, cnts, mboxes, depths,
+                     _rng.fold_in(keys, round_), ids)
+
+    def mk_shards(friends, cnts, mboxes, depths, round_: int, keys, ids):
+        """Process the makeup mailboxes (simulator.go:66-75) and run the
+        bootstrap (simulator.go:95-106): each shard's (bk_em, win_mk,
+        bk_cnt, boot_em, boot_cnt)."""
+        rkeys = _rng.fold_in(keys, round_)
+        out = slots(False, friends, cnts, mboxes, depths, rkeys, ids)
+        dev = keys.device
+        if static_boot:
+            # cnt >= fanout holds from round 0 on (a breakup at or under
+            # fanout replaces in place), so the bootstrap never fires.
+            boot = [(torch.full((rows_n,), -1, dtype=I32, device=dev),
+                     torch.zeros((), dtype=I32, device=dev))] * len(out)
+        else:
+            w = _rng.randint(_rng.fold_in(rkeys, _rng.OP_BOOTSTRAP),
+                             (rows_n,), 0, n)
+            w = torch.where(w == torch.stack(ids), (w + 1) % n, w)
+            boot = []
+            for i in range(len(out)):
+                friends[i], cnts[i], boot_em, boot_cnt = request_fn(
+                    friends[i], cnts[i], w[i], fanout=fanout)
+                boot.append((boot_em, boot_cnt))
+        return [o + b for o, b in zip(out, boot)]
+
+    def p_bk_process(friends, cnt, bk_mbox, n_bk: int, round_: int,
+                     base_key):
+        """bk_shards on the whole node axis: (friends, cnt, mk_em, win_bk,
+        mk_cnt)."""
+        fr, cn = [friends], [cnt]
+        (mk_em, win_bk, mk_cnt), = bk_shards(
+            fr, cn, [bk_mbox], [n_bk], round_, base_key[None],
+            [torch.arange(n, dtype=I32, device=friends.device)])
+        return fr[0], cn[0], mk_em, win_bk, mk_cnt
+
+    def p_mk_process(mk_mbox, n_mk: int, dropped, friends, cnt, mk_em,
+                     win_bk, prev: OverlayState, base_key, mk_spill,
+                     bk_spill, mk_cnt=None, aux: bool = False):
+        """mk_shards on the whole node axis, and the next state assembled
+        from `prev`'s counters.  With `aux` also returns the split round's
+        write-time bookkeeping: (mk_cnt, bk_cnt, boot_cnt, live makeup
+        spill pairs, live breakup spill pairs, quiesced) as host values,
+        read in one transfer; quiesced equals quiesced(st)."""
+        fr, cn = [friends], [cnt]
+        (bk_em, win_mk, bk_cnt, boot_em, boot_cnt), = mk_shards(
+            fr, cn, [mk_mbox], [n_mk], prev.round, base_key[None],
+            [torch.arange(n, dtype=I32, device=friends.device)])
+        del mk_mbox
+        st = OverlayState(
+            friends=fr[0], friend_cnt=cn[0], mk_dst=mk_em, bk_dst=bk_em,
+            boot_dst=boot_em, mk_spill=mk_spill, bk_spill=bk_spill,
+            round=prev.round + 1, makeups=prev.makeups + win_mk,
+            breakups=prev.breakups + win_bk, win_makeups=win_mk,
+            win_breakups=win_bk, mailbox_dropped=prev.mailbox_dropped
+            + dropped)
+        if not aux:
+            return st
+        mk_sp_live = (mk_spill[1] >= 0).sum(dtype=I32)
+        bk_sp_live = (bk_spill[1] >= 0).sum(dtype=I32)
+        vals = torch.cat([mk_cnt, bk_cnt, torch.stack([
+            boot_cnt, mk_sp_live, bk_sp_live, win_mk, win_bk])]).tolist()
+        a_mk, a_bk = vals[:cap], vals[cap:2 * cap]
+        boot, msp, bsp, wm, wb = vals[2 * cap:]
+        pending = sum(a_mk) + sum(a_bk) + boot + msp + bsp
+        q = wm == 0 and wb == 0 and pending == 0 and st.round > 0
+        return st, (a_mk, a_bk, boot, msp, bsp, q)
+
+    return p_bk_process, p_mk_process, bk_shards, mk_shards
+
+
+def make_round_fn(cfg: Config):
+    """One overlay round, round_fn([st], base_key) -> st (the state is
+    handed over in a one-element list and popped, so no caller frame keeps
+    the old buffers alive through the round).  Its two processing pieces
+    (round_pieces) are exposed as ``round_fn.pieces`` for the split
+    round."""
+    n = cfg.n
+    cap = cfg.mailbox_cap_for(n)
     dchunk = delivery_chunk(cfg, n)
     dkern = cfg.deliver_kernel_resolved
     sc_band = spill_cap_for(cfg, n)
+    p_bk_process, p_mk_process = round_pieces(cfg)[:2]
 
     if n > COLUMN_DELIVERY_MIN_ROWS and flat_addressing_fits(n, cap):
         def deliver_matrix_fn(mats, spill_in):
@@ -334,83 +494,6 @@ def make_round_fn(cfg: Config):
                 None, flat, flat >= 0, n, cap, compact_chunk=dchunk,
                 src_mod=n, kernel=dkern)
             return mbox, int(cnt.max()), dropped, None
-
-    def p_bk_process(friends, cnt, bk_mbox, n_bk: int, round_: int,
-                     base_key):
-        """Process the breakup mailbox (simulator.go:76-94), emitting
-        replacement makeups.  Also returns mk_cnt int32[cap], each
-        emission row's entry count at write time."""
-        dev = friends.device
-        ids = torch.arange(n, dtype=I32, device=dev)
-        kr = _rng.fold_in(_rng.fold_in(base_key, round_), _rng.OP_REPLACE)
-        mk_em = torch.full((cap, n), -1, dtype=I32, device=dev)
-        win_bk = torch.zeros((), dtype=I32, device=dev)
-        mk_cnt = torch.zeros(cap, dtype=I32, device=dev)
-        for slot in range(n_bk):
-            src = _slot(bk_mbox, slot, n)
-            has = src >= 0
-            friends, cnt, nf, rp = bk_slot_fn(
-                n, fanout, friends, cnt, src, has, ids,
-                _rng.fold_in(kr, slot))
-            mk_em[slot] = torch.where(rp, nf, -1)
-            mk_cnt[slot] = rp.sum(dtype=I32)
-            win_bk += has.sum(dtype=I32)
-        return friends, cnt, mk_em, win_bk, mk_cnt
-
-    def p_mk_process(mk_mbox, n_mk: int, dropped, friends, cnt, mk_em,
-                     win_bk, prev: OverlayState, base_key, mk_spill,
-                     bk_spill, mk_cnt=None, aux: bool = False):
-        """Process the makeup mailbox (simulator.go:66-75) and the
-        bootstrap (simulator.go:95-106), and assemble the next state from
-        `prev`'s counters.  With `aux` also returns the split round's
-        write-time bookkeeping: (mk_cnt, bk_cnt, boot_cnt, live makeup
-        spill pairs, live breakup spill pairs, quiesced) as host values,
-        read in one transfer; quiesced equals quiesced(st)."""
-        dev = friends.device
-        rkey = _rng.fold_in(base_key, prev.round)
-        ke = _rng.fold_in(rkey, _rng.OP_EVICT)
-        bk_em = torch.full((cap, n), -1, dtype=I32, device=dev)
-        win_mk = torch.zeros((), dtype=I32, device=dev)
-        bk_cnt = torch.zeros(cap, dtype=I32, device=dev)
-        for slot in range(n_mk):
-            src = _slot(mk_mbox, slot, n)
-            has = src >= 0
-            friends, cnt, victim, ev = mk_slot_fn(
-                fanin, friends, cnt, src, has, _rng.fold_in(ke, slot))
-            bk_em[slot] = torch.where(ev, victim, -1)
-            bk_cnt[slot] = ev.sum(dtype=I32)
-            win_mk += has.sum(dtype=I32)
-        del mk_mbox
-        if static_boot:
-            # cnt >= fanout holds from round 0 on (a breakup at or under
-            # fanout replaces in place), so the bootstrap never fires.
-            boot_em = torch.full((n,), -1, dtype=I32, device=dev)
-            boot_cnt = torch.zeros((), dtype=I32, device=dev)
-        else:
-            ids = torch.arange(n, dtype=I32, device=dev)
-            w = _rng.randint(_rng.fold_in(rkey, _rng.OP_BOOTSTRAP), (n,), 0,
-                             n)
-            w = torch.where(w == ids, (w + 1) % n, w)
-            friends, cnt, boot_em, boot_cnt = request_fn(friends, cnt, w,
-                                                         fanout=fanout)
-        st = OverlayState(
-            friends=friends, friend_cnt=cnt, mk_dst=mk_em, bk_dst=bk_em,
-            boot_dst=boot_em, mk_spill=mk_spill, bk_spill=bk_spill,
-            round=prev.round + 1, makeups=prev.makeups + win_mk,
-            breakups=prev.breakups + win_bk, win_makeups=win_mk,
-            win_breakups=win_bk, mailbox_dropped=prev.mailbox_dropped
-            + dropped)
-        if not aux:
-            return st
-        mk_sp_live = (mk_spill[1] >= 0).sum(dtype=I32)
-        bk_sp_live = (bk_spill[1] >= 0).sum(dtype=I32)
-        vals = torch.cat([mk_cnt, bk_cnt, torch.stack([
-            boot_cnt, mk_sp_live, bk_sp_live, win_mk, win_bk])]).tolist()
-        a_mk, a_bk = vals[:cap], vals[cap:2 * cap]
-        boot, msp, bsp, wm, wb = vals[2 * cap:]
-        pending = sum(a_mk) + sum(a_bk) + boot + msp + bsp
-        q = wm == 0 and wb == 0 and pending == 0 and st.round > 0
-        return st, (a_mk, a_bk, boot, msp, bsp, q)
 
     def round_fn(box, base_key) -> OverlayState:
         st = box.pop()
@@ -518,10 +601,12 @@ def quiesced(st: OverlayState) -> torch.Tensor:
             & (pending_emissions(st) == 0) & (st.round > 0))
 
 
-def run_call_budget(cfg: Config) -> int:
+def run_call_budget(cfg: Config, shards: int = 1) -> int:
     """Rounds per bounded call of overlay_run_to_quiescence (the JAX
-    package's watchdog budget: 4e7 / n, capped at 1024)."""
-    return max(1, min(1024, int(4e7 // max(cfg.n, 1))))
+    package's watchdog budget: 4e7 / n, capped at 1024; `shards` scales
+    it for the sharded round, whose work a call tracks one shard's rows,
+    before the clamp)."""
+    return max(1, min(1024, int(4e7 * shards // max(cfg.n, 1))))
 
 
 def make_bounded_run(round_fn, quiesced_fn):

@@ -2,7 +2,8 @@
 
 The port of the JAX package's ``models/overlay_ticks.py``, node-major band
 (n below TICKS_SLOTMAJOR_MIN_ROWS; the slot-major band is not yet ported,
-ROADMAP A17).  Every makeup/breakup send draws its own uniform delay in
+ROADMAP A17; the sharded overlay runs its shards' rows node-major at any
+n).  Every makeup/breakup send draws its own uniform delay in
 [delaylow, delayhigh) ms (simulator.go:151-168); messages sit in a packed
 window-slot ring, and the stabilization clock is true simulated ms.
 
@@ -39,7 +40,9 @@ import torch
 
 from gossip_simulator_tpu_torch import config as _config
 from gossip_simulator_tpu_torch.config import Config
-from gossip_simulator_tpu_torch.models.overlay import phase1_slot_fns
+from gossip_simulator_tpu_torch.models.overlay import (breakup_draw,
+                                                       makeup_draw,
+                                                       phase1_slot_fns)
 from gossip_simulator_tpu_torch.ops.mailbox import deliver_pair, ring_append
 from gossip_simulator_tpu_torch.ops.select import first_true_indices
 from gossip_simulator_tpu_torch.utils import rng as _rng
@@ -226,16 +229,21 @@ def _emit_all(cfg: Config, st: OverlayTickState, base_key, w: int, em_dst,
                 (arrive // b) % dw, torch.ones_like(ridx, dtype=torch.bool))
 
 
-def make_step_fn(cfg: Config):
+def make_step_fn(cfg: Config, n_local: int | None = None):
     """One B-tick window transition (drain -> deliver -> process -> emit),
-    in place."""
+    in place.  Its drain and processing pieces are ``step_fn.pieces``;
+    with `n_local` they serve one shard's rows of the sharded overlay
+    (``parallel/overlay_ticks_sharded.py``, which routes the emissions
+    and passes the rows' global ids to the breakup decisions), node-major
+    at any n."""
     n = cfg.n
+    rows_n = n_local if n_local is not None else n
     fanout, fanin = cfg.fanout, cfg.fanin_resolved
     b = batch_ticks(cfg)
     dw = ring_windows(cfg)
-    cap = slot_cap(cfg)
-    cap_mb = cfg.mailbox_cap_for(n, stacked=True)
-    dchunk = ticks_delivery_chunk(cfg, n)
+    cap = slot_cap(cfg, n_local)
+    cap_mb = cfg.mailbox_cap_for(rows_n, stacked=True)
+    dchunk = ticks_delivery_chunk(cfg, rows_n)
     dkern = cfg.deliver_kernel_resolved
     bk_slot_fn, mk_slot_fn = phase1_slot_fns(cfg)
 
@@ -249,33 +257,60 @@ def make_step_fn(cfg: Config):
         dst_e, pay_e = dst_e[order], pay_e[order]
         typ = (pay_e // b) % 2
         mbox_pay = (pay_e // (2 * b)) * b + pay_e % b  # src*b + toff
-        return deliver_pair(mbox_pay, dst_e, typ, n, cap_mb, dchunk, m,
+        return deliver_pair(mbox_pay, dst_e, typ, rows_n, cap_mb, dchunk, m,
                             kernel=dkern)
 
-    def process(breakup: bool, mbox, depth: int, key, friends, cnt):
-        """Slot-sequential decisions over the first `depth` mailbox
-        columns, all nodes at once.  Returns (friends, cnt, emission dst,
+    def process_shards(breakup: bool, mboxes, depths, keys, friends, cnts,
+                       ids):
+        """Slot-sequential decisions over each shard's first `depths[i]`
+        mailbox columns, all rows at once, the shards in lockstep: a
+        slot's draws for every shard in one call (`keys`: (S, 2), a key a
+        shard; `ids`: each shard's global row ids, read by the breakup
+        decisions only).  Updates the `friends`
+        and `cnts` lists in place; returns each shard's (emission dst,
         emission toff, processed count)."""
-        dev = mbox.device
-        em_dst = torch.full((n, depth), -1, dtype=I32, device=dev)
-        em_toff = torch.zeros((n, depth), dtype=I32, device=dev)
-        done = torch.zeros((), dtype=I32, device=dev)
-        ids = torch.arange(n, dtype=I32, device=dev) if breakup else None
-        for sl in range(depth):
-            pay = mbox[:, sl]
-            has = pay >= 0
-            src = torch.where(has, pay // b, 0)
-            kk = _rng.fold_in(key, sl)
+        dev = keys.device
+        out = [(torch.full((rows_n, d), -1, dtype=I32, device=dev),
+                torch.zeros((rows_n, d), dtype=I32, device=dev),
+                torch.zeros((), dtype=I32, device=dev)) for d in depths]
+        if breakup:
+            ids_all = torch.stack(ids)
+        zero = torch.zeros(rows_n, dtype=I32, device=dev)
+        for sl in range(max(depths, default=0)):
+            kk = _rng.fold_in(keys, sl)
+            pays = [mb[:, sl] if d > sl else zero - 1
+                    for mb, d in zip(mboxes, depths)]
+            srcs = [torch.where(p >= 0, p // b, 0) for p in pays]
             if breakup:
-                friends, cnt, dst, mask = bk_slot_fn(
-                    n, fanout, friends, cnt, src, has, ids, kk)
+                draws = breakup_draw(n, kk, torch.stack(srcs), ids_all)
             else:
-                friends, cnt, dst, mask = mk_slot_fn(
-                    fanin, friends, cnt, src, has, kk)
-            em_dst[:, sl] = torch.where(mask, dst, -1)
-            em_toff[:, sl] = torch.where(has, pay % b, 0)
-            done += has.sum(dtype=I32)
-        return friends, cnt, em_dst, em_toff, done
+                draws = makeup_draw(kk, torch.stack(cnts))
+            for i, (pay, src, d) in enumerate(zip(pays, srcs, depths)):
+                if d <= sl:
+                    continue
+                has = pay >= 0
+                if breakup:
+                    friends[i], cnts[i], dst, mask = bk_slot_fn(
+                        n, fanout, friends[i], cnts[i], src, has, ids[i],
+                        kk[i], draw=draws[i])
+                else:
+                    friends[i], cnts[i], dst, mask = mk_slot_fn(
+                        fanin, friends[i], cnts[i], src, has, kk[i],
+                        draw=draws[i])
+                em_dst, em_toff, done = out[i]
+                em_dst[:, sl] = torch.where(mask, dst, -1)
+                em_toff[:, sl] = torch.where(has, pay % b, 0)
+                done += has.sum(dtype=I32)
+        return out
+
+    def process(breakup: bool, mbox, depth: int, key, friends, cnt):
+        """process_shards on one device's rows.  Returns (friends, cnt,
+        emission dst, emission toff, processed count)."""
+        fr, cn = [friends], [cnt]
+        ids = [torch.arange(n, dtype=I32, device=mbox.device)] * breakup
+        (em_dst, em_toff, done), = process_shards(
+            breakup, [mbox], [depth], key[None], fr, cn, ids)
+        return fr[0], cn[0], em_dst, em_toff, done
 
     def step_fn(st: OverlayTickState, base_key) -> OverlayTickState:
         w = st.tick // b
@@ -310,6 +345,7 @@ def make_step_fn(cfg: Config):
         st.win_breakups += win_bk
         return st
 
+    step_fn.pieces = (drain, process_shards)
     return step_fn
 
 
@@ -337,7 +373,8 @@ def quiesced(st: OverlayTickState) -> torch.Tensor:
             & (st.tick > 0))
 
 
-def run_call_budget(cfg: Config) -> int:
+def run_call_budget(cfg: Config, shards: int = 1) -> int:
     """Poll windows per bounded call of overlay_run_to_quiescence (the
-    JAX package's watchdog budget: 2e7 / n, capped at 1024)."""
-    return max(1, min(1024, int(2e7 // max(cfg.n, 1))))
+    JAX package's watchdog budget: 2e7 / n, capped at 1024; `shards`
+    scales it for the sharded overlay before the clamp)."""
+    return max(1, min(1024, int(2e7 * shards // max(cfg.n, 1))))

@@ -100,7 +100,7 @@ class SimState:
     rumor_words: torch.Tensor  # int64[n, W | 1, 1]  uint32 bit words
     rumor_recv: torch.Tensor  # int32[W*32 | 1]  per-rumor infected count
     rumor_done: torch.Tensor  # int32[W*32 | 1]  tick rumor hit target (-1)
-    exch_counts: torch.Tensor  # int32[1, 1]  (the ring engine runs unsharded)
+    exch_counts: torch.Tensor  # int32[1, S + 2 | 1]  a shard's route counts
 
 
 @dataclasses.dataclass

@@ -27,7 +27,9 @@ Spatial panels (``-telemetry-spatial on``): a route given the shards'
 destination shard (overflowed lanes left out, so a column of the traffic
 matrix sums to what that shard received), the valid slots of the first
 payload it received, and its bucket overflow.  The delivered bits are
-the same either way.
+the same either way.  Counting in place is the port's form of the JAX
+package's ``ovf_split``/``ovf_join`` pair, which threads the leaf
+through its loop carries beside the overflow scalar.
 
 ``-exchange-pipeline double`` keeps this serial route: one process holds
 every shard, so there is no collective for a staged drain to overlap
@@ -159,6 +161,27 @@ def route_multi(payloads, dest, valid, n_shards: int, cap: int,
     if traffic is not None:
         _count_traffic(traffic, packs, recvs)
     return recvs, [ovf for _, ovf, _ in packs]
+
+
+def route_one(payload, dest, valid, n_shards: int, cap: int,
+              sort_buckets: bool | None = None, traffic=None):
+    """route_multi of one int32 ``(M,)`` payload per source shard: returns
+    (per destination shard its ``(S*cap,)`` received payload, per source
+    shard its overflow)."""
+    recvs, overflow = route_multi([(p,) for p in payload], dest, valid,
+                                  n_shards, cap, sort_buckets=sort_buckets,
+                                  traffic=traffic)
+    return [r[0] for r in recvs], overflow
+
+
+def pack_dst_slot(dst_local, dslot, d: int):
+    """(local destination, ring slot) as one wire word, dst_local * d +
+    dslot (valid while n_local * d < 2^31)."""
+    return dst_local * d + dslot
+
+
+def unpack_dst_slot(packed, d: int):
+    return packed // d, packed % d
 
 
 def epidemic_cap(n_local: int, k: int, n_shards: int, safety: int = 4) -> int:

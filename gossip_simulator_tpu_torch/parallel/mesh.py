@@ -17,6 +17,8 @@ collective, and each collective is a tensor operation over the list.
   shard order (the heal's peer bits and rumor words).
 * ``axis_index`` is the shard's position in the loop.
 
+Every engine and both overlays run on this layout (the event engine,
+PushSum, the ring engine, the tick-faithful and the rounds overlay).
 Multi-process and multi-device layouts (``torch.distributed``) are not
 yet ported (ROADMAP A13, A14).
 """

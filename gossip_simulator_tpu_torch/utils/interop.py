@@ -338,3 +338,102 @@ def sharded_pushsum_state_to_numpy(states: list) -> dict:
     """A JAX-package sharded PushSum state dict from the port's per-shard
     PushSumStates."""
     return _join_shards([pushsum_state_to_numpy(st) for st in states])
+
+
+# The sharded ring engine's SimState: node leaves split into row blocks,
+# the delay rings (d, n) and the SIR schedule into column blocks; the
+# crash clock and rumor words where they are full size (else replicated
+# placeholders, as the rumor leaves always are at S > 1).
+_SIM_NODE = ("received", "crashed", "removed", "friends", "friend_cnt")
+_SIM_COLS = ("pending", "rebroadcast")
+
+
+def _split_sim(tree: dict, n_shards: int) -> list[dict]:
+    n = int(np.shape(tree["received"])[0])
+    nl = n // n_shards
+    trees = []
+    for i in range(n_shards):
+        t = {}
+        for k, v in tree.items():
+            a = np.asarray(v)
+            if k in _SIM_NODE or (k in ("down_since", "rumor_words")
+                                  and a.shape[0] == n):
+                t[k] = a[i * nl:(i + 1) * nl]
+            elif k in _SIM_COLS:
+                t[k] = a[:, i * nl:(i + 1) * nl]
+            elif k == "exch_counts":
+                t[k] = a[i:i + 1]
+            else:
+                t[k] = a
+        trees.append(t)
+    return trees
+
+
+def _join_sim(trees: list[dict]) -> dict:
+    tree = dict(trees[0])
+    nl = int(np.shape(trees[0]["received"])[0])
+    for k in trees[0]:
+        a = np.asarray(trees[0][k])
+        if k in _SIM_NODE or k == "exch_counts" or (
+                k in ("down_since", "rumor_words") and a.shape[0] == nl):
+            tree[k] = np.concatenate([t[k] for t in trees])
+        elif k in _SIM_COLS:
+            tree[k] = np.concatenate([t[k] for t in trees], axis=1)
+    return tree
+
+
+def sharded_sim_state_from_numpy(tree: dict, n_shards: int, device) -> list:
+    """The port's per-shard SimStates from a ring-engine state dict (the
+    JAX package's global sharded leaves, or a one-device state: the ring
+    engine's layout does not depend on S)."""
+    return [sim_state_from_numpy(t, device)
+            for t in _split_sim(tree, n_shards)]
+
+
+def sharded_sim_state_to_numpy(states: list) -> dict:
+    """A JAX-package sharded ring-engine state dict from the port's
+    per-shard SimStates."""
+    return _join_sim([sim_state_to_numpy(st) for st in states])
+
+
+# The sharded overlays: row blocks (the rounds overlay's emission rows
+# (cap, n) in column blocks), the tick-faithful overlay's packed rings
+# as S rings side by side with ring_cnt (S, dw), every other leaf (the
+# counters, the spill buffers) replicated.
+_OV_ROWS = ("friends", "friend_cnt", "boot_dst", "ring_dst", "ring_pay",
+            "ring_cnt")
+_OV_COLS = ("mk_dst", "bk_dst")
+
+
+def sharded_overlay_state_from_numpy(tree: dict, n_shards: int,
+                                     device) -> list:
+    """The port's per-shard overlay states from a JAX-package sharded
+    phase-1 dict of `n_shards` shards."""
+    trees = []
+    for i in range(n_shards):
+        t = {}
+        for k, v in tree.items():
+            a = np.asarray(v)
+            if k in _OV_ROWS:
+                rows = a.shape[0] // n_shards
+                t[k] = a[i * rows:(i + 1) * rows]
+            elif k in _OV_COLS:
+                cols = a.shape[1] // n_shards
+                t[k] = a[:, i * cols:(i + 1) * cols]
+            else:
+                t[k] = a
+        trees.append(t)
+    return [overlay_state_from_numpy(t, device) for t in trees]
+
+
+def sharded_overlay_state_to_numpy(states: list) -> dict:
+    """A JAX-package sharded phase-1 dict from the port's per-shard
+    overlay states."""
+    trees = [overlay_state_to_numpy(st) for st in states]
+    tree = dict(trees[0])
+    for k in tree:
+        if k in _OV_ROWS:
+            tree[k] = np.concatenate([t[k] for t in trees])
+        elif k in _OV_COLS:
+            tree[k] = np.concatenate([t[k] for t in trees], axis=1)
+    return tree

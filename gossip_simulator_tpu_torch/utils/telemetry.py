@@ -257,7 +257,11 @@ def gossip_probe(st, sir: bool, rumors: int = 0, inflight_hwm: int = 0,
 
 def overlay_probe(st):
     """One OVERLAY_COLS row from either overlay engine's state (the
-    tick-faithful engine's `tick`, the rounds engine's `round`)."""
+    tick-faithful engine's `tick`, the rounds engine's `round`), or from
+    the sharded overlays' shard list, whose counters are kept equal on
+    every shard (shard 0's are read)."""
+    if isinstance(st, list):
+        st = st[0]
     clock = st.tick if hasattr(st, "tick") else st.round
     return [clock, st.win_makeups, st.win_breakups, st.mailbox_dropped]
 

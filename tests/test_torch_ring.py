@@ -339,12 +339,12 @@ def test_slice_flags_validate_and_need_the_card(flags):
 
 @pytest.mark.parametrize("flags,match", (
     # The event engine's rumor axis runs on one device (A11) and on the
-    # sharded backend (A13.2); -distributed and the sharded overlay do
-    # not.
+    # sharded backend (A13.2), after the sharded overlay too (A13.4);
+    # -distributed does not.
     (["-engine", "event", "-rumors", "4", "-backend", "sharded",
       "-distributed"], r"not yet ported \(ROADMAP A13\)"),
-    (["-traffic", "stream", "-backend", "sharded", "-graph", "overlay"],
-     r"not yet ported \(ROADMAP A13\)"),
+    (["-traffic", "stream", "-backend", "sharded", "-graph", "overlay",
+      "-distributed"], r"not yet ported \(ROADMAP A13\)"),
     (["-engine", "ring", "-traffic", "stream"], "requires the event engine"),
     (["-engine", "ring", "-rumors", "4", "-protocol", "sir"],
      "protocol=si only"),
@@ -354,9 +354,10 @@ def test_slice_flags_validate_and_need_the_card(flags):
     (["-engine", "event", "-time-mode", "rounds"], "engine=event supports"),
     (["-engine", "ring", "-rumors", "4", "-overlay-heal", "on"],
      "ring-engine heal re-sends are single-rumor"),
-    # Push-pull on -graph erdos is ported (A3); the sharded backend is not.
-    (["-protocol", "pushpull", "-graph", "erdos", "-backend", "sharded"],
-     r"ROADMAP A13")))
+    # Push-pull on -graph erdos is ported (A3), on the sharded backend too
+    # (A13.4); across processes it is not.
+    (["-protocol", "pushpull", "-graph", "erdos", "-backend", "sharded",
+      "-distributed"], r"ROADMAP A13")))
 def test_slice_rules_match_the_jax_package(flags, match):
     argv = ["-graph", "kout", "-n", "100"] + flags
     with pytest.raises(ValueError, match=match):

@@ -27,6 +27,7 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+from gossip_simulator_tpu import config as jcfg
 from gossip_simulator_tpu.ops import mailbox as jmailbox
 from gossip_simulator_tpu.ops import pallas_megakernel as jmk
 from gossip_simulator_tpu.parallel import exchange as jex
@@ -114,6 +115,31 @@ def test_route_matches_the_jax_package(s, m, cap):
         assert [int(o) for o in ovf1] == want_ovf.tolist()
     if cap < 100:
         assert want_ovf.sum() > 0  # the overflow case is exercised
+
+
+@pytest.mark.parametrize("s,m,cap", ((2, 300, 60), (8, 512, 24)))
+def test_route_one_and_the_wire_packing_match_the_jax_package(s, m, cap):
+    """route_one is route_multi of one payload (the JAX package's
+    route_one's buffers and overflow), and the ring engine's wire word
+    packs (local destination, ring slot) as the JAX package's
+    pack_dst_slot does, unpacking to the same pair."""
+    d = _route_inputs(2 * s + cap, s, m)
+    d["rows"] = d["rows"][:, :, :0]
+    want, want_ovf = _jax_route(d, s, cap, None)
+    recv, ovf = tex.route_one([T(w) for w in d["wire"]],
+                              [T(x) for x in d["dest"]],
+                              [T(x) for x in d["valid"]], s, cap)
+    assert [int(o) for o in ovf] == want_ovf.tolist()
+    assert all(np.array_equal(r.numpy(), want[0][i])
+               for i, r in enumerate(recv))
+    dst = np.arange(0, 4000, 7, dtype=np.int32)
+    slot = (dst % 13).astype(np.int32)
+    packed = jex.pack_dst_slot(jnp.asarray(dst), jnp.asarray(slot), 13)
+    got = tex.pack_dst_slot(T(dst), T(slot), 13)
+    assert np.array_equal(got.numpy(), np.asarray(packed))
+    for a, b in zip(tex.unpack_dst_slot(got, 13),
+                    jex.unpack_dst_slot(packed, 13)):
+        assert np.array_equal(a.numpy(), np.asarray(b))
 
 
 @pytest.mark.parametrize("n_local,k,s", ((1250, 6, 8), (10, 3, 2),
@@ -295,16 +321,42 @@ def test_one_shard_per_device_by_default():
     assert cfg.exchange_pipeline_resolved == "off"
 
 
+# The overlay, the ring engine, rounds and push-pull run on the sharded
+# backend (A13.4); across processes (-distributed and its flags) they do
+# not.
 @pytest.mark.parametrize("flags", (
-    ["-graph", "overlay"],
-    ["-engine", "ring"], ["-time-mode", "rounds"],
-    ["-protocol", "pushpull"], ["-distributed"],
+    ["-graph", "overlay", "-distributed"],
+    ["-engine", "ring", "-distributed"],
+    ["-time-mode", "rounds", "-distributed"],
+    ["-protocol", "pushpull", "-distributed"], ["-distributed"],
     ["-coordinator", "localhost:1"], ["-num-processes", "2"],
     ["-process-id", "0"]))
 def test_unported_sharded_combinations_name_a13(flags):
     with pytest.raises(tcfg.NotYetPorted, match=r"ROADMAP A13\)"):
         tcfg.parse_cli(["-backend", "sharded", "-graph", "kout", "-n",
                         "800"] + flags)
+
+
+@pytest.mark.parametrize("flags,engine", (
+    (["-graph", "overlay"], "event"),
+    (["-graph", "overlay", "-overlay-mode", "rounds"], "event"),
+    (["-engine", "ring"], "ring"), (["-time-mode", "rounds"], "ring"),
+    (["-protocol", "pushpull"], "ring")))
+def test_sharded_overlay_and_ring_combinations_run(flags, engine):
+    """What the rejections above used to refuse: validated as the JAX
+    package validates it, and a window of it on 2 shards on the CPU."""
+    argv = ["-backend", "sharded", "-graph", "kout", "-n", "800",
+            "-seed", "3"] + flags
+    cfg, _ = tcfg.parse_cli(argv)
+    jcfg.parse_args(argv)
+    assert cfg.engine_resolved == engine
+    st = ShardedStepper(cfg, n_devices=2, device="cpu")
+    st.init()
+    while not st.overlay_window()[2]:
+        pass
+    st.seed()
+    stats = st.gossip_window()
+    assert stats.total_received > 0 and len(st.state) == 2
 
 
 def test_shard_count_must_divide_n():

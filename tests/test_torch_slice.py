@@ -127,36 +127,39 @@ def test_sir_dieout_exit_status():
 
 @pytest.mark.parametrize("flags,item", (
     # Multi-rumor traffic runs on the event engine's sharded backend too
-    # (A13.2); on the overlay graph it does not.
-    (["-traffic", "stream", "-backend", "sharded"], "A13"),
+    # (A13.2), on the overlay graph as well (A13.4); across processes it
+    # does not.
+    (["-traffic", "stream", "-backend", "sharded", "-distributed"], "A13"),
     (["-n", "300000000"], "A18"),
-    # Fault scenarios and healing run on the sharded backend (A13.1) but
-    # with the overlay graph, the ring engine or their other neighbours
-    # still refused.
+    # Fault scenarios and healing run on the sharded backend (A13.1), with
+    # the overlay graph and the ring engine too (A13.4); across processes
+    # they do not.
     (["-overlay-mode", "rounds", "-overlay-heal", "on", "-backend",
-      "sharded"], "A13"),
+      "sharded", "-distributed"], "A13"),
     (["-overlay-mode", "ticks", "-n", "40000000"], "A17"),
     (["-n", "100000000", "-mailbox-cap", "16", "-overlay-mode", "ticks"],
      "A17"),
     (["-graph", "erdos", "-backend", "sharded", "-scenario", CHURN,
-      "-engine", "ring"], "A13"),
-    (["-graph", "overlay", "-backend", "sharded", "-overlay-heal", "on"],
-     "A13"),
+      "-engine", "ring", "-distributed"], "A13"),
+    (["-graph", "overlay", "-backend", "sharded", "-overlay-heal", "on",
+      "-distributed"], "A13"),
     (["-graph", "kout", "-rumors", "4", "-overlay-heal", "on", "-backend",
       "sharded", "-distributed"], "A13"),
     (["-graph", "kout", "-serve"], "A14"),
     (["-graph", "kout", "-supervise"], "A14"),
-    # -backend sharded is ported for the event engine and PushSum (A13,
-    # first part); its overlay and ring engines are not.
-    (["-graph", "overlay", "-backend", "sharded"], "A13"),
+    # -backend sharded runs every engine and graph on one card (A13.1-
+    # A13.5); across processes it does not.
+    (["-graph", "overlay", "-backend", "sharded", "-distributed"], "A13"),
     (["-graph", "kout", "-distributed"], "A13"),
     (["-graph", "kout", "-backend", "native"], "A16"),
     # Checkpoints run (slice 16, A7); the worker pool does not.
     (["-graph", "kout", "-workers", "4"], "A14"),
     (["-graph", "kout", "-tuning-table", "off"], "A15"),
     (["-graph", "kout", "-backend", "sharded", "-pallas", "-scenario",
-      CHURN, "-overlay-heal", "on", "-time-mode", "rounds"], "A13"),
-    (["-graph", "kout", "-engine", "ring", "-backend", "sharded"], "A13"),
+      CHURN, "-overlay-heal", "on", "-time-mode", "rounds",
+      "-distributed"], "A13"),
+    (["-graph", "kout", "-engine", "ring", "-backend", "sharded",
+      "-distributed"], "A13"),
     # The reference flags the port parses without running them (C2).
     (["-graph", "kout", "-traffic", "stream", "-arrivals", "poisson",
       "-backend", "sharded", "-serve"], "A14"),
